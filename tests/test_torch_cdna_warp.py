@@ -1,0 +1,146 @@
+"""Port parity: ``visual_foresight_torch.ops`` (cdna_warp + the plain CDNA
+tail) against the JAX package's ``ops/cdna_warp.py`` and the Pallas tail
+kernels in interpret mode.  Inputs come from numpy with a fixed seed.
+
+Tolerances: f32 1e-5 (the same arithmetic in another summation order);
+bf16 2e-2 (both sides round the [0, 1] outputs to bf16, whose ulp is
+7.8e-3 near 1, and JAX rounds its bf16 effective kernels as well)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from visual_foresight_tpu.ops import cdna_warp as jwarp
+from visual_foresight_tpu.ops.pallas_cdna import (fused_warp_composite,
+                                                  fused_warp_composite_chw)
+from visual_foresight_torch.ops import cdna_warp as twarp
+from visual_foresight_torch.ops import cdna_tail
+
+F32_TOL = 1e-5
+BF16_TOL = 2e-2
+B, H, W, C, P, K, M = 4, 16, 24, 3, 1, 5, 4
+
+
+def _inputs(seed=0, p=P, sna=True):
+    rng = np.random.RandomState(seed)
+    offset = 2 if sna else 1
+    masks = rng.randn(B, H, W, M + offset).astype(np.float32)
+    masks = np.exp(masks) / np.exp(masks).sum(-1, keepdims=True)
+    return {
+        'prev': rng.rand(B, H, W, C).astype(np.float32),
+        'first': rng.rand(B, H, W, C).astype(np.float32),
+        'pd': rng.rand(B, H, W, p).astype(np.float32),
+        'fd': rng.rand(B, H, W, p).astype(np.float32),
+        'kernels': np.asarray(jwarp.normalize_kernels(
+            jnp.asarray(rng.rand(B, K, K, M).astype(np.float32)))),
+        'masks': masks.astype(np.float32),
+        'raw': rng.randn(B, K, K, M).astype(np.float32),
+        'transformed': rng.rand(B, H, W, C, M).astype(np.float32),
+    }
+
+
+def _t(x, dtype=torch.float32):
+    return torch.tensor(np.asarray(x, np.float32)).to(dtype)
+
+
+def _close(got, want, tol):
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
+                     np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    assert err <= tol, 'max abs err {} > {}'.format(err, tol)
+
+
+CASES = {
+    'normalize_kernels': lambda d, m: m.normalize_kernels(d['raw']),
+    'extract_patches': lambda d, m: m.extract_patches(d['prev'], K),
+    'cdna_warp': lambda d, m: m.cdna_warp(d['prev'], d['kernels']),
+    'effective_pixel_kernels': lambda d, m: m.effective_pixel_kernels(
+        d['kernels'], d['masks'], 2),
+    'dna_warp': lambda d, m: m.dna_warp(
+        d['prev'], m.effective_pixel_kernels(d['kernels'], d['masks'], 2)),
+    'composite': lambda d, m: m.composite(d['prev'], d['transformed'],
+                                          d['masks'][..., :M + 1]),
+    'warp_distribution': lambda d, m: m.warp_distribution(
+        d['pd'], d['fd'], d['kernels'], d['masks'][..., 1:]),
+    'warp_distribution_raw': lambda d, m: m.warp_distribution(
+        d['pd'], d['fd'], d['kernels'], d['masks'][..., 1:],
+        renormalize=False),
+}
+
+
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_cdna_warp_function_matches_jax(name):
+    d = _inputs()
+    want = CASES[name]({k: jnp.asarray(v) for k, v in d.items()}, jwarp)
+    got = CASES[name]({k: _t(v) for k, v in d.items()}, twarp)
+    _close(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize('sna', [True, False])
+def test_plain_tail_matches_both_pallas_kernels(sna):
+    d = _inputs(1, sna=sna)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    offset = 2 if sna else 1
+    want_eff = fused_warp_composite(j['prev'], j['first'], j['pd'], j['fd'],
+                                    j['kernels'], j['masks'], sna=sna,
+                                    block_b=2, interpret=True)
+    eff = jwarp.effective_pixel_kernels(j['kernels'], j['masks'], offset)
+    want_chw = fused_warp_composite_chw(j['prev'], j['first'], j['pd'],
+                                        j['fd'], eff, j['masks'][..., :offset],
+                                        sna=sna, block_b=2, interpret=True)
+    before = cdna_tail.fused_warp_composite.launches
+    got = cdna_tail.fused_warp_composite(
+        *(_t(d[k]) for k in ('prev', 'first', 'pd', 'fd', 'kernels',
+                             'masks')), sna=sna)
+    # a CPU tensor takes the plain version and launches nothing
+    assert cdna_tail.fused_warp_composite.launches == before
+    for want in (want_eff, want_chw):
+        _close(got[0], want[0], F32_TOL)
+        _close(got[1], want[1], F32_TOL)
+
+
+@pytest.mark.parametrize('sna', [True, False])
+def test_plain_tail_frame_only_matches_xla_tail(sna):
+    """P=0: the Pallas kernels cannot be the oracle (both raise
+    ZeroDivisionError in interpret mode with P=0), so hold the tail against
+    the JAX model's XLA tail (``models/cdna.py`` dna_warp + compositing)."""
+    d = _inputs(2, p=0, sna=sna)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    offset = 2 if sna else 1
+    eff = jwarp.effective_pixel_kernels(j['kernels'], j['masks'], offset)
+    want = j['prev'] * j['masks'][..., 0:1] + jwarp.dna_warp(j['prev'], eff)
+    if sna:
+        want = want + j['first'] * j['masks'][..., 1:2]
+    img, dist = cdna_tail.fused_warp_composite_reference(
+        *(_t(d[k]) for k in ('prev', 'first', 'pd', 'fd', 'kernels',
+                             'masks')), sna=sna)
+    _close(img, want, F32_TOL)
+    assert tuple(dist.shape) == (B, H, W, 0)
+
+
+def test_plain_tail_bf16_matches_pallas():
+    d = _inputs(3)
+    j = {k: jnp.asarray(v, jnp.bfloat16) for k, v in d.items()}
+    want = fused_warp_composite(j['prev'], j['first'], j['pd'], j['fd'],
+                                j['kernels'], j['masks'], sna=True,
+                                block_b=2, interpret=True)
+    got = cdna_tail.fused_warp_composite(
+        *(_t(d[k], torch.bfloat16) for k in ('prev', 'first', 'pd', 'fd',
+                                             'kernels', 'masks')), sna=True)
+    assert got[0].dtype == torch.bfloat16
+    _close(got[0], want[0], BF16_TOL)
+    _close(got[1], want[1], BF16_TOL)
+
+
+def test_tail_raises_on_a_device_without_a_kernel():
+    x = torch.zeros((1, 8, 8, 3), device='meta')
+    with pytest.raises(ValueError, match='no CDNA tail kernel'):
+        cdna_tail.fused_warp_composite(x, x, x[..., :1], x[..., :1],
+                                       torch.zeros((1, 5, 5, 2),
+                                                   device='meta'),
+                                       torch.zeros((1, 8, 8, 4),
+                                                   device='meta'))

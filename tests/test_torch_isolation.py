@@ -1,0 +1,54 @@
+"""The port stands alone: importing every module of ``visual_foresight_torch``
+and ``chip_smoke`` pulls in neither JAX nor the JAX package, and its entry
+points refuse to fall back to the CPU when no card is present."""
+
+import os
+import subprocess
+import sys
+
+import jax  # noqa: F401  (the suite keeps JAX on the CPU; see conftest)
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r'''
+import importlib, pkgutil, sys
+import visual_foresight_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax',
+                                            'visual_foresight_tpu')))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 12 else 0)
+'''
+
+
+def test_port_imports_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize('entry', ['predictor', 'planner'])
+def test_entry_points_need_a_card_unless_told_cpu(entry):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    from visual_foresight_torch.planners.cem import FusedCEMPlanner
+    from visual_foresight_torch.planners.gaussian import make_action_spec
+    from visual_foresight_torch.prediction.predictor import TorchPredictor
+    spec = make_action_spec({'initial_std': 0.05, 'initial_std_lift': 0.15,
+                             'initial_std_rot': 0.1, 'initial_std_grasp': 2,
+                             'nactions': 2, 'repeat': 2}, 3)
+    make = {'predictor': lambda **kw: TorchPredictor(
+                'unused', {'std_factor': 4}, **kw),
+            'planner': lambda **kw: FusedCEMPlanner(spec, 4, k_elite=2,
+                                                    **kw)}[entry]
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        make()
+    assert make(device='cpu').device.type == 'cpu'

@@ -1,0 +1,79 @@
+"""Carry flax parameters over to the port's modules.
+
+``params_from_flax`` takes a flax parameter tree whose leaves are numpy
+arrays (a caller that has JAX converts with ``jax.tree.map(np.asarray,
+...)``; this module reads no checkpoint format) and returns a ``state_dict``
+for :class:`models.cdna.CDNAPredictor` or any module built from
+``models/layers.py``:
+
+- a conv kernel, HWIO ``(kh, kw, in/groups, out)``, becomes OIHW; a
+  depthwise ``(kh, kw, 1, C)`` kernel so becomes ``(C, 1, kh, kw)``;
+- a 1x1 conv kernel ``(1, 1, in, out)`` becomes a linear ``(out, in)``
+  weight, as does a dense ``(in, out)`` kernel;
+- a LayerNorm's ``ln/scale`` and ``ln/bias`` become ``weight`` and ``bias``.
+
+Any leaf it cannot place raises.  ``load_flax_params`` also raises on a
+port parameter that the tree leaves unfilled.
+"""
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, dict) or hasattr(value, 'items'):
+            yield from _flatten(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def params_from_flax(tree):
+    """Flax parameter tree (nested dicts of numpy arrays, with or without
+    the top-level ``'params'`` collection) -> torch ``state_dict``."""
+    if 'params' in tree:
+        tree = tree['params']
+    state = {}
+    for path, leaf in _flatten(tree):
+        name = path[-1]
+        if len(path) >= 2 and path[-2] == 'ln' and name in ('scale', 'bias'):
+            key = '.'.join(path[:-2] + ('weight' if name == 'scale'
+                                        else 'bias',))
+            value = leaf
+        elif name == 'bias':
+            key, value = '.'.join(path[:-1] + ('bias',)), leaf
+        elif name == 'kernel' and leaf.ndim == 2:
+            key, value = '.'.join(path[:-1] + ('weight',)), leaf.T
+        elif name == 'kernel' and leaf.ndim == 4 and leaf.shape[:2] == (1, 1):
+            key, value = '.'.join(path[:-1] + ('weight',)), leaf[0, 0].T
+        elif name == 'kernel' and leaf.ndim == 4:
+            key = '.'.join(path[:-1] + ('weight',))
+            value = leaf.transpose(3, 2, 0, 1)
+        else:
+            raise ValueError('cannot place flax leaf {} of shape {}'.format(
+                '/'.join(path), leaf.shape))
+        if key in state:
+            raise ValueError('two flax leaves map to {}'.format(key))
+        state[key] = torch.tensor(
+            np.ascontiguousarray(value, dtype=np.float32))
+    return state
+
+
+def load_flax_params(module, tree):
+    """Load a flax tree into ``module``; raises on any flax leaf without a
+    port parameter, any port parameter without a flax leaf, or any shape
+    that disagrees."""
+    state = params_from_flax(tree)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise ValueError('flax tree does not match the module: unfilled {}, '
+                         'unconsumed {}'.format(missing, extra))
+    for key, value in state.items():
+        if tuple(own[key].shape) != tuple(value.shape):
+            raise ValueError('{}: flax gives {}, module has {}'.format(
+                key, tuple(value.shape), tuple(own[key].shape)))
+    module.load_state_dict(state)
+    return module

@@ -1,0 +1,107 @@
+"""Building blocks for the video-prediction models (PyTorch).
+
+Counterpart of ``visual_foresight_tpu/models/layers.py``.  Tensors are NHWC
+at every public boundary; convolutions run on NCHW views of channels-last
+memory, so no layout copy is made.  Submodule names follow the flax
+parameter names, so ``models/convert.py`` maps a flax tree one to one.
+"""
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch's default is 1e-5)
+
+
+def same_pad(in_size, stride, k):
+    """XLA 'SAME' padding: output = ceil(in/stride), (low, high) pad."""
+    out = -(-in_size // stride)
+    total = max((out - 1) * stride + k - in_size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_nhwc(x, conv, padding='VALID'):
+    """Apply an ``nn.Conv2d`` to an NHWC tensor with flax ``padding``
+    ('SAME' or 'VALID') and return NHWC."""
+    if padding == 'SAME':
+        (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+        ph = same_pad(x.shape[1], sh, kh)
+        pw = same_pad(x.shape[2], sw, kw)
+        x = F.pad(x, (0, 0) + pw + ph)
+    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias,
+                   stride=conv.stride, groups=conv.groups)
+    return out.permute(0, 2, 3, 1)
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell; state is (c, h), both (B, H, W, features).
+
+    Gates come from a convolution over concat([x, h]) split four ways in the
+    order i, g, f, o, with the forget-gate bias +1 folded in.
+
+    - dense: one KxK conv ``gates`` over concat([x, h]);
+    - ``separable``: depthwise KxK ``gates_dw`` + pointwise ``gates_pw``;
+    - ``external_x``: x is already the (B, H, W, 4*features) gate
+      pre-activation; only h goes through ``gates_dw`` + ``gates_pw``.
+
+    :param in_features: channels of x (unused with ``external_x``)
+    """
+
+    def __init__(self, in_features, features, kernel_size=(5, 5),
+                 separable=False, external_x=False, dtype=torch.float32):
+        super().__init__()
+        self.features = features
+        self.separable = separable
+        self.external_x = external_x
+        if kernel_size[0] % 2 == 0 or kernel_size[1] % 2 == 0:
+            raise ValueError('SAME gate convs need odd kernel sizes')
+        if external_x or separable:
+            ch = features if external_x else in_features + features
+            self.gates_dw = nn.Conv2d(ch, ch, kernel_size, groups=ch,
+                                      dtype=dtype)
+            self.gates_pw = nn.Linear(ch, 4 * features, dtype=dtype)
+        else:
+            self.gates = nn.Conv2d(in_features + features, 4 * features,
+                                   kernel_size, dtype=dtype)
+
+    def forward(self, state, x):
+        c, h = state
+        if self.external_x:
+            gates = x + self.gates_pw(conv_nhwc(h, self.gates_dw, 'SAME'))
+        elif self.separable:
+            xh = torch.cat([x, h], dim=-1)
+            gates = self.gates_pw(conv_nhwc(xh, self.gates_dw, 'SAME'))
+        else:
+            xh = torch.cat([x, h], dim=-1)
+            gates = conv_nhwc(xh, self.gates, 'SAME')
+        i, g, f, o = torch.split(gates, self.features, dim=-1)
+        i = torch.sigmoid(i)
+        f = torch.sigmoid(f + 1.0)
+        g = torch.tanh(g)
+        o = torch.sigmoid(o)
+        new_c = f * c + i * g
+        new_h = o * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+    @staticmethod
+    def initial_state(batch, height, width, features, dtype=torch.float32,
+                      device=None):
+        shape = (batch, height, width, features)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel (last) axis with flax's epsilon; the
+    statistics and the affine map run in f32 and the result is cast back to
+    the input dtype."""
+
+    def __init__(self, features):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
+                         self.bias.float(), eps=LN_EPS)
+        return y.to(x.dtype)

@@ -1,0 +1,68 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each source under ``visual_foresight_torch/csrc/`` is compiled by ``nvcc``
+for ``sm_90a`` into a shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds).  Libraries go to ``build/kernels/`` at
+the root of the checkout, named by a hash of their source, so an edited
+source is rebuilt and a stale library is never loaded.  A failed build
+raises.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and os.path.isfile(os.path.join(root, 'bin', 'nvcc')):
+            return os.path.join(root, 'bin', 'nvcc')
+    raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                       'toolkit (set CUDA_HOME or put nvcc on PATH)')
+
+
+def library_path(source):
+    """Where the library built from ``csrc/<source>`` lives."""
+    text = (CSRC / source).read_bytes() + ' '.join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
+    return BUILD_DIR / '{}-{}.so'.format(Path(source).stem, digest)
+
+
+def build(source):
+    """Compile ``csrc/<source>`` unless its library exists; return the
+    library path and the compiler's ``-Xptxas -v`` report."""
+    so = library_path(source)
+    log = so.with_suffix('.ptxas.txt')
+    if so.is_file() and log.is_file():
+        return so, log.read_text()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix('.so.tmp{}'.format(os.getpid()))
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+                           str(CSRC / source)],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError('nvcc failed on {} (exit {}):\n{}{}'.format(
+            source, proc.returncode, proc.stdout, proc.stderr))
+    report = proc.stdout + proc.stderr
+    log.write_text(report)
+    os.replace(tmp, so)
+    return so, report
+
+
+@functools.lru_cache(maxsize=None)
+def load(source):
+    """Build (if needed) and load ``csrc/<source>`` as a ctypes library."""
+    so, _ = build(source)
+    return ctypes.CDLL(str(so))

@@ -1,0 +1,137 @@
+"""Fused CDNA warp-and-composite tail: the CUDA kernel and its plain version.
+
+Counterpart of ``visual_foresight_tpu/ops/pallas_cdna.py``.  The kernel
+(``csrc/cdna_tail.cu``) also folds in the mask x CDNA-kernel contraction, so
+it takes the raw normalized CDNA kernels and the full mask stack, like the
+Pallas module's ``fused_warp_composite`` wrapper.
+
+Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
+or raises; a CPU tensor takes :func:`fused_warp_composite_reference`.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from visual_foresight_torch.ops import _build
+from visual_foresight_torch.ops.cdna_warp import (dna_warp,
+                                                  effective_pixel_kernels)
+
+SOURCE = 'cdna_tail.cu'
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_CHANNELS = 4
+_MAX_MASKS = 16
+
+
+def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
+                                   kernels, masks, sna=True):
+    """Plain version: ``effective_pixel_kernels`` + ``dna_warp`` +
+    compositing, computed in f32 and cast to the input dtype.
+
+    :param prev: (B, H, W, C) previous frame
+    :param first: (B, H, W, C) SNA background (ignored if ``sna`` is False)
+    :param prev_distrib: (B, H, W, P) pixel distributions (P may be 0)
+    :param first_distrib: (B, H, W, P)
+    :param kernels: (B, K, K, M) normalized CDNA kernels
+    :param masks: (B, H, W, M + (2 if sna else 1)) compositing masks
+    :return: (gen_image (B,H,W,C), gen_distrib_unnormalized (B,H,W,P))
+    """
+    offset = 2 if sna else 1
+    c = prev.shape[-1]
+    masks32 = masks.float()
+    eff = effective_pixel_kernels(kernels.float(), masks32, offset)
+    x = torch.cat([prev.float(), prev_distrib.float()], dim=-1)
+    out = x * masks32[..., 0:1]
+    if sna:
+        out = out + torch.cat([first.float(), first_distrib.float()],
+                              dim=-1) * masks32[..., 1:2]
+    out = out + dna_warp(x, eff)
+    return out[..., :c].to(prev.dtype), out[..., c:].to(prev_distrib.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The built kernel's C entry point, with its ctypes signature."""
+    fn = _build.load(SOURCE).cdna_tail_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna):
+    tensors = (prev, first, prev_distrib, first_distrib, kernels, masks)
+    names = ('prev', 'first', 'prev_distrib', 'first_distrib', 'kernels',
+             'masks')
+    for name, t in zip(names, tensors):
+        if t.device != prev.device:
+            raise ValueError('{} is on {}, prev on {}'.format(
+                name, t.device, prev.device))
+        if t.dtype != prev.dtype:
+            raise ValueError('{} is {}, prev is {}'.format(
+                name, t.dtype, prev.dtype))
+        if not t.is_contiguous():
+            raise ValueError('{} must be contiguous'.format(name))
+    if prev.dtype not in _DTYPES:
+        raise ValueError('unsupported dtype {}'.format(prev.dtype))
+    b, h, w, c = prev.shape
+    p = prev_distrib.shape[-1]
+    ksize, m = kernels.shape[1], kernels.shape[3]
+    offset = 2 if sna else 1
+    expect = {'first': (first, (b, h, w, c)),
+              'prev_distrib': (prev_distrib, (b, h, w, p)),
+              'first_distrib': (first_distrib, (b, h, w, p)),
+              'kernels': (kernels, (b, ksize, ksize, m)),
+              'masks': (masks, (b, h, w, m + offset))}
+    for name, (t, shape) in expect.items():
+        if tuple(t.shape) != shape:
+            raise ValueError('{} has shape {}, expected {}'.format(
+                name, tuple(t.shape), shape))
+    if not (1 <= c <= _MAX_CHANNELS and 0 <= p <= _MAX_CHANNELS):
+        raise ValueError('kernel takes 1..{0} frame and 0..{0} distribution '
+                         'channels, got C={1}, P={2}'.format(
+                             _MAX_CHANNELS, c, p))
+    if ksize not in (3, 5, 7) or not 1 <= m <= _MAX_MASKS or b > 65535:
+        raise ValueError('kernel takes K in (3, 5, 7), M <= {}, B <= 65535; '
+                         'got K={}, M={}, B={}'.format(_MAX_MASKS, ksize, m,
+                                                       b))
+
+
+def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
+                         masks, sna=True):
+    """Fused warp + composite of the frame and the pixel distributions.
+
+    Same contract (NHWC in and out) as
+    :func:`fused_warp_composite_reference`; all six tensors share one device
+    and one dtype (float32 or bfloat16) and are contiguous.  On a CUDA device
+    it launches ``csrc/cdna_tail.cu`` and counts the launch in
+    ``fused_warp_composite.launches``.
+    """
+    if prev.device.type == 'cpu':
+        return fused_warp_composite_reference(
+            prev, first, prev_distrib, first_distrib, kernels, masks, sna)
+    if prev.device.type != 'cuda':
+        raise ValueError('no CDNA tail kernel for device {}'.format(
+            prev.device))
+    _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna)
+    fn = _kernel()
+    b, h, w, c = prev.shape
+    p = prev_distrib.shape[-1]
+    out_img = torch.empty_like(prev)
+    out_distrib = torch.empty_like(prev_distrib)
+    with torch.cuda.device(prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
+                 first_distrib.data_ptr(), kernels.data_ptr(),
+                 masks.data_ptr(), out_img.data_ptr(), out_distrib.data_ptr(),
+                 b, h, w, c, p, kernels.shape[1], kernels.shape[3], int(sna),
+                 _DTYPES[prev.dtype], stream)
+    if err != 0:
+        raise RuntimeError('cdna_tail kernel launch failed: cudaError {}'
+                           .format(err))
+    fused_warp_composite.launches += 1
+    return out_img, out_distrib
+
+
+fused_warp_composite.launches = 0

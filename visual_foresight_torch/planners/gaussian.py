@@ -1,0 +1,126 @@
+"""Gaussian CEM action distribution (PyTorch).
+
+Counterpart of ``visual_foresight_tpu/planners/gaussian.py``: full-covariance
+sampling over the flattened (nactions*adim) plan via Cholesky, a
+per-dimension std table keyed by ``action_order``, repeat expansion, xy/theta
+truncation and the elite mean/covariance refit.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+MAX_ROT = np.pi / 4
+
+
+class ActionSpec(NamedTuple):
+    """Static description of the action distribution."""
+    adim: int
+    nactions: int
+    repeat: int
+    per_dim_std: tuple           # len adim, initial std per dim
+    clip_dims_xy: tuple          # dims clipped to +-2*initial_std (x/y)
+    clip_dims_rot: tuple         # dims clipped to +-pi/4 (theta)
+    rej_dims_xy: tuple           # dims rejection-bounded at 1.5*xy std
+    rej_dims_lift: tuple         # dims rejection-bounded at 1.5*lift std
+    xy_std: float
+    lift_std: float
+
+
+def make_action_spec(hp_dict, adim):
+    """Build an ActionSpec from controller hparams (initial_std,
+    initial_std_lift, initial_std_rot, initial_std_grasp, action_order,
+    nactions, repeat)."""
+    xy_std = hp_dict['initial_std']
+    lift_std = hp_dict['initial_std_lift']
+    table = {'x': xy_std, 'y': xy_std, 'z': lift_std,
+             'theta': hp_dict['initial_std_rot'],
+             'grasp': hp_dict['initial_std_grasp']}
+    order = hp_dict.get('action_order')
+    if order is not None:
+        stds = [table[a] for a in order]
+        clip_xy = tuple(i for i, a in enumerate(order) if a in ('x', 'y'))
+        clip_rot = tuple(i for i, a in enumerate(order) if a == 'theta')
+        rej_lift = tuple(i for i, a in enumerate(order) if a == 'z')
+    else:
+        stds = [table[n] for n in ['x', 'y', 'z', 'theta', 'grasp'][:adim]]
+        clip_xy = tuple(range(min(2, adim)))
+        clip_rot = (3,) if adim >= 4 else ()
+        rej_lift = (2,) if adim >= 3 else ()
+    return ActionSpec(adim=len(stds), nactions=hp_dict['nactions'],
+                      repeat=hp_dict['repeat'], per_dim_std=tuple(stds),
+                      clip_dims_xy=clip_xy, clip_dims_rot=clip_rot,
+                      rej_dims_xy=clip_xy, rej_dims_lift=rej_lift,
+                      xy_std=xy_std, lift_std=lift_std)
+
+
+def initial_sigma(spec: ActionSpec, reduce_std_dev: float = 1.0,
+                  reduce: bool = False, device=None):
+    """Diagonal covariance over the flattened plan."""
+    diag = np.tile(np.square(np.array(spec.per_dim_std)), spec.nactions)
+    if reduce:
+        diag[:(spec.nactions - 1) * spec.adim] *= reduce_std_dev
+    return torch.tensor(np.diag(diag), dtype=torch.float32, device=device)
+
+
+def initial_mean(spec: ActionSpec, device=None):
+    return torch.zeros(spec.adim * spec.nactions, device=device)
+
+
+def truncate(actions, spec: ActionSpec):
+    """Clip xy to +-2*xy_std and theta to +-pi/4 over (..., adim)."""
+    actions = actions.clone()
+    maxshift = 2.0 * spec.xy_std
+    for d in spec.clip_dims_xy:
+        actions[..., d] = actions[..., d].clamp(-maxshift, maxshift)
+    for d in spec.clip_dims_rot:
+        actions[..., d] = actions[..., d].clamp(-MAX_ROT, MAX_ROT)
+    return actions
+
+
+def sample_actions(mean, sigma, spec: ActionSpec, nsamples: int,
+                   action_bound: bool = True, generator=None, z=None):
+    """Draw nsamples plans, repeat-expanded to
+    (nsamples, nactions*repeat, adim).
+
+    The standard normals come from ``generator`` or are given as ``z``
+    (nsamples, nactions*adim).  A covariance that Cholesky cannot factor
+    (singular elite refits) falls back to its diagonal, without a host
+    synchronisation.
+    """
+    dim = spec.adim * spec.nactions
+    eye = torch.eye(dim, dtype=sigma.dtype, device=sigma.device)
+    chol, info = torch.linalg.cholesky_ex(sigma + 1e-10 * eye)
+    diag = torch.sqrt(torch.clamp(torch.diagonal(sigma), min=1e-12))
+    bad = (info != 0) | torch.isnan(chol)
+    chol = torch.where(bad, diag[:, None] * eye, chol)
+    if z is None:
+        z = torch.randn((nsamples, dim), generator=generator,
+                        device=sigma.device)
+    elif tuple(z.shape) != (nsamples, dim):
+        raise ValueError('z has shape {}, expected {}'.format(
+            tuple(z.shape), (nsamples, dim)))
+    flat = mean[None] + z.to(sigma.device) @ chol.T
+    actions = flat.reshape(nsamples, spec.nactions, spec.adim)
+    if action_bound:
+        actions = truncate(actions, spec)
+    return torch.repeat_interleave(actions, spec.repeat, dim=1)
+
+
+def fit_elites(elite_actions, spec: ActionSpec, blockdiag: bool = False):
+    """Refit (mean, sigma) from elite plans: keep one action per repeat
+    block, flatten, unbiased covariance."""
+    k = elite_actions.shape[0]
+    acts = elite_actions.reshape(k, spec.nactions, spec.repeat, spec.adim)
+    acts = acts[:, :, -1, :].reshape(k, spec.nactions * spec.adim)
+    mean = acts.mean(dim=0)
+    centered = acts - mean[None]
+    sigma = centered.T @ centered / max(k - 1, 1)
+    if blockdiag:
+        mask = np.zeros((spec.nactions * spec.adim,) * 2, np.float32)
+        for i in range(spec.nactions - 1):
+            a = i * spec.adim
+            mask[a:a + 2 * spec.adim, a:a + 2 * spec.adim] = 1.0
+        sigma = sigma * torch.tensor(mask, device=sigma.device)
+    return mean, sigma

@@ -1,0 +1,253 @@
+"""Predictor serving layer (PyTorch).
+
+Counterpart of ``visual_foresight_tpu/prediction/predictor.py``::
+
+    predictor = TorchPredictor(model_path, {'designated_pixel_count': 1, ...})
+    predictor.restore()
+    out = predictor({'context_frames': ..., 'context_actions': ...,
+                     'context_pixel_distributions': ...,
+                     'context_states': ...}, {'actions': actions})
+    out['predicted_frames']                # (M, T', ncam, H, W, 3) float32
+    out['predicted_pixel_distributions']   # (M, T', ncam, H, W, P)
+
+One ``CDNAPredictor`` module per camera lives in ``predictor.models``.
+Weights come from a numpy parameter file (``params.npz``: the flax tree
+flattened with '/'-joined keys) in each ``view<c>/`` directory, or from a
+seeded initialization.
+"""
+
+import copy
+import json
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from visual_foresight_torch.device import resolve_device
+from visual_foresight_torch.models.cdna import (CDNAPredictor,
+                                                broadcast_carry)
+from visual_foresight_torch.models.convert import load_flax_params
+
+PARAMS_FILE = 'params.npz'
+
+DEFAULT_HPARAMS = {
+    'designated_pixel_count': 1,
+    'run_batch_size': 200,
+    'sequence_length': 15,
+    'context_frames': 2,
+    'ncam': 1,
+    'img_dims': (48, 64),
+    'adim': 3,
+    'sdim': 3,
+    'num_masks': 10,
+    'kernel_size': 5,
+    'sna': True,
+    'dna': False,
+    'latent_dim': 0,
+    'dtype': 'bfloat16',
+    'separable_lstm': True,
+    'lstm_kernel': 5,
+    'std_factor': 0,
+    'enc_features': (32, 64, 128),
+    'renorm_distribs': False,
+    # the port's tail is always the CUDA kernel on the card; the TPU
+    # package's switch between its Pallas and XLA tails has no meaning here
+    'use_pallas_warp': False,
+    's2d_tail': False,
+    # the port's time loop is a Python loop, so there is nothing to unroll
+    'scan_unroll': 1,
+    'mask_softmax': 'fullres',
+    'fuse_decode': False,
+}
+
+# hparam values the port does not implement yet (each raises)
+_UNPORTED = {'dna': True, 's2d_tail': True, 'fuse_decode': True}
+
+_ARCH_KEYS = ('context_frames', 'num_masks', 'kernel_size', 'sna', 'dna',
+              'latent_dim', 'lstm_kernel', 'separable_lstm', 'adim', 'sdim',
+              'std_factor', 'enc_features')
+
+
+class TorchPredictor:
+    """Serves the action-conditioned video predictor on one device."""
+
+    def __init__(self, model_path, hparams=None, device='cuda'):
+        if isinstance(model_path, (list, tuple)) and model_path:
+            model_path = model_path[0]
+        self._model_path = model_path
+        hp = dict(DEFAULT_HPARAMS)
+        hp.update(hparams or {})
+        self._hp = hp
+        self.device = resolve_device(device)
+        self.models = None
+        self.restored = False
+        self._build_model()
+
+    @property
+    def n_context(self):
+        return self._hp['context_frames']
+
+    @property
+    def n_cam(self):
+        return self._hp['ncam']
+
+    @property
+    def dtype(self):
+        return torch.bfloat16 if self._hp['dtype'] == 'bfloat16' \
+            else torch.float32
+
+    def _build_model(self):
+        hp = self._hp
+        for key, value in _UNPORTED.items():
+            if hp[key] == value:
+                raise NotImplementedError('{}={} is not ported'.format(
+                    key, value))
+        if hp['latent_dim']:
+            raise NotImplementedError('latent_dim > 0 is not ported')
+        self.model = CDNAPredictor(
+            tuple(hp['img_dims']), n_context=hp['context_frames'],
+            num_masks=hp['num_masks'], kernel_size=hp['kernel_size'],
+            sna=hp['sna'], num_distribs=hp['designated_pixel_count'],
+            sdim=hp['sdim'], adim=hp['adim'], dtype=self.dtype,
+            enc_features=tuple(hp['enc_features']),
+            lstm_kernel=hp['lstm_kernel'],
+            separable_lstm=hp['separable_lstm'],
+            std_factor=hp['std_factor'],
+            renorm_distribs=hp['renorm_distribs'],
+            mask_softmax=hp['mask_softmax']).to(self.device).eval()
+
+    def _apply_model_config(self):
+        """Adopt the architecture recorded in ``model_config.json`` next to
+        the checkpoints, as ``TPUPredictor`` does."""
+        cfg_path = os.path.join(str(self._model_path), 'model_config.json')
+        if not os.path.isfile(cfg_path):
+            return
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        if 'enc_features' in cfg:
+            cfg['enc_features'] = tuple(cfg['enc_features'])
+        self._hp['enc_features'] = tuple(self._hp['enc_features'])
+        changed = {k: cfg[k] for k in _ARCH_KEYS
+                   if k in cfg and cfg[k] != self._hp[k]}
+        if not changed:
+            return
+        print('predictor: adopting model config from checkpoint dir '
+              '({})'.format(changed))
+        self._hp.update(changed)
+        self._build_model()
+
+    def init_params(self, seed=0):
+        """Seeded full-width weights: lecun-normal-like fan-in scaling
+        (std = 1/sqrt(fan_in)), zero biases, unit LayerNorm scales."""
+        gen = torch.Generator().manual_seed(int(seed))
+        state = {}
+        for name, p in self.model.state_dict().items():
+            if name.endswith('bias'):
+                state[name] = torch.zeros(p.shape)
+            elif p.dim() == 1:      # LayerNorm scale
+                state[name] = torch.ones(p.shape)
+            else:
+                fan_in = int(np.prod(p.shape[1:]))
+                state[name] = torch.randn(p.shape, generator=gen) / \
+                    np.sqrt(fan_in)
+        return state
+
+    def set_params(self, params_per_cam):
+        """One ``state_dict`` per camera."""
+        models = []
+        for c, state in enumerate(params_per_cam):
+            model = self.model if c == 0 else copy.deepcopy(self.model)
+            model.load_state_dict(state)
+            models.append(model)
+        self.models = models
+        return self
+
+    def restore(self):
+        """Load each camera's ``view<c>/params.npz``; where a view has none,
+        warn and use weights seeded with the camera index (``restored``
+        turns False), as ``TPUPredictor.restore`` does."""
+        self._apply_model_config()
+        states = []
+        self.restored = True
+        for c in range(self.n_cam):
+            path = os.path.join(str(self._model_path), 'view{}'.format(c),
+                                PARAMS_FILE)
+            if os.path.isfile(path):
+                with np.load(path) as f:
+                    tree = _unflatten({k: f[k] for k in f.files})
+                load_flax_params(self.model, tree)
+                states.append({k: v.clone() for k, v in
+                               self.model.state_dict().items()})
+                print('restored predictor params from {}'.format(path))
+            else:
+                warnings.warn('no numpy params at {}; using seeded random '
+                              'weights'.format(path))
+                states.append(self.init_params(seed=c))
+                self.restored = False
+        return self.set_params(states)
+
+    # -- reference calling convention ---------------------------------------
+    @torch.no_grad()
+    def __call__(self, context, action_dict):
+        """
+        :param context: dict with 'context_frames' (n_ctx, ncam, H, W, 3)
+            float [0,1] (or (1, n_ctx, ncam, ...)), 'context_actions'
+            (>= n_ctx-1, adim), 'context_states' (n_ctx, sdim) and
+            'context_pixel_distributions' (n_ctx, ncam, H, W, P)
+        :param action_dict: {'actions': (M, T_plan, adim)} candidate plans
+        :return: dict of numpy arrays 'predicted_frames'
+            (M, T', ncam, H, W, 3) and 'predicted_pixel_distributions'
+            (M, T', ncam, H, W, P), T' = T_plan + n_ctx - 1 - (n_ctx - 1)
+        """
+        if self.models is None:
+            raise RuntimeError('call restore() first')
+        n_ctx = self.n_context
+        frames = np.asarray(context['context_frames'], np.float32)
+        if frames.ndim == 6:
+            frames = frames[0]
+        distribs = np.asarray(context['context_pixel_distributions'],
+                              np.float32)
+        if distribs.ndim == 6:
+            distribs = distribs[0]
+        states = np.asarray(context['context_states'], np.float32)
+        if states.ndim == 3:
+            states = states[0]
+        states = states[-n_ctx:]
+        chosen = np.asarray(context.get(
+            'context_actions', np.zeros((n_ctx - 1, self._hp['adim']))),
+            np.float32)
+        ctx_actions = chosen[-(n_ctx - 1):] if n_ctx > 1 else chosen[:0]
+        frames_cam = np.swapaxes(frames[-n_ctx:], 0, 1)
+        distribs_cam = np.swapaxes(distribs[-n_ctx:], 0, 1)
+        actions = np.asarray(action_dict['actions'], np.float32)
+        M = actions.shape[0]
+
+        dev = lambda x: torch.as_tensor(x, device=self.device)
+        gen_i, gen_d = [], []
+        for c, model in enumerate(self.models):
+            carry = model.encode_context(
+                dev(frames_cam[c][None]), dev(ctx_actions[None]),
+                dev(states[None]), dev(distribs_cam[c][None]))
+            carry = broadcast_carry(carry, M)
+            out = model.rollout_from(carry, dev(actions))
+            gen_i.append(out['gen_images'])
+            gen_d.append(out['gen_distribs'])
+        return {
+            'predicted_frames':
+                torch.stack(gen_i, dim=2).cpu().numpy(),
+            'predicted_pixel_distributions':
+                torch.stack(gen_d, dim=2).cpu().numpy(),
+        }
+
+
+def _unflatten(flat):
+    """{'a/b/c': array} -> nested dicts."""
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split('/')
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree

@@ -3,22 +3,35 @@
 
     python3 chip_smoke.py
 
-1. prints the torch/CUDA versions and the card's name and power limit;
-2. builds ``visual_foresight_torch/csrc/cdna_tail.cu`` with nvcc for sm_90a
-   and prints ptxas's register, shared-memory and spill report;
+1. prints the torch/CUDA versions and the card's name and power limit, and
+   starts one nvcc per kernel source (``csrc/*.cu``, sm_90a), all at once;
+2. toolchain probe: ``add_one`` (``csrc/probe_add_one.cu``) on an (8, 128)
+   f32 array must give exactly ``x + 1``, before anything larger is tried;
 3. holds the CDNA tail kernel against its plain PyTorch version at the
-   serving shapes (B=200, 48x64, C=3, P=1, K=5, M=10, SNA) in bf16 and f32,
-   and with SNA off and with P=0 at a small batch;
-4. drives the serving replan: ``TorchPredictor`` at the xz_flagship config
-   (seeded weights, bf16) and ``FusedCEMPlanner`` with 200 samples x 15
-   steps x 3 iterations, for a few replans with fresh contexts; checks the
-   outputs, that the kernel ran 46 times per replan, and that one replan
-   with the plain tail gives the same elites and scores;
-5. times the replan, the kernel and its plain version, beside the bound.
+   serving shapes (B=200 and B=768, 48x64, C=3, P=1, K=5, M=10, SNA) in bf16
+   and f32, and with SNA off and with P=0 at a small batch;
+4. golden: the restored xz_flagship in f32 (TF32 off) replays the JAX
+   package's replan ``weights/xz_flagship/golden_replan_f32.npz`` (16
+   samples x 15 steps x 3 iterations, normals injected): scores, elites and
+   the elites' frames against the JAX numbers;
+5. drives the serving replan: ``TorchPredictor`` with the restored
+   xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
+   3 iterations, for a few replans with fresh contexts; checks the outputs,
+   46 kernel launches per replan, and that one replan with the plain tail
+   gives the same elites and scores;
+6. drives ``PixelCostController.act()`` at the xz_bench20 operating point
+   (768 samples, 15 actions x repeat 3 = 45 steps, 3 iterations, replan
+   every 10 steps, restored flagship, bf16) for 12 control steps on seeded
+   synthetic frames: 2 replans, 272 tail launches, finite actions;
+7. times the kernels and their plain versions beside their bounds, the
+   200-sample replan, and the controller's replan (host clock and CUDA
+   events), with a profiler breakdown of one replan of each.
 
-It prints one JSON line describing the kernels, then, as its last line,
-``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
-non-zero; without a CUDA card it exits non-zero before printing a result.
+Every predictor must restore the numpy weights (``restored=True``); a
+predictor on seeded weights raises.  It prints one JSON line describing the
+kernels, then, as its last line, ``{"ok": true, "device": {...}}``.  Any
+failed phase raises and exits non-zero; without a CUDA card it exits
+non-zero before printing a result.
 """
 
 import json
@@ -36,6 +49,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
+WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
+                       'xz_flagship')
 H, W, C, P, K, NUM_MASKS = 48, 64, 3, 1, 5, 10
 M, ITERS, NACT, REPEAT, N_CTX = 200, 3, 5, 3, 2
 T = NACT * REPEAT
@@ -46,6 +61,22 @@ TAIL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # planner scores through 15 bf16 steps, relative to the largest score
 SCORE_RTOL = 2e-2
 N_WARM, N_TIMED = 2, 10
+# f32 on the card (cuDNN and cuBLAS without TF32) against the JAX package's
+# f32 on the CPU: other summation orders through 46 full-width steps.
+# Measured on an H100: 5.0e-7 relative on the scores, 4.2e-6 on the frames;
+# bf16 anywhere in the path would miss both by two orders of magnitude.
+GOLDEN_SCORE_RTOL = 1e-4
+GOLDEN_FRAME_ATOL = 1e-4
+# xz_bench20's policy (benchmarks/xz_bench20/hparams.py; that file imports
+# the JAX package, so its values are written here)
+AG_PARAMS = {'adim': 3, 'sdim': 3, 'ncam': 1, 'image_height': H,
+             'image_width': W, 'T': 45}
+CTRL_POLICY = {'action_order': ['x', 'z', 'grasp'], 'initial_std_lift': 0.5,
+               'rejection_sampling': False, 'replan_interval': 10,
+               'num_samples': 768, 'nactions': 15, 'T': 45,
+               'model_path': WEIGHTS}
+CTRL_STEPS, CTRL_REPLANS, CTRL_TIMED = 12, 2, 5
+CTRL_LAUNCHES = CTRL_REPLANS * (1 + ITERS * CTRL_POLICY['T'])
 
 
 def card_line():
@@ -166,92 +197,160 @@ def profile_replan(run):
         print('  {:9.3f} ms {:5d}x  {}'.format(us / 1e3, n, name[:90]))
 
 
-def compare_replans(out_k, out_p):
-    """Kernel tail vs plain tail, same plans: scores within SCORE_RTOL of
-    the largest score and the same elites; where elites differ, each
-    swapped sample must score within that tolerance of the K-th elite, and
-    later iterations (sampled from a different refit) are not compared."""
-    kk = out_k['best_scores'].shape[0]
-    for itr in range(ITERS):
-        sk = out_k['scores_per_itr'][itr].float()
-        sp = out_p['scores_per_itr'][itr].float()
-        tol = SCORE_RTOL * float(sp.abs().max())
-        err = float((sk - sp).abs().max())
-        ek = set(torch.topk(-sk, kk).indices.tolist())
-        ep = set(torch.topk(-sp, kk).indices.tolist())
-        print('replan kernel vs plain tail, iteration {}: max score diff '
-              '{:.3e} (tol {:.3e}), elites equal: {}'.format(
-                  itr, err, tol, ek == ep))
+def compare_scores(label, got, want, k, rtol, per_element=False):
+    """Scores of two replans of the same plans, iteration by iteration:
+    within ``rtol`` (of each score, or of the largest score) with the same
+    ``k`` elites.  Where the elites differ, each swapped sample must score
+    within that tolerance of the k-th elite (a tie), and later iterations,
+    sampled from a different refit, are not compared.  Returns whether every
+    iteration had the same elites, and the largest error."""
+    worst = 0.0
+    for itr in range(len(want)):
+        sg = torch.as_tensor(got[itr]).float().cpu()
+        sw = torch.as_tensor(want[itr]).float().cpu()
+        diff = (sg - sw).abs()
+        if per_element:
+            err, tol = float((diff / sw.abs()).max()), rtol
+        else:
+            err, tol = float(diff.max()), rtol * float(sw.abs().max())
+        worst = max(worst, err)
+        eg = set(torch.topk(-sg, k).indices.tolist())
+        ew = set(torch.topk(-sw, k).indices.tolist())
+        print('{}, iteration {}: max score {} {:.3e} (tol {:.3e}), elites '
+              'equal: {}'.format(label, itr, 'rel err' if per_element
+                                 else 'diff', err, tol, eg == ew))
         if not err <= tol:
-            raise AssertionError('replan scores disagree with the plain tail')
-        if ek != ep:
-            kth = float(torch.topk(-sp, kk).values[-1].neg())
-            gap = max(abs(float(sp[i]) - kth) for i in ek ^ ep)
-            print('elites differ at the boundary: gap {:.3e}'.format(gap))
-            if not gap <= tol:
-                raise AssertionError('elite sets disagree beyond a tie')
-            return
+            raise AssertionError('{}: scores disagree'.format(label))
+        if eg != ew:
+            kth = float(torch.topk(-sw, k).values[-1].neg())
+            gap = max(abs(float(sw[i]) - kth) for i in eg ^ ew)
+            gap_tol = rtol * abs(kth) if per_element else tol
+            print('elites differ at the boundary: gap {:.3e} (tol {:.3e})'
+                  .format(gap, gap_tol))
+            if not gap <= gap_tol:
+                raise AssertionError('{}: elite sets disagree beyond a tie'
+                                     .format(label))
+            return False, worst
+    return True, worst
 
 
-def main():
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device available', file=sys.stderr)
-        return 1
-    from visual_foresight_torch.models import cdna as cdna_model
-    from visual_foresight_torch.ops import _build
-    from visual_foresight_torch.ops.cdna_tail import (
-        SOURCE, fused_warp_composite, fused_warp_composite_reference)
+def restored_predictor(dtype):
+    """``TorchPredictor`` on the card with the numpy flagship weights;
+    raises if they did not restore."""
+    from visual_foresight_torch.prediction.predictor import TorchPredictor
+    predictor = TorchPredictor(WEIGHTS, {'dtype': dtype},
+                               device='cuda').restore()
+    n_params = sum(p.numel() for p in predictor.models[0].parameters())
+    print('predictor ({}): restored={} params={}'.format(
+        dtype, predictor.restored, n_params))
+    if not predictor.restored:
+        raise AssertionError('the flagship weights did not restore')
+    return predictor
+
+
+def check_golden(spec_hp):
+    """Replay the JAX package's f32 replan of the restored flagship."""
+    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+    from visual_foresight_torch.planners.cem import FusedCEMPlanner
+    from visual_foresight_torch.planners.costs import distance_grid
+    from visual_foresight_torch.planners.gaussian import make_action_spec
+    with np.load(os.path.join(WEIGHTS, 'golden_replan_f32.npz')) as f:
+        g = {k: f[k] for k in f.files}
+    predictor = restored_predictor('float32')
+    k_elite, repeat = int(g['k_elite']), int(g['repeat'])
+    spec = make_action_spec(dict(spec_hp, nactions=int(g['nactions']),
+                                 repeat=repeat), 3)
+    planner = FusedCEMPlanner(spec, int(g['num_samples']),
+                              iterations=int(g['iterations']),
+                              k_elite=k_elite,
+                              finalweight=float(g['finalweight']),
+                              n_vis=int(g['n_vis']), device='cuda')
+    fused_warp_composite.launches = 0
+    out = planner.replan(
+        predictor.models, g['images'], g['states'], g['distribs'],
+        g['ctx_actions'], distance_grid(g['goal'], H, W, device='cuda'),
+        g['mean0'], g['sigma0'], noise=g['noise'])
+    torch.cuda.synchronize()
+    launches = fused_warp_composite.launches
+    want = 1 + int(g['iterations']) * int(g['nactions']) * repeat
+    print('golden path: {} tail kernel launches (expected {})'.format(
+        launches, want))
+    if launches != want:
+        raise AssertionError('the golden replan did not run the tail kernel '
+                             '{} times'.format(want))
+    same, score_err = compare_scores(
+        'golden f32 replay vs JAX', out['scores_per_itr'],
+        g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
+    # frames of the elites both sides returned, matched by sample index
+    idx = out['vis']['indices'].tolist()
+    pairs = [(idx.index(i), j) for j, i in
+             enumerate(g['vis_indices'].tolist()) if i in idx]
+    frame_err = None
+    if same and pairs:
+        frames = out['vis']['gen_images'][:, repeat - 1::repeat].cpu()
+        frame_err = max(float((frames[a] - torch.tensor(
+            g['vis_gen_images'][b])).abs().max()) for a, b in pairs)
+        print('golden frames of {} elites: max abs err {:.3e} (tol {:.0e})'
+              .format(len(pairs), frame_err, GOLDEN_FRAME_ATOL))
+        if not frame_err <= GOLDEN_FRAME_ATOL:
+            raise AssertionError('golden frames disagree with JAX')
+    else:
+        print('golden frames not compared: the elites differ at a tie')
+    return launches, score_err, frame_err
+
+
+def add_one_bound():
+    """Least time for add_one at the probe's shape on an H100 SXM."""
+    n = 8 * 128
+    t_bytes = 2 * 4 * n / PEAK_BYTES_PER_S
+    t_ops = n / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def print_report(source, report, seconds):
+    print('built {} in {:.1f} s'.format(source, seconds))
+    for line in report.splitlines():
+        if any(k in line for k in ('entry function', 'Used', 'spill')):
+            print('  ' + line.strip())
+
+
+def check_probe(gen):
+    """Toolchain probe: drive the probe once (counted), then hold add_one
+    against ``x + 1`` on random values.  Returns (launches, max_abs_err)."""
+    from visual_foresight_torch.ops.probe import (PROBE_SHAPE, add_one,
+                                                  add_one_reference,
+                                                  toolchain_probe)
+    add_one.launches = 0
+    toolchain_probe('cuda')
+    torch.cuda.synchronize()
+    launches = add_one.launches
+    print('toolchain probe: add_one(zeros{}) == 1 everywhere, {} launch'
+          .format(PROBE_SHAPE, launches))
+    if launches != 1:
+        raise AssertionError('the probe did not launch add_one once')
+    x = torch.randn(PROBE_SHAPE, generator=gen, device='cuda') * 1e3
+    got, want = add_one(x), add_one_reference(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print('add_one vs x + 1 at {}: max_abs_err={:.3e} (must be 0)'.format(
+        PROBE_SHAPE, err))
+    if not torch.equal(got, want):
+        raise AssertionError('add_one is not x + 1')
+    return launches, err
+
+
+def drive_replan_200(spec_hp):
+    """The 200-sample replan, on the restored weights in bf16: returns
+    (launches, host latencies, replan function, contexts, generator)."""
+    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import (initial_mean,
                                                           initial_sigma,
                                                           make_action_spec)
-    from visual_foresight_torch.prediction.predictor import TorchPredictor
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    card = card_line()
-    print('python {} torch {} cuda {}'.format(
-        sys.version.split()[0], torch.__version__, torch.version.cuda))
-    print('device: {} (count {})'.format(kind, torch.cuda.device_count()))
-    print(card)
-
-    # -- build ---------------------------------------------------------------
-    t0 = time.time()
-    _, report = _build.build(SOURCE)
-    print('built {} in {:.1f} s'.format(SOURCE, time.time() - t0))
-    for line in report.splitlines():
-        if any(k in line for k in ('entry function', 'Used', 'spill')):
-            print('  ' + line.strip())
-
-    # -- kernel against its plain version ------------------------------------
-    gen = torch.Generator(device='cuda').manual_seed(0)
-    err_bf16 = check_tail(gen, M, torch.bfloat16)
-    check_tail(gen, M, torch.float32)
-    for dtype in (torch.bfloat16, torch.float32):
-        check_tail(gen, 8, dtype, sna=False)
-        check_tail(gen, 8, dtype, p=0)
-        check_tail(gen, 8, dtype, sna=False, p=0)
-
-    # -- main path: the serving replan ----------------------------------------
-    predictor = TorchPredictor(
-        os.path.join(REPO, 'benchmarks', 'models', 'xz_flagship'), {
-            'designated_pixel_count': P, 'run_batch_size': M,
-            'sequence_length': T + N_CTX, 'context_frames': N_CTX,
-            'ncam': 1, 'img_dims': (H, W), 'adim': 3, 'sdim': 3,
-            'dtype': 'bfloat16', 'std_factor': 4,
-            'enc_features': (128, 256, 256), 'separable_lstm': True,
-            'lstm_kernel': 3}, device='cuda')
-    predictor.restore()
-    n_params = sum(p.numel() for p in predictor.models[0].parameters())
-    print('predictor: restored={} params={}'.format(predictor.restored,
-                                                     n_params))
-    spec = make_action_spec({
-        'initial_std': 0.05, 'initial_std_lift': 0.15,
-        'initial_std_rot': np.pi / 18, 'initial_std_grasp': 2,
-        'action_order': ['x', 'z', 'grasp'], 'nactions': NACT,
-        'repeat': REPEAT}, 3)
+    predictor = restored_predictor('bfloat16')
+    spec = make_action_spec(dict(spec_hp, nactions=NACT, repeat=REPEAT), 3)
     planner = FusedCEMPlanner(spec, M, iterations=ITERS, k_elite=10,
                               finalweight=10.0, action_bound=True,
                               n_vis=10, device='cuda')
@@ -282,12 +381,12 @@ def main():
         outs.append(out)
     launches = fused_warp_composite.launches
     want = LAUNCHES_PER_REPLAN * len(contexts)
-    print('main path: {} replans, {} tail kernel launches (expected {})'
-          .format(len(contexts), launches, want))
+    print('200-sample replan path: {} replans, {} tail kernel launches '
+          '(expected {} = {} per replan)'.format(
+              len(contexts), launches, want, LAUNCHES_PER_REPLAN))
     if launches != want:
-        raise AssertionError('the main path did not run the tail kernel '
-                             '{} times per replan'.format(
-                                 LAUNCHES_PER_REPLAN))
+        raise AssertionError('the replan did not run the tail kernel {} '
+                             'times per replan'.format(LAUNCHES_PER_REPLAN))
     for out in outs:
         shapes = {'best_actions': (10, T, 3), 'best_scores': (10,),
                   'scores_per_itr': (ITERS, M)}
@@ -302,8 +401,14 @@ def main():
             raise AssertionError('elite videos malformed')
     print('replan outputs finite; best score {:.4f}'.format(
         float(outs[-1]['best_scores'][0])))
+    return launches, latencies, replan, contexts, plan_gen
 
-    # -- the same replan with the plain tail on the card ----------------------
+
+def check_plain_tail_replan(replan, contexts, plan_gen):
+    """The same 200-sample replan with the plain tail on the card."""
+    from visual_foresight_torch.models import cdna as cdna_model
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_reference)
     noise = torch.randn((ITERS, M, NACT * 3), generator=plan_gen,
                         device='cuda')
     images, states = contexts[0]
@@ -314,10 +419,92 @@ def main():
     finally:
         cdna_model.fused_warp_composite = fused_warp_composite
     torch.cuda.synchronize()
-    compare_replans(out_k, out_p)
+    compare_scores('replan kernel vs plain tail', out_k['scores_per_itr'],
+                   out_p['scores_per_itr'], out_k['best_scores'].shape[0],
+                   SCORE_RTOL)
 
-    # -- times ----------------------------------------------------------------
-    sets = [tail_inputs(gen, M, torch.bfloat16) for _ in range(4)]
+
+def drive_controller():
+    """``PixelCostController.act()`` at the xz_bench20 operating point for
+    CTRL_STEPS control steps.  Returns (launches, controller, frames,
+    states)."""
+    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+    from visual_foresight_torch.policy.cem_controllers import (
+        PixelCostController)
+    ctrl = PixelCostController(AG_PARAMS, dict(CTRL_POLICY))
+    print('controller predictor: restored={}'.format(
+        ctrl.predictor.restored))
+    if not ctrl.predictor.restored:
+        raise AssertionError('the controller did not restore the flagship')
+    rng = np.random.RandomState(2)
+    frames = (rng.rand(CTRL_STEPS, 1, H, W, 3) * 255).astype(np.uint8)
+    states = (rng.randn(CTRL_STEPS, 3) * 0.05).astype(np.float32)
+    desig, goal = np.array([[[24, 32]]]), np.array([[[10, 50]]])
+    ctrl.reset()
+    fused_warp_composite.launches = 0
+    actions, n_samples = [], []
+    for t in range(CTRL_STEPS):
+        out = ctrl.act(t=t, i_tr=0, desig_pix=desig, goal_pix=goal,
+                       images=frames[:t + 1], state=states[:t + 1])
+        actions.append(np.asarray(out['actions'], np.float32))
+    torch.cuda.synchronize()
+    launches = fused_warp_composite.launches
+    print('controller path: {} act() steps, {} tail kernel launches '
+          '(expected {} = {} replans x (1 + {} x {}))'.format(
+              CTRL_STEPS, launches, CTRL_LAUNCHES, CTRL_REPLANS, ITERS,
+              CTRL_POLICY['T']))
+    if launches != CTRL_LAUNCHES:
+        raise AssertionError('the controller did not run the tail kernel '
+                             '{} times'.format(CTRL_LAUNCHES))
+    for a in actions:
+        if a.shape != (3,) or not np.isfinite(a).all():
+            raise AssertionError('controller action {} is malformed'.format(
+                a))
+    for itr in range(ITERS):
+        scores = out['plan_stat']['scores_itr{}'.format(itr)]
+        n_samples.append(scores.shape[-1])
+        if scores.shape != (CTRL_POLICY['num_samples'],) or \
+                not np.isfinite(scores).all():
+            raise AssertionError('controller scores_itr{} malformed'.format(
+                itr))
+    print('controller actions finite, shape (3,); scores_itr* lengths {}; '
+          'last action {}'.format(n_samples, actions[-1]))
+    return launches, ctrl, states
+
+
+def time_controller(ctrl, states, card):
+    """Host p50 of the controller's replan (``perform_CEM``, which ``act``
+    calls when a replan is due) and the device span of one replan (CUDA
+    events around it)."""
+    latencies = []
+    for _ in range(CTRL_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctrl.perform_CEM(states)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    ctrl.perform_CEM(states)
+    end.record()
+    torch.cuda.synchronize()
+    point = '768 samples x 45 steps x 48x64 x 3 iters, bf16'
+    print('controller_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
+          '[{}]'.format(float(np.percentile(latencies, 50)), point,
+                        CTRL_TIMED, ' '.join('{:.3f}'.format(x)
+                                             for x in latencies), card))
+    print('controller_replan_device_ms={:.3f} ({}, CUDA events around one '
+          'replan) [{}]'.format(start.elapsed_time(end), point, card))
+
+
+def time_tail(gen, b, card):
+    """Kernel and plain-version times of the tail at batch ``b`` (bf16),
+    beside its bound.  Returns (kernel_ms, plain_ms, bound_ms, bound_by)."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_reference)
+    sets = [tail_inputs(gen, b, torch.bfloat16) for _ in range(4)]
     kernel_ms = graph_ms(lambda *a: fused_warp_composite(*a, sna=True),
                          sets, reps=100)
     plain_ms = graph_ms(
@@ -325,25 +512,114 @@ def main():
         reps=10)
     bound_ms, bound_by = tail_bound(sets[0], fused_warp_composite_reference(
         *sets[0], sna=True), sna=True)
-    p50 = float(np.percentile(latencies, 50))
+    del sets
+    print('cdna_tail_kernel_ms={:.5f} (B={} bf16, CUDA graph, CUDA events) '
+          '[{}]'.format(kernel_ms, b, card))
+    print('cdna_tail_plain_ms={:.5f} (B={}, same inputs, CUDA graph, CUDA '
+          'events) [{}]'.format(plain_ms, b, card))
+    print('cdna_tail_bound_ms={:.5f} (B={}, by {}; H100 SXM 3.35 TB/s, 67 '
+          'TFLOP/s f32) [{}]'.format(bound_ms, b, bound_by, card))
+    return kernel_ms, plain_ms, bound_ms, bound_by
+
+
+def time_add_one(gen, card):
+    """add_one, its plain version and PyTorch's own add at the probe's
+    shape.  Returns (kernel_ms, plain_ms, library_ms)."""
+    from visual_foresight_torch.ops.probe import (PROBE_SHAPE, add_one,
+                                                  add_one_reference)
+    sets = [(torch.randn(PROBE_SHAPE, generator=gen, device='cuda'),)
+            for _ in range(4)]
+    kernel_ms = graph_ms(add_one, sets, reps=100)
+    plain_ms = graph_ms(add_one_reference, sets, reps=100)
+    library_ms = graph_ms(lambda x: torch.add(x, 1.0), sets, reps=100)
+    bound_ms, bound_by = add_one_bound()
+    print('add_one_kernel_ms={:.5f} plain_ms={:.5f} library_ms={:.5f} '
+          '(torch.add) bound_ms={:.7f} (by {}) ({} f32, CUDA graph of 100 '
+          'launches, CUDA events) [{}]'.format(kernel_ms, plain_ms,
+                                               library_ms, bound_ms,
+                                               bound_by, PROBE_SHAPE, card))
+    return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device available', file=sys.stderr)
+        return 1
+    from visual_foresight_torch.ops import _build, cdna_tail, probe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    print('python {} torch {} cuda {}'.format(
+        sys.version.split()[0], torch.__version__, torch.version.cuda))
+    print('device: {} (count {})'.format(kind, torch.cuda.device_count()))
+    print(card)
+
+    # -- builds: one nvcc per kernel, all started together -------------------
+    t0 = time.time()
+    builds = _build.build_concurrently([probe.SOURCE, cdna_tail.SOURCE])
+
+    # -- 1. toolchain probe ----------------------------------------------------
+    print_report(probe.SOURCE, builds[probe.SOURCE].result()[1],
+                 time.time() - t0)
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    probe_launches, probe_err = check_probe(gen)
+
+    # -- 2. tail kernel against its plain version ------------------------------
+    print_report(cdna_tail.SOURCE, builds[cdna_tail.SOURCE].result()[1],
+                 time.time() - t0)
+    err_bf16 = max(check_tail(gen, b, torch.bfloat16)
+                   for b in (M, CTRL_POLICY['num_samples']))
+    check_tail(gen, M, torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        check_tail(gen, 8, dtype, sna=False)
+        check_tail(gen, 8, dtype, p=0)
+        check_tail(gen, 8, dtype, sna=False, p=0)
+
+    # -- 3. golden: the JAX package's f32 replan, replayed -----------------------
+    spec_hp = {'initial_std': 0.05, 'initial_std_lift': 0.15,
+               'initial_std_rot': np.pi / 18, 'initial_std_grasp': 2,
+               'action_order': ['x', 'z', 'grasp']}
+    golden_launches, _, _ = check_golden(spec_hp)
+
+    # -- 4. the 200-sample replan on the restored weights ----------------------
+    replan_launches, latencies, replan, contexts, plan_gen = \
+        drive_replan_200(spec_hp)
+    check_plain_tail_replan(replan, contexts, plan_gen)
+
+    # -- 5. the controller at the xz_bench20 operating point ---------------------
+    ctrl_launches, ctrl, ctrl_states = drive_controller()
+
+    # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
-          'bf16, host clock, {} replans) [{}]'.format(p50, N_TIMED, card))
-    print('cdna_tail_kernel_ms={:.5f} (B=200 bf16, CUDA graph, CUDA '
-          'events) [{}]'.format(kernel_ms, card))
-    print('cdna_tail_plain_ms={:.5f} (same inputs, CUDA graph, CUDA '
-          'events) [{}]'.format(plain_ms, card))
-    print('cdna_tail_bound_ms={:.5f} (by {}; H100 SXM 3.35 TB/s, 67 TFLOP/s '
-          'f32) [{}]'.format(bound_ms, bound_by, card))
-
+          'bf16, restored flagship, host clock, {} replans) [{}]'.format(
+              float(np.percentile(latencies, 50)), N_TIMED, card))
+    time_tail(gen, M, card)
+    tail_times = time_tail(gen, CTRL_POLICY['num_samples'], card)
+    add_one_times = time_add_one(gen, card)
+    time_controller(ctrl, ctrl_states, card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
+    profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
 
+    kernel_ms, plain_ms, bound_ms, bound_by = tail_times
+    a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     print(json.dumps({'kernels': [{
         'name': 'cdna_tail', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
-        'launches': launches, 'max_abs_err': err_bf16, 'ms': kernel_ms,
-        'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': None}]}))
+        'launches': ctrl_launches,
+        'launches_by_path': {'golden': golden_launches,
+                             'replan_200': replan_launches,
+                             'controller': ctrl_launches},
+        'max_abs_err': err_bf16, 'ms': kernel_ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}, {
+        'name': 'add_one', 'route': 'cuda',
+        'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
+        'replaces': 'scripts/pallas_device_probe.py:92',
+        'launches': probe_launches, 'max_abs_err': probe_err, 'ms': a_ms,
+        'plain_ms': a_plain, 'bound_ms': a_bound, 'bound_by': a_by,
+        'library_ms': a_lib}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
-"""The CDNA tail kernel against its plain version on the card.
+"""The port's kernels against their plain versions on the card: the CDNA
+tail and the toolchain probe's ``add_one``.
 
 Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
-(both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1)."""
+(both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
+``add_one`` exact (one correctly rounded add on both sides)."""
 
 import pytest
 import torch
@@ -12,6 +14,7 @@ import torch
 from visual_foresight_torch.ops.cdna_tail import (
     fused_warp_composite, fused_warp_composite_reference)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
+from visual_foresight_torch.ops.probe import add_one, add_one_reference
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -57,3 +60,21 @@ def test_tail_kernel_rejects_bad_inputs_on_card():
         fused_warp_composite(x, x, d, d, kern, masks[..., :5].contiguous())
     with pytest.raises(ValueError, match='is torch.bfloat16'):
         fused_warp_composite(x, x, d, d, kern.bfloat16(), masks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(8, 128), (3, 1000)])
+def test_add_one_matches_plain_on_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    x = torch.randn(shape, generator=gen, device='cuda') * 1e3
+    before = add_one.launches
+    got = add_one(x)
+    torch.cuda.synchronize()
+    assert add_one.launches == before + 1
+    assert torch.equal(got, add_one_reference(x))
+    with pytest.raises(ValueError, match='float32'):
+        add_one(x.double())
+    with pytest.raises(ValueError, match='contiguous'):
+        add_one(torch.zeros((4, 4), device='cuda').t())

@@ -24,7 +24,7 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax',
                                             'visual_foresight_tpu')))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 12 else 0)
+sys.exit(1 if bad or len(names) < 27 else 0)
 '''
 
 
@@ -35,20 +35,31 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize('entry', ['predictor', 'planner'])
+@pytest.mark.parametrize('entry', ['predictor', 'planner', 'controller'])
 def test_entry_points_need_a_card_unless_told_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.gaussian import make_action_spec
+    from visual_foresight_torch.policy.cem_controllers import (
+        PixelCostController)
     from visual_foresight_torch.prediction.predictor import TorchPredictor
     spec = make_action_spec({'initial_std': 0.05, 'initial_std_lift': 0.15,
                              'initial_std_rot': 0.1, 'initial_std_grasp': 2,
                              'nactions': 2, 'repeat': 2}, 3)
+    ag_params = {'adim': 3, 'sdim': 3, 'image_height': 16,
+                 'image_width': 24}
+    policy = {'T': 4, 'nactions': 2, 'repeat': 2, 'num_samples': 4,
+              'minimum_selection': 2, 'rejection_sampling': False,
+              'predictor_hparams': {'std_factor': 4, 'num_masks': 2,
+                                    'enc_features': (8, 8, 8),
+                                    'dtype': 'float32'}}
     make = {'predictor': lambda **kw: TorchPredictor(
                 'unused', {'std_factor': 4}, **kw),
             'planner': lambda **kw: FusedCEMPlanner(spec, 4, k_elite=2,
-                                                    **kw)}[entry]
+                                                    **kw),
+            'controller': lambda **kw: PixelCostController(
+                ag_params, dict(policy, **kw))}[entry]
     with pytest.raises(RuntimeError, match='no CUDA device'):
         make()
     assert make(device='cpu').device.type == 'cpu'

@@ -97,6 +97,20 @@ def test_sample_actions_with_injected_normals(sigma_kind):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL)
 
 
+@pytest.mark.parametrize('order,adim,reuse', [(['x', 'z', 'grasp'], 3, 1.0),
+                                              (None, 4, 0.5)])
+def test_shift_sigma_matches_jax(order, adim, reuse):
+    hp = dict(HP, action_order=order)
+    jspec, tspec = jgauss.make_action_spec(hp, adim), \
+        tgauss.make_action_spec(hp, adim)
+    dim = tspec.nactions * tspec.adim
+    a = np.random.RandomState(5).randn(dim, dim).astype(np.float32) * 0.1
+    sigma = (a @ a.T).astype(np.float32)
+    want = jgauss.shift_sigma(jnp.asarray(sigma), jspec, reuse)
+    got = tgauss.shift_sigma(torch.tensor(sigma), tspec, reuse)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL)
+
+
 def _jax_replan_noise(key, iterations, m, dim):
     """The standard normals JAX's replan draws (cem.py key split per
     iteration, then gaussian.sample_actions' split)."""
@@ -109,6 +123,16 @@ def _jax_replan_noise(key, iterations, m, dim):
 
 
 def test_whole_replan_matches_jax():
+    _check_replan_against_jax(num_samples=None)
+
+
+def test_warm_start_replan_with_fewer_samples_matches_jax():
+    """A replan shrunk from the configured 16 samples to 12, as warm
+    starts shrink it by ``reuse_factor``."""
+    _check_replan_against_jax(num_samples=12)
+
+
+def _check_replan_against_jax(num_samples):
     h, w, m, iters, k_elite = 16, 32, 16, 3, 8
     kw = dict(num_distribs=1, std_factor=4, enc_features=(8, 16, 16),
               lstm_kernel=3, separable_lstm=True, renorm_distribs=False,
@@ -138,16 +162,18 @@ def test_whole_replan_matches_jax():
     jplanner = JaxPlanner(jmodel, jspec, m, iterations=iters,
                           k_elite=k_elite, n_vis=2)
     want = jplanner.replan([params], key, images, states, distribs, actions,
-                           jcosts.distance_grid(goal, h, w), mean0, sigma0)
+                           jcosts.distance_grid(goal, h, w), mean0, sigma0,
+                           num_samples=num_samples)
+    assert want['scores_per_itr'].shape == (iters, num_samples or m)
 
     tmodel = CDNAPredictor((h, w), **kw)
     load_flax_params(tmodel, jax.tree.map(np.asarray, params))
     planner = FusedCEMPlanner(tspec, m, iterations=iters, k_elite=k_elite,
                               n_vis=2, device='cpu')
-    noise = _jax_replan_noise(key, iters, m, 6)
+    noise = _jax_replan_noise(key, iters, num_samples or m, 6)
     got = planner.replan([tmodel], images, states, distribs, actions,
                          tcosts.distance_grid(goal, h, w), mean0, sigma0,
-                         noise=noise)
+                         noise=noise, num_samples=num_samples)
     np.testing.assert_allclose(_np(got['scores_per_itr']),
                                np.asarray(want['scores_per_itr']),
                                rtol=REPLAN_RTOL)
@@ -167,6 +193,15 @@ def test_whole_replan_matches_jax():
     np.testing.assert_allclose(_np(got['vis']['gen_images']),
                                np.asarray(want['vis']['gen_images']),
                                atol=1e-4)
+
+
+def test_replan_rejects_fewer_samples_than_elites():
+    spec = tgauss.make_action_spec(dict(HP, action_order=['x', 'z', 'grasp']),
+                                   3)
+    planner = FusedCEMPlanner(spec, 8, k_elite=4, device='cpu')
+    with pytest.raises(ValueError, match='exceeds'):
+        planner.replan([], None, None, None, None, None, None, None,
+                       noise=np.zeros((3, 3, 15)), num_samples=3)
 
 
 @pytest.mark.parametrize('mode', [

@@ -5,7 +5,7 @@ for ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``build/kernels/`` at
 the root of the checkout, named by a hash of their source, so an edited
 source is rebuilt and a stale library is never loaded.  A failed build
-raises.
+raises.  ``build_concurrently`` starts one nvcc per source at once.
 """
 
 import ctypes
@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -59,6 +60,15 @@ def build(source):
     log.write_text(report)
     os.replace(tmp, so)
     return so, report
+
+
+def build_concurrently(sources):
+    """Start one ``build`` per source, all at once; return {source: Future}
+    whose ``result()`` is that build's (library path, report) or raises."""
+    pool = ThreadPoolExecutor(max_workers=max(len(sources), 1))
+    futures = {source: pool.submit(build, source) for source in sources}
+    pool.shutdown(wait=False)
+    return futures
 
 
 @functools.lru_cache(maxsize=None)

@@ -72,8 +72,13 @@ class FusedCEMPlanner:
         self._blockdiag = blockdiag_refit
         self.device = resolve_device(device)
 
-    def _encode_contexts(self, models, images, states, distribs,
-                         context_actions):
+    @property
+    def spec(self):
+        return self._spec
+
+    @staticmethod
+    def _encode_contexts(models, images, states, distribs, context_actions,
+                         num_samples):
         """Consume the context once per camera at batch 1 and broadcast the
         carry across the samples."""
         carries = []
@@ -81,7 +86,7 @@ class FusedCEMPlanner:
             carry1 = model.encode_context(images[c][None],
                                           context_actions[None],
                                           states[None], distribs[c][None])
-            carries.append(broadcast_carry(carry1, self._M))
+            carries.append(broadcast_carry(carry1, num_samples))
         return carries
 
     @staticmethod
@@ -97,7 +102,7 @@ class FusedCEMPlanner:
     @torch.no_grad()
     def replan(self, models, context_images, context_states,
                context_distribs, context_actions, cost_ctx, mean, sigma,
-               generator=None, noise=None):
+               generator=None, noise=None, num_samples=None):
         """One full replan.
 
         :param models: one ``CDNAPredictor`` per camera
@@ -110,12 +115,18 @@ class FusedCEMPlanner:
         :param generator: ``torch.Generator`` on the planner's device for
             the plan noise, or
         :param noise: (iterations, M, nactions*adim) standard normals
+        :param num_samples: M for this replan (defaults to the configured
+            count; warm starts shrink it by ``reuse_factor``)
         :return: dict with best actions, scores, refit mean/sigma, vis
         """
-        spec, M, K = self._spec, self._M, self._K
+        spec, K = self._spec, self._K
+        M = num_samples or self._M
         dev = self.device
         if (generator is None) == (noise is None):
             raise ValueError('pass exactly one of generator and noise')
+        if K > M:
+            raise ValueError('k_elite {} exceeds this replan\'s {} samples'
+                             .format(K, M))
         as_dev = lambda x: x.to(dev, torch.float32) \
             if isinstance(x, torch.Tensor) else \
             torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
@@ -129,7 +140,7 @@ class FusedCEMPlanner:
 
         carries = self._encode_contexts(models, context_images,
                                         context_states, context_distribs,
-                                        context_actions)
+                                        context_actions, M)
         plan_scores, vis = [], None
         for itr in range(self._iterations):
             plan = sample_actions(

@@ -3,7 +3,8 @@
 Counterpart of ``visual_foresight_tpu/planners/gaussian.py``: full-covariance
 sampling over the flattened (nactions*adim) plan via Cholesky, a
 per-dimension std table keyed by ``action_order``, repeat expansion, xy/theta
-truncation and the elite mean/covariance refit.
+truncation, the elite mean/covariance refit and the between-replan
+covariance shift.
 """
 
 from typing import NamedTuple
@@ -124,3 +125,17 @@ def fit_elites(elite_actions, spec: ActionSpec, blockdiag: bool = False):
             mask[a:a + 2 * spec.adim, a:a + 2 * spec.adim] = 1.0
         sigma = sigma * torch.tensor(mask, device=sigma.device)
     return mean, sigma
+
+
+def shift_sigma(sigma, spec: ActionSpec, reuse_fraction: float):
+    """Between-replan covariance shift: drop the executed action block, add
+    ``reuse_fraction`` of the initial variances to the rest, and start the
+    new last block at the initial variances."""
+    adim, n = spec.adim, spec.nactions
+    dim = adim * n
+    init = initial_sigma(spec, device=sigma.device).to(sigma.dtype)
+    out = torch.zeros_like(sigma)
+    out[:dim - adim, :dim - adim] = sigma[adim:, adim:] + \
+        init[:dim - adim, :dim - adim] * reuse_fraction
+    out[dim - adim:, dim - adim:] = init[:adim, :adim]
+    return out

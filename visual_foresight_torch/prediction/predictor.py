@@ -82,6 +82,9 @@ class TorchPredictor:
         self.device = resolve_device(device)
         self.models = None
         self.restored = False
+        # adopt the checkpoint's architecture before the first build: the
+        # defaults describe the classic backbone, which the port lacks
+        self._adopt_model_config()
         self._build_model()
 
     @property
@@ -117,9 +120,9 @@ class TorchPredictor:
             renorm_distribs=hp['renorm_distribs'],
             mask_softmax=hp['mask_softmax']).to(self.device).eval()
 
-    def _apply_model_config(self):
+    def _adopt_model_config(self):
         """Adopt the architecture recorded in ``model_config.json`` next to
-        the checkpoints, as ``TPUPredictor`` does."""
+        the checkpoints, as ``TPUPredictor.restore`` does."""
         cfg_path = os.path.join(str(self._model_path), 'model_config.json')
         if not os.path.isfile(cfg_path):
             return
@@ -135,7 +138,6 @@ class TorchPredictor:
         print('predictor: adopting model config from checkpoint dir '
               '({})'.format(changed))
         self._hp.update(changed)
-        self._build_model()
 
     def init_params(self, seed=0):
         """Seeded full-width weights: lecun-normal-like fan-in scaling
@@ -166,8 +168,8 @@ class TorchPredictor:
     def restore(self):
         """Load each camera's ``view<c>/params.npz``; where a view has none,
         warn and use weights seeded with the camera index (``restored``
-        turns False), as ``TPUPredictor.restore`` does."""
-        self._apply_model_config()
+        turns False), as ``TPUPredictor.restore`` does.  The architecture
+        in ``model_config.json`` was adopted when the predictor was built."""
         states = []
         self.restored = True
         for c in range(self.n_cam):

@@ -7,9 +7,12 @@
    starts one nvcc per kernel source (``csrc/*.cu``, sm_90a), all at once;
 2. toolchain probe: ``add_one`` (``csrc/probe_add_one.cu``) on an (8, 128)
    f32 array must give exactly ``x + 1``, before anything larger is tried;
-3. holds the CDNA tail kernel against its plain PyTorch version at the
-   serving shapes (B=200 and B=768, 48x64, C=3, P=1, K=5, M=10, SNA) in bf16
-   and f32, and with SNA off and with P=0 at a small batch;
+3. holds the CDNA tail kernel against its plain PyTorch version, in both
+   mask layouts (full resolution and blocked) and in bf16 and f32: at the
+   serving shapes (B=200 and B=768, 48x64, C=3, P=1, K=5, M=10, SNA) and at
+   shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
+   or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
+   off, P=0, and C=1, P=4, which the general variant serves);
 4. golden: the restored xz_flagship in f32 (TF32 off) replays the JAX
    package's replan ``weights/xz_flagship/golden_replan_f32.npz`` (16
    samples x 15 steps x 3 iterations, normals injected): scores, elites and
@@ -18,14 +21,18 @@
    xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
    3 iterations, for a few replans with fresh contexts; checks the outputs,
    46 kernel launches per replan, and that one replan with the plain tail
-   gives the same elites and scores;
+   gives the same elites and scores.  On this path, on the golden one and
+   on the controller's, every launch must be of the tiled variant;
 6. drives ``PixelCostController.act()`` at the xz_bench20 operating point
    (768 samples, 15 actions x repeat 3 = 45 steps, 3 iterations, replan
    every 10 steps, restored flagship, bf16) for 12 control steps on seeded
    synthetic frames: 2 replans, 272 tail launches, finite actions;
-7. times the kernels and their plain versions beside their bounds, the
-   200-sample replan, and the controller's replan (host clock and CUDA
-   events), with a profiler breakdown of one replan of each.
+7. times the kernels and their plain versions beside their bounds (the tail
+   in both mask layouts, with its share of the card's memory rate and the
+   ``depth_to_space`` copy that the blocked layout saves; ``add_one`` also
+   at 2^26 floats), the 200-sample replan, and the controller's replan
+   (host clock and CUDA events), with a profiler breakdown of one replan of
+   each.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -55,6 +62,25 @@ H, W, C, P, K, NUM_MASKS = 48, 64, 3, 1, 5, 10
 M, ITERS, NACT, REPEAT, N_CTX = 200, 3, 5, 3, 2
 T = NACT * REPEAT
 LAUNCHES_PER_REPLAN = 1 + ITERS * T           # encode step + rollouts
+MASK_BLOCK = 4                                # the flagship's std_factor
+# tail shapes beyond the serving ones: (label, variant, overrides of
+# b=6, h=20, w=36, c=3, p=1, k=5, m=10, sna=True), each run in the mask
+# layouts listed under 'blocks' (0: full resolution)
+TAIL_CASES = [
+    ('smaller than a tile', 'tiled', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
+    ('no multiple of the tile', 'tiled', dict(blocks=(0, 2, 4))),
+    ('odd sizes', 'tiled', dict(b=3, h=13, w=10, blocks=(0,))),
+    ('several tiles across', 'tiled', dict(b=2, h=16, w=136, blocks=(0, 4))),
+    ('B=1', 'tiled', dict(b=1, h=48, w=64, blocks=(0, 4))),
+    ('K=3', 'tiled', dict(k=3, blocks=(0, 4))),
+    ('K=7', 'tiled', dict(k=7, blocks=(0, 4))),
+    ('M=16', 'tiled', dict(m=16, blocks=(0, 4))),
+    ('SNA off', 'tiled', dict(sna=False, blocks=(0, 4))),
+    ('P=0', 'tiled', dict(p=0, blocks=(0, 4))),
+    ('SNA off, P=0', 'tiled', dict(sna=False, p=0, blocks=(0, 2))),
+    ('C=1, P=4', 'general', dict(c=1, p=4, blocks=(0, 2))),
+    ('block factor 3', 'general', dict(h=18, w=36, blocks=(3,))),
+]
 # bf16: one ulp near 1.0 is 7.8e-3; both sides accumulate in f32 and round
 # once, so they differ by at most one ulp of outputs below 2
 TAIL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
@@ -86,37 +112,109 @@ def card_line():
     return out.strip().splitlines()[0].strip()
 
 
-def tail_inputs(gen, b, dtype, sna=True, p=P):
-    """Realistic tail inputs: frames in [0, 1], normalized kernels,
-    softmax masks."""
+def tail_inputs(gen, b, dtype, sna=True, p=P, h=H, w=W, c=C, k=K,
+                m=NUM_MASKS, mask_block=0, ones=False):
+    """Realistic tail inputs: frames in [0, 1] (or all ones, so that a wrong
+    halo shows at the border), normalized kernels, softmax masks in the
+    full-resolution layout or blocked by ``mask_block``."""
     from visual_foresight_torch.ops.cdna_warp import normalize_kernels
+    from visual_foresight_torch.ops.layout import space_to_depth
     dev = 'cuda'
     offset = 2 if sna else 1
-    rand = lambda *s: torch.rand(s, generator=gen, device=dev)
-    kernels = normalize_kernels(rand(b, K, K, NUM_MASKS))
+    rand = lambda *s: torch.ones(s, device=dev) if ones else \
+        torch.rand(s, generator=gen, device=dev)
+    kernels = normalize_kernels(torch.rand((b, k, k, m), generator=gen,
+                                           device=dev))
     masks = torch.softmax(2.0 * torch.randn(
-        (b, H, W, NUM_MASKS + offset), generator=gen, device=dev), dim=-1)
-    ts = (rand(b, H, W, C), rand(b, H, W, C), rand(b, H, W, p),
-          rand(b, H, W, p), kernels, masks)
+        (b, h, w, m + offset), generator=gen, device=dev), dim=-1)
+    if mask_block > 1:
+        masks = space_to_depth(masks, mask_block)
+    ts = (rand(b, h, w, c), rand(b, h, w, c), rand(b, h, w, p),
+          rand(b, h, w, p), kernels, masks)
     return tuple(t.to(dtype).contiguous() for t in ts)
 
 
-def check_tail(gen, b, dtype, sna=True, p=P):
+def check_tail(gen, b, dtype, variant='tiled', label='serving shape',
+               mask_block=0, **shape):
+    """One launch against the plain version on the same inputs; the launch
+    must be of ``variant``.  Returns the max abs error."""
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_reference)
-    args = tail_inputs(gen, b, dtype, sna, p)
-    got = fused_warp_composite(*args, sna=sna)
-    want = fused_warp_composite_reference(*args, sna=sna)
+    sna = shape.get('sna', True)
+    args = tail_inputs(gen, b, dtype, mask_block=mask_block, **shape)
+    before = dict(fused_warp_composite.launches_by_variant)
+    got = fused_warp_composite(*args, sna=sna, mask_block=mask_block)
+    want = fused_warp_composite_reference(*args, sna=sna,
+                                          mask_block=mask_block)
     torch.cuda.synchronize()
+    after = fused_warp_composite.launches_by_variant
+    took = [v for v in after if after[v] != before[v]]
     err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
               for g, w in zip(got, want))
     tol = TAIL_TOL[dtype]
-    print('tail kernel vs plain: B={} {} sna={} P={}: max_abs_err={:.3e} '
-          '(tol {:.0e})'.format(b, str(dtype).split('.')[-1], sna, p, err,
-                                tol))
+    print('tail kernel vs plain ({}): B={} {} {} mask_block={} variant={}: '
+          'max_abs_err={:.3e} (tol {:.0e})'.format(
+              label, b, str(dtype).split('.')[-1], shape, mask_block,
+              ','.join(took), err, tol))
+    if took != [variant]:
+        raise AssertionError('expected one launch of the {} variant'.format(
+            variant))
     if not err <= tol:
         raise AssertionError('tail kernel disagrees with its plain version')
     return err
+
+
+def check_tail_cases(gen):
+    """The serving shapes and ``TAIL_CASES``, in both types and in each
+    case's mask layouts.  Returns the largest bf16 error at the serving
+    shapes."""
+    err_bf16 = 0.0
+    for b in (M, CTRL_POLICY['num_samples']):
+        for mask_block in (0, MASK_BLOCK):
+            err_bf16 = max(err_bf16, check_tail(gen, b, torch.bfloat16,
+                                                mask_block=mask_block))
+            check_tail(gen, b, torch.float32, mask_block=mask_block)
+    for label, variant, case in TAIL_CASES:
+        shape = dict({'b': 6, 'h': 20, 'w': 36}, **case)
+        blocks = shape.pop('blocks')
+        b = shape.pop('b')
+        for mask_block in blocks:
+            for dtype in (torch.bfloat16, torch.float32):
+                for ones in (False, True):
+                    check_tail(gen, b, dtype, variant, label, mask_block,
+                               ones=ones, **shape)
+    return err_bf16
+
+
+def reset_tail_counts():
+    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+    fused_warp_composite.launches = 0
+    fused_warp_composite.blocked_launches = 0
+    for v in fused_warp_composite.launches_by_variant:
+        fused_warp_composite.launches_by_variant[v] = 0
+
+
+def read_tail_counts(path, want):
+    """The launches since ``reset_tail_counts``: ``want`` in all, every one
+    of the tiled variant and on blocked masks (the serving predictor keeps
+    the masks as its low-resolution head leaves them)."""
+    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+    launches = fused_warp_composite.launches
+    blocked = fused_warp_composite.blocked_launches
+    by_variant = dict(fused_warp_composite.launches_by_variant)
+    print('{} path: {} tail kernel launches (expected {}), by variant {}, '
+          '{} on blocked masks'.format(path, launches, want, by_variant,
+                                       blocked))
+    if launches != want:
+        raise AssertionError('the {} path did not run the tail kernel {} '
+                             'times'.format(path, want))
+    if by_variant != {'general': 0, 'tiled': want}:
+        raise AssertionError('the {} path left the tiled variant'.format(
+            path))
+    if blocked != want:
+        raise AssertionError('the {} path made a full-resolution copy of '
+                             'the masks'.format(path))
+    return launches
 
 
 def graph_ms(fn, arg_sets, reps):
@@ -149,17 +247,17 @@ def tail_bound(args, outs, sna):
     every output written once, against the f32 arithmetic the in-bounds
     taps need."""
     b, h, w, c = args[0].shape
-    p = args[2].shape[-1]
+    p, m = args[2].shape[-1], args[4].shape[-1]
     nbytes = sum(t.numel() * t.element_size() for t in args + outs)
     pad = K // 2
     rows = K * h - 2 * sum(range(1, pad + 1))   # in-bounds (row, tap-row)
     cols = K * w - 2 * sum(range(1, pad + 1))
     taps = b * rows * cols                      # in-bounds (pixel, tap)
-    fma = taps * (NUM_MASKS + c + p) + b * h * w * (c + p) * (2 if sna else 1)
+    fma = taps * (m + c + p) + b * h * w * (c + p) * (2 if sna else 1)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 2 * fma / PEAK_F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
+                                       else 'operations'), t_bytes * 1e3
 
 
 def profile_replan(run):
@@ -250,7 +348,6 @@ def restored_predictor(dtype):
 
 def check_golden(spec_hp):
     """Replay the JAX package's f32 replan of the restored flagship."""
-    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import make_action_spec
@@ -265,19 +362,14 @@ def check_golden(spec_hp):
                               k_elite=k_elite,
                               finalweight=float(g['finalweight']),
                               n_vis=int(g['n_vis']), device='cuda')
-    fused_warp_composite.launches = 0
+    reset_tail_counts()
     out = planner.replan(
         predictor.models, g['images'], g['states'], g['distribs'],
         g['ctx_actions'], distance_grid(g['goal'], H, W, device='cuda'),
         g['mean0'], g['sigma0'], noise=g['noise'])
     torch.cuda.synchronize()
-    launches = fused_warp_composite.launches
-    want = 1 + int(g['iterations']) * int(g['nactions']) * repeat
-    print('golden path: {} tail kernel launches (expected {})'.format(
-        launches, want))
-    if launches != want:
-        raise AssertionError('the golden replan did not run the tail kernel '
-                             '{} times'.format(want))
+    launches = read_tail_counts(
+        'golden', 1 + int(g['iterations']) * int(g['nactions']) * repeat)
     same, score_err = compare_scores(
         'golden f32 replay vs JAX', out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
@@ -297,15 +389,6 @@ def check_golden(spec_hp):
     else:
         print('golden frames not compared: the elites differ at a tie')
     return launches, score_err, frame_err
-
-
-def add_one_bound():
-    """Least time for add_one at the probe's shape on an H100 SXM."""
-    n = 8 * 128
-    t_bytes = 2 * 4 * n / PEAK_BYTES_PER_S
-    t_ops = n / PEAK_F32_FLOP_PER_S
-    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
 
 
 def print_report(source, report, seconds):
@@ -343,7 +426,6 @@ def check_probe(gen):
 def drive_replan_200(spec_hp):
     """The 200-sample replan, on the restored weights in bf16: returns
     (launches, host latencies, replan function, contexts, generator)."""
-    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import (initial_mean,
@@ -370,7 +452,7 @@ def drive_replan_200(spec_hp):
         return planner.replan(predictor.models, images, states, distribs,
                               ctx_actions, grids, mean0, sigma0, **noise)
 
-    fused_warp_composite.launches = 0
+    reset_tail_counts()
     latencies, outs = [], []
     for i, (images, states) in enumerate(contexts):
         t0 = time.perf_counter()
@@ -379,14 +461,10 @@ def drive_replan_200(spec_hp):
         if i >= N_WARM:
             latencies.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = fused_warp_composite.launches
-    want = LAUNCHES_PER_REPLAN * len(contexts)
-    print('200-sample replan path: {} replans, {} tail kernel launches '
-          '(expected {} = {} per replan)'.format(
-              len(contexts), launches, want, LAUNCHES_PER_REPLAN))
-    if launches != want:
-        raise AssertionError('the replan did not run the tail kernel {} '
-                             'times per replan'.format(LAUNCHES_PER_REPLAN))
+    launches = read_tail_counts(
+        '200-sample replan ({} replans, {} launches each)'.format(
+            len(contexts), LAUNCHES_PER_REPLAN),
+        LAUNCHES_PER_REPLAN * len(contexts))
     for out in outs:
         shapes = {'best_actions': (10, T, 3), 'best_scores': (10,),
                   'scores_per_itr': (ITERS, M)}
@@ -428,7 +506,6 @@ def drive_controller():
     """``PixelCostController.act()`` at the xz_bench20 operating point for
     CTRL_STEPS control steps.  Returns (launches, controller, frames,
     states)."""
-    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
     ctrl = PixelCostController(AG_PARAMS, dict(CTRL_POLICY))
@@ -441,21 +518,17 @@ def drive_controller():
     states = (rng.randn(CTRL_STEPS, 3) * 0.05).astype(np.float32)
     desig, goal = np.array([[[24, 32]]]), np.array([[[10, 50]]])
     ctrl.reset()
-    fused_warp_composite.launches = 0
+    reset_tail_counts()
     actions, n_samples = [], []
     for t in range(CTRL_STEPS):
         out = ctrl.act(t=t, i_tr=0, desig_pix=desig, goal_pix=goal,
                        images=frames[:t + 1], state=states[:t + 1])
         actions.append(np.asarray(out['actions'], np.float32))
     torch.cuda.synchronize()
-    launches = fused_warp_composite.launches
-    print('controller path: {} act() steps, {} tail kernel launches '
-          '(expected {} = {} replans x (1 + {} x {}))'.format(
-              CTRL_STEPS, launches, CTRL_LAUNCHES, CTRL_REPLANS, ITERS,
-              CTRL_POLICY['T']))
-    if launches != CTRL_LAUNCHES:
-        raise AssertionError('the controller did not run the tail kernel '
-                             '{} times'.format(CTRL_LAUNCHES))
+    launches = read_tail_counts(
+        'controller ({} act() steps, {} replans x (1 + {} x {}))'.format(
+            CTRL_STEPS, CTRL_REPLANS, ITERS, CTRL_POLICY['T']),
+        CTRL_LAUNCHES)
     for a in actions:
         if a.shape != (3,) or not np.isfinite(a).all():
             raise AssertionError('controller action {} is malformed'.format(
@@ -500,44 +573,73 @@ def time_controller(ctrl, states, card):
 
 
 def time_tail(gen, b, card):
-    """Kernel and plain-version times of the tail at batch ``b`` (bf16),
-    beside its bound.  Returns (kernel_ms, plain_ms, bound_ms, bound_by)."""
+    """Kernel times of the tail at batch ``b`` (bf16) in both mask layouts,
+    the plain version's time, the bound, the share of the card's memory rate
+    the kernel reaches, and the ``depth_to_space`` copy of the masks that
+    the blocked layout saves.  Returns a dict of the numbers."""
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_reference)
-    sets = [tail_inputs(gen, b, torch.bfloat16) for _ in range(4)]
-    kernel_ms = graph_ms(lambda *a: fused_warp_composite(*a, sna=True),
-                         sets, reps=100)
-    plain_ms = graph_ms(
-        lambda *a: fused_warp_composite_reference(*a, sna=True), sets,
-        reps=10)
-    bound_ms, bound_by = tail_bound(sets[0], fused_warp_composite_reference(
-        *sets[0], sna=True), sna=True)
-    del sets
-    print('cdna_tail_kernel_ms={:.5f} (B={} bf16, CUDA graph, CUDA events) '
-          '[{}]'.format(kernel_ms, b, card))
-    print('cdna_tail_plain_ms={:.5f} (B={}, same inputs, CUDA graph, CUDA '
-          'events) [{}]'.format(plain_ms, b, card))
+    from visual_foresight_torch.ops.layout import depth_to_space
+    res = {}
+    for name, r in (('blocked', MASK_BLOCK), ('full', 0)):
+        sets = [tail_inputs(gen, b, torch.bfloat16, mask_block=r)
+                for _ in range(4)]
+        res[name + '_ms'] = graph_ms(
+            lambda *a: fused_warp_composite(*a, sna=True, mask_block=r),
+            sets, reps=100)
+        if r:
+            res['plain_ms'] = graph_ms(
+                lambda *a: fused_warp_composite_reference(
+                    *a, sna=True, mask_block=r), sets, reps=10)
+            res['unblock_ms'] = graph_ms(
+                lambda *a: depth_to_space(a[5], r), sets, reps=100)
+            outs = fused_warp_composite_reference(*sets[0], sna=True,
+                                                  mask_block=r)
+            res['bound_ms'], res['bound_by'], bytes_ms = tail_bound(
+                sets[0], outs, sna=True)
+        del sets
+    where = '(B={} bf16, CUDA graph, CUDA events) [{}]'.format(b, card)
+    for name in ('blocked', 'full'):
+        share = bytes_ms / res[name + '_ms']
+        print('cdna_tail_kernel_ms={:.5f} mask layout {}, {:.1%} of 3.35 '
+              'TB/s {}'.format(res[name + '_ms'], name, share, where))
+        if share > 1.0:
+            raise AssertionError('the tail moved its bytes faster than the '
+                                 'card can: the timing is wrong')
+    print('cdna_tail_plain_ms={:.5f} mask layout blocked {}'.format(
+        res['plain_ms'], where))
+    print('masks_depth_to_space_ms={:.5f} the copy the blocked layout saves '
+          '{}'.format(res['unblock_ms'], where))
     print('cdna_tail_bound_ms={:.5f} (B={}, by {}; H100 SXM 3.35 TB/s, 67 '
-          'TFLOP/s f32) [{}]'.format(bound_ms, b, bound_by, card))
-    return kernel_ms, plain_ms, bound_ms, bound_by
+          'TFLOP/s f32) [{}]'.format(res['bound_ms'], b, res['bound_by'],
+                                     card))
+    return res
 
 
-def time_add_one(gen, card):
-    """add_one, its plain version and PyTorch's own add at the probe's
-    shape.  Returns (kernel_ms, plain_ms, library_ms)."""
-    from visual_foresight_torch.ops.probe import (PROBE_SHAPE, add_one,
-                                                  add_one_reference)
-    sets = [(torch.randn(PROBE_SHAPE, generator=gen, device='cuda'),)
+def time_add_one(gen, card, shape):
+    """add_one, its plain version and PyTorch's own add on ``shape`` f32,
+    beside the bound.  Returns (kernel_ms, plain_ms, library_ms, bound_ms,
+    bound_by)."""
+    from visual_foresight_torch.ops.probe import add_one, add_one_reference
+    n = int(np.prod(shape))
+    reps = 100 if n < 1 << 20 else 10
+    sets = [(torch.randn(shape, generator=gen, device='cuda'),)
             for _ in range(4)]
-    kernel_ms = graph_ms(add_one, sets, reps=100)
-    plain_ms = graph_ms(add_one_reference, sets, reps=100)
-    library_ms = graph_ms(lambda x: torch.add(x, 1.0), sets, reps=100)
-    bound_ms, bound_by = add_one_bound()
+    kernel_ms = graph_ms(add_one, sets, reps=reps)
+    plain_ms = graph_ms(add_one_reference, sets, reps=reps)
+    library_ms = graph_ms(lambda x: torch.add(x, 1.0), sets, reps=reps)
+    del sets
+    t_bytes, t_ops = 2 * 4 * n / PEAK_BYTES_PER_S, n / PEAK_F32_FLOP_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = 'bytes' if t_bytes >= t_ops else 'operations'
     print('add_one_kernel_ms={:.5f} plain_ms={:.5f} library_ms={:.5f} '
-          '(torch.add) bound_ms={:.7f} (by {}) ({} f32, CUDA graph of 100 '
+          '(torch.add) bound_ms={:.7f} (by {}) ({} f32, CUDA graph of {} '
           'launches, CUDA events) [{}]'.format(kernel_ms, plain_ms,
                                                library_ms, bound_ms,
-                                               bound_by, PROBE_SHAPE, card))
+                                               bound_by, shape, reps, card))
+    if kernel_ms < bound_ms:
+        raise AssertionError('add_one ran under its bound: the timing is '
+                             'wrong')
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
@@ -546,6 +648,7 @@ def main():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
     from visual_foresight_torch.ops import _build, cdna_tail, probe
+    from visual_foresight_torch.ops.probe import PROBE_SHAPE
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -569,13 +672,7 @@ def main():
     # -- 2. tail kernel against its plain version ------------------------------
     print_report(cdna_tail.SOURCE, builds[cdna_tail.SOURCE].result()[1],
                  time.time() - t0)
-    err_bf16 = max(check_tail(gen, b, torch.bfloat16)
-                   for b in (M, CTRL_POLICY['num_samples']))
-    check_tail(gen, M, torch.float32)
-    for dtype in (torch.bfloat16, torch.float32):
-        check_tail(gen, 8, dtype, sna=False)
-        check_tail(gen, 8, dtype, p=0)
-        check_tail(gen, 8, dtype, sna=False, p=0)
+    err_bf16 = check_tail_cases(gen)
 
     # -- 3. golden: the JAX package's f32 replan, replayed -----------------------
     spec_hp = {'initial_std': 0.05, 'initial_std_lift': 0.15,
@@ -596,13 +693,13 @@ def main():
           'bf16, restored flagship, host clock, {} replans) [{}]'.format(
               float(np.percentile(latencies, 50)), N_TIMED, card))
     time_tail(gen, M, card)
-    tail_times = time_tail(gen, CTRL_POLICY['num_samples'], card)
-    add_one_times = time_add_one(gen, card)
+    tail = time_tail(gen, CTRL_POLICY['num_samples'], card)
+    add_one_times = time_add_one(gen, card, PROBE_SHAPE)
+    time_add_one(gen, card, (1 << 26,))
     time_controller(ctrl, ctrl_states, card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
 
-    kernel_ms, plain_ms, bound_ms, bound_by = tail_times
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     print(json.dumps({'kernels': [{
         'name': 'cdna_tail', 'route': 'cuda',
@@ -612,8 +709,10 @@ def main():
         'launches_by_path': {'golden': golden_launches,
                              'replan_200': replan_launches,
                              'controller': ctrl_launches},
-        'max_abs_err': err_bf16, 'ms': kernel_ms, 'plain_ms': plain_ms,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}, {
+        'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
+        'ms_full_resolution_masks': tail['full_ms'],
+        'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
+        'bound_by': tail['bound_by'], 'library_ms': None}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

@@ -89,6 +89,72 @@ def test_single_step_matches_flax(sna, renorm):
                                    atol=SMALL_TOL)
 
 
+@pytest.mark.parametrize('sna', [True, False])
+def test_single_step_lowres_hands_the_tail_blocked_masks(sna, monkeypatch):
+    """With the low-resolution mask softmax the step passes the masks as the
+    mask head leaves them, (B, H/r, W/r, r*r*nc) with ``mask_block=r`` (no
+    ``depth_to_space`` copy), and still matches the flax step."""
+    rng = np.random.RandomState(6)
+    b, h, w, f1, f2, r = 2, 16, 32, 8, 16, 4
+    kw = dict(SMALL, sna=sna, plan_mode=True, mask_softmax='lowres')
+    jstep = jcdna.CDNAStep(**kw)
+    pair = lambda hh, ww, f: tuple(
+        rng.randn(b, hh, ww, f).astype(np.float32) for _ in range(2))
+    carry = ((pair(h // 4, w // 4, f1), pair(h // 8, w // 8, f2),
+              pair(h // 4, w // 4, f1)),
+             rng.rand(b, h, w, 3).astype(np.float32),
+             rng.rand(b, h, w, 1).astype(np.float32),
+             rng.randn(b, 3).astype(np.float32),
+             rng.rand(b, h, w, 3).astype(np.float32),
+             rng.rand(b, h, w, 1).astype(np.float32), None)
+    action = rng.randn(b, 3).astype(np.float32)
+    params = _perturbed(jstep.init(jax.random.PRNGKey(0), carry, action), 7)
+    _, jouts = jstep.apply(params, carry, action)
+
+    kw.pop('plan_mode')
+    tstep = tcdna.CDNAStep((h, w), **kw)
+    load_flax_params(tstep, _np_tree(params))
+    seen = []
+    tail = tcdna.fused_warp_composite
+
+    def spy(*args, **kwargs):
+        seen.append((tuple(args[5].shape), kwargs))
+        return tail(*args, **kwargs)
+
+    monkeypatch.setattr(tcdna, 'fused_warp_composite', spy)
+    to_t = lambda x: tuple(to_t(y) for y in x) if isinstance(x, tuple) \
+        else torch.tensor(x)
+    with torch.no_grad():
+        _, touts = tstep(to_t(carry[:-1]), torch.tensor(action))
+    nc = SMALL.get('num_masks', 10) + (2 if sna else 1)
+    assert seen == [((b, h // r, w // r, r * r * nc),
+                     {'sna': sna, 'mask_block': r})]
+    for got, want in zip(touts, jouts):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=SMALL_TOL)
+
+
+def test_fullres_step_hands_the_tail_full_resolution_masks(monkeypatch):
+    b, h, w = 1, 16, 32
+    tstep = tcdna.CDNAStep((h, w), **dict(SMALL, mask_softmax='fullres'))
+    seen = []
+    tail = tcdna.fused_warp_composite
+    monkeypatch.setattr(
+        tcdna, 'fused_warp_composite',
+        lambda *a, **k: seen.append((tuple(a[5].shape), k['mask_block']))
+        or tail(*a, **k))
+    tm = tcdna.CDNAPredictor((h, w), **dict(SMALL, mask_softmax='fullres'))
+    tm.step = tstep
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        carry = tm.encode_context(torch.rand((b, 2, h, w, 3), generator=gen),
+                                  torch.zeros((b, 1, 3)),
+                                  torch.zeros((b, 2, 3)),
+                                  torch.rand((b, 2, h, w, 1), generator=gen))
+        tm.rollout_from(carry, torch.zeros((b, 1, 3)))
+    assert seen == [((b, h, w, 12), 0)] * 2
+
+
 @pytest.mark.parametrize('mask_softmax', ['fullres', 'lowres'])
 def test_encode_and_rollout_match_flax(mask_softmax):
     rng = np.random.RandomState(3)

@@ -17,6 +17,7 @@ from visual_foresight_tpu.ops.pallas_cdna import (fused_warp_composite,
                                                   fused_warp_composite_chw)
 from visual_foresight_torch.ops import cdna_warp as twarp
 from visual_foresight_torch.ops import cdna_tail
+from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
@@ -134,6 +135,67 @@ def test_plain_tail_bf16_matches_pallas():
     assert got[0].dtype == torch.bfloat16
     _close(got[0], want[0], BF16_TOL)
     _close(got[1], want[1], BF16_TOL)
+
+
+@pytest.mark.parametrize('r', [2, 4])
+@pytest.mark.parametrize('sna', [True, False])
+@pytest.mark.parametrize('p', [0, 1])
+def test_plain_tail_blocked_masks_equal_full_resolution_masks(r, sna, p):
+    """The blocked mask layout is indexing only: the plain tail on blocked
+    masks equals the plain tail on ``depth_to_space`` of them, bit for bit."""
+    d = _inputs(4, p=p, sna=sna)
+    args = [_t(d[k]) for k in ('prev', 'first', 'pd', 'fd', 'kernels')]
+    blocked = space_to_depth(_t(d['masks']), r).contiguous()
+    assert tuple(blocked.shape) == (B, H // r, W // r,
+                                    r * r * d['masks'].shape[-1])
+    assert torch.equal(depth_to_space(blocked, r), _t(d['masks']))
+    want = cdna_tail.fused_warp_composite_reference(
+        *args, depth_to_space(blocked, r), sna=sna)
+    for fn in (cdna_tail.fused_warp_composite_reference,
+               cdna_tail.fused_warp_composite):   # CPU: the plain version
+        got = fn(*args, blocked, sna=sna, mask_block=r)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize('sna', [True, False])
+def test_plain_tail_blocked_masks_match_both_pallas_kernels(sna):
+    d = _inputs(5, sna=sna)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    offset = 2 if sna else 1
+    want_eff = fused_warp_composite(j['prev'], j['first'], j['pd'], j['fd'],
+                                    j['kernels'], j['masks'], sna=sna,
+                                    block_b=2, interpret=True)
+    eff = jwarp.effective_pixel_kernels(j['kernels'], j['masks'], offset)
+    want_chw = fused_warp_composite_chw(j['prev'], j['first'], j['pd'],
+                                        j['fd'], eff, j['masks'][..., :offset],
+                                        sna=sna, block_b=2, interpret=True)
+    got = cdna_tail.fused_warp_composite(
+        *(_t(d[k]) for k in ('prev', 'first', 'pd', 'fd', 'kernels')),
+        space_to_depth(_t(d['masks']), 4).contiguous(), sna=sna, mask_block=4)
+    for want in (want_eff, want_chw):
+        _close(got[0], want[0], F32_TOL)
+        _close(got[1], want[1], F32_TOL)
+
+
+@pytest.mark.parametrize('c,p,mask_block,want', [
+    (3, 1, 0, 'tiled'), (3, 1, 4, 'tiled'), (3, 0, 2, 'tiled'),
+    (1, 3, 1, 'tiled'), (1, 4, 0, 'general'), (4, 4, 4, 'general'),
+    (3, 1, 8, 'general'), (3, 1, 3, 'general')])
+def test_kernel_variant_is_chosen_by_shape(c, p, mask_block, want):
+    assert cdna_tail.kernel_variant(c, p, mask_block) == want
+
+
+def test_tail_checks_the_blocked_mask_shape():
+    """The wrapper's checks, which run before any launch, called directly."""
+    d = _inputs(6)
+    args = [_t(d[k]) for k in ('prev', 'first', 'pd', 'fd', 'kernels')]
+    blocked = space_to_depth(_t(d['masks']), 4).contiguous()
+    cdna_tail._check(*args, blocked, True, 4)
+    with pytest.raises(ValueError, match='masks has shape'):
+        cdna_tail._check(*args, blocked, True, 2)
+    with pytest.raises(ValueError, match='does not divide'):
+        cdna_tail._check(*args, blocked, True, 5)
 
 
 def test_tail_raises_on_a_device_without_a_kernel():

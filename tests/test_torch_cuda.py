@@ -4,6 +4,11 @@ tail and the toolchain probe's ``add_one``.
 Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
+The tail is held against its plain version in both mask layouts (full
+resolution and blocked) at the serving shapes and at shapes that stress the
+tiled variant's 8 x 64 tiles and four pixels per thread; the frames are
+random or all ones, so that a wrong halo shows at the border.
+
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
 ``add_one`` exact (one correctly rounded add on both sides)."""
@@ -14,6 +19,7 @@ import torch
 from visual_foresight_torch.ops.cdna_tail import (
     fused_warp_composite, fused_warp_composite_reference)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
+from visual_foresight_torch.ops.layout import space_to_depth
 from visual_foresight_torch.ops.probe import add_one, add_one_reference
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -46,6 +52,97 @@ def test_tail_kernel_matches_plain_on_card(dtype, sna, p):
             assert float((g.float() - r.float()).abs().max()) <= TOL[dtype]
 
 
+def _tail_args(gen, dtype, b, h, w, c=3, p=1, k=5, m=10, sna=True,
+               mask_block=0, ones=False):
+    offset = 2 if sna else 1
+    frame = lambda *s: torch.ones(s, device='cuda') if ones else \
+        torch.rand(s, generator=gen, device='cuda')
+    masks = torch.softmax(2.0 * torch.randn(
+        (b, h, w, m + offset), generator=gen, device='cuda'), dim=-1)
+    if mask_block > 1:
+        masks = space_to_depth(masks, mask_block)
+    kernels = normalize_kernels(torch.rand((b, k, k, m), generator=gen,
+                                           device='cuda'))
+    return tuple(t.to(dtype).contiguous() for t in (
+        frame(b, h, w, c), frame(b, h, w, c), frame(b, h, w, p),
+        frame(b, h, w, p), kernels, masks))
+
+
+# (id, variant, shape); every case runs in the mask layouts of 'blocks'
+# (0: full resolution), in both types, on random and on all-ones frames
+TAIL_CASES = [
+    ('serving-200', 'tiled', dict(b=200, h=48, w=64, blocks=(0, 4))),
+    ('serving-768', 'tiled', dict(b=768, h=48, w=64, blocks=(0, 4))),
+    ('smaller-than-a-tile', 'tiled', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
+    ('no-multiple-of-the-tile', 'tiled',
+     dict(b=6, h=20, w=36, blocks=(0, 2, 4))),
+    ('odd-sizes', 'tiled', dict(b=3, h=13, w=10, blocks=(0,))),
+    ('several-tiles-across', 'tiled', dict(b=2, h=16, w=136, blocks=(0, 4))),
+    ('batch-1', 'tiled', dict(b=1, h=48, w=64, blocks=(0, 4))),
+    ('k3', 'tiled', dict(b=6, h=20, w=36, k=3, blocks=(0, 4))),
+    ('k7', 'tiled', dict(b=6, h=20, w=36, k=7, blocks=(0, 4))),
+    ('m16', 'tiled', dict(b=6, h=20, w=36, m=16, blocks=(0, 4))),
+    ('m7', 'tiled', dict(b=6, h=20, w=36, m=7, blocks=(0, 4))),
+    ('sna-off', 'tiled', dict(b=6, h=20, w=36, sna=False, blocks=(0, 4))),
+    ('p0', 'tiled', dict(b=6, h=20, w=36, p=0, blocks=(0, 4))),
+    ('sna-off-p0', 'tiled',
+     dict(b=6, h=20, w=36, sna=False, p=0, blocks=(0, 2))),
+    ('c1-p4', 'general', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
+    ('block-factor-3', 'general', dict(b=6, h=18, w=36, blocks=(3,))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', TAIL_CASES, ids=[c[0] for c in TAIL_CASES])
+def test_tail_kernel_variants_match_plain_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    _, variant, shape = case
+    shape = dict(shape)
+    blocks = shape.pop('blocks')
+    sna = shape.get('sna', True)
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for mask_block in blocks:
+        for ones in (False, True):
+            args = _tail_args(gen, dtype, mask_block=mask_block, ones=ones,
+                              **shape)
+            before = dict(fused_warp_composite.launches_by_variant)
+            got = fused_warp_composite(*args, sna=sna, mask_block=mask_block)
+            want = fused_warp_composite_reference(*args, sna=sna,
+                                                  mask_block=mask_block)
+            torch.cuda.synchronize()
+            after = fused_warp_composite.launches_by_variant
+            assert {v: after[v] - before[v] for v in after} == \
+                {v: int(v == variant) for v in after}
+            for g, r in zip(got, want):
+                assert g.dtype == dtype and g.shape == r.shape
+                if g.numel():
+                    err = float((g.float() - r.float()).abs().max())
+                    assert err <= TOL[dtype], (mask_block, ones, err)
+
+
+@pytest.mark.cuda
+def test_tail_kernel_takes_a_batch_slice_on_card():
+    """A contiguous slice of a larger batch starts at any 2-byte offset the
+    slicing gives; here the tensors start 16-byte aligned or not by the
+    parity of the sample they start at (8x8x3 bf16 samples are 384 bytes, 8x8x1
+    ones 128), and both the bulk and the per-thread copies must be right."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    full = _tail_args(gen, torch.bfloat16, b=5, h=12, w=10, mask_block=2)
+    for lo in (0, 1, 2):
+        args = tuple(t[lo:lo + 3] for t in full)
+        got = fused_warp_composite(*args, mask_block=2)
+        want = fused_warp_composite_reference(*args, mask_block=2)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            assert float((g.float() - r.float()).abs().max()) <= \
+                TOL[torch.bfloat16]
+
+
 @pytest.mark.cuda
 def test_tail_kernel_rejects_bad_inputs_on_card():
     if not torch.cuda.is_available():
@@ -60,6 +157,10 @@ def test_tail_kernel_rejects_bad_inputs_on_card():
         fused_warp_composite(x, x, d, d, kern, masks[..., :5].contiguous())
     with pytest.raises(ValueError, match='is torch.bfloat16'):
         fused_warp_composite(x, x, d, d, kern.bfloat16(), masks)
+    with pytest.raises(ValueError, match='masks has shape'):
+        fused_warp_composite(x, x, d, d, kern, masks, mask_block=4)
+    with pytest.raises(ValueError, match='does not divide'):
+        fused_warp_composite(x, x, d, d, kern, masks, mask_block=3)
 
 
 @pytest.mark.cuda

@@ -13,41 +13,89 @@
 //            + sum_t eff[t] * x[b, h+t/K-K/2, w+t%K-K/2, c]   (zero outside)
 // for x = the previous frame (C channels) and the pixel distributions (P
 // channels, P may be 0).  Accumulation is in f32; outputs are written in the
-// input dtype (f32 or bf16).  All tensors are contiguous NHWC; the CDNA
-// kernels are (B, K, K, M).
+// input dtype (f32 or bf16).  Frames, distributions and outputs are
+// contiguous NHWC; the CDNA kernels are (B, K, K, M).  The masks come in one
+// of two layouts, chosen by the block factor r:
+//   r <= 1: (B, H, W, nc), nc = M + offset (full resolution);
+//   r >  1: (B, H/r, W/r, r*r*nc) as the model's low-resolution mask head
+//           leaves them: pixel (r*hb+i, r*wb+j), mask m sits at channel
+//           (i*r+j)*nc + m of low-resolution pixel (hb, wb).
 //
-// Design: one thread per output pixel, one block of 256 threads per (sample,
-// tile of 256 consecutive pixels, i.e. four 64-wide rows).  The block stages
-// its sample's K*K*M normalized kernel values in shared memory (1000 bytes at
-// K=5, M=10); each thread forms its 25 effective weights from the M transform
-// masks in registers and accumulates the taps over C+P channels.  Neighbour
-// reads hit L1/L2: every input pixel is read by up to 25 threads of the same
-// or a neighbouring block.
+// Bound on an H100 SXM at the serving shapes (48x64, C=3, P=1, K=5, M=10,
+// SNA, bf16), per sample: the kernel must read prev and first (18,432 bytes
+// each), both distributions (6,144 each), the masks (73,728) and the CDNA
+// kernels (500), and write the frame (18,432) and the distribution (6,144):
+// 147,956 bytes, so 29.6 MB and 8.8 us at B=200, 113.6 MB and 33.9 us at
+// B=768, at 3.35 TB/s.  Its arithmetic is 250 FMAs per pixel for the
+// effective kernels, about 100 for the taps and 8 for the compositing:
+// 0.44 GFLOP (6.6 us at 67 TFLOP/s of f32) at B=200, 1.69 GFLOP (25 us) at
+// B=768.  So it is bound by bytes, the masks being half of them, but the
+// arithmetic is three quarters of the bound: it fits only if the FMA pipe
+// is kept busy while the bytes move.
 //
-// Bound on an H100 SXM at the serving shapes (B=200, 48x64, C=3, P=1, K=5,
-// M=10, SNA, bf16): the kernel must read prev, first (3.69 MB each), both
-// distributions (1.23 MB each), the masks (14.75 MB) and the kernels
-// (0.10 MB), and write the frame (3.69 MB) and the distribution (1.23 MB):
-// 29.6 MB, or 8.8 us at 3.35 TB/s.  Its arithmetic is 614,400 pixels x
-// (250 FMAs for the effective kernels + 100 for the taps + about 8 for the
-// compositing) = 0.44 GFLOP of f32, or 6.6 us at 67 TFLOP/s.  So it is bound
-// by bytes; the masks are half of them.
+// What held the first design back (the "general" variant below: one thread
+// per pixel, everything but the CDNA kernels read straight from global
+// memory): it executed about 370 load/store instructions per pixel beside its
+// 350 FMAs - 250 scalar shared loads of kernel values, 100 two-byte
+// neighbour loads at a 6-byte stride, 12 two-byte mask loads at a 24-byte
+// stride between neighbouring threads.  It ran at 8.8-9.3 times its byte
+// bound, limited by the rate of load/store instructions and not by device
+// memory.
 //
-// Left for a later change: the kernel still reads the full-resolution masks
-// that the softmax wrote.  Computing the softmax of the low-resolution mask
-// logits inside this kernel would cut that read and the softmax's own
-// write; staging the input tile with its halo in shared memory would turn the
-// neighbour reads into shared-memory reads.
+// The "tiled" variant is the redesign.  One block of 128 threads owns a tile
+// of 8 rows x 64 columns of one sample:
+//   * the tensors' bytes pass through shared memory as they are.  Where a
+//     tile's input window (with its halo), its part of the SNA background and
+//     its masks (in either layout) are each one run of whole 16-byte words -
+//     at the serving shapes they are - one thread hands the five runs to the
+//     copy engine (cp.async.bulk, completion on an mbarrier) and the outputs
+//     leave the same way; elsewhere every thread copies 16 bytes at a time
+//     (cp.async) where a run's alignment allows, and scalar elements for the
+//     rest;
+//   * the input tile is then restaged as f32 with the C frame channels and
+//     the P distribution channels of a pixel packed side by side
+//     (C + P <= 4), so one 16-byte shared load brings all channels of a tap
+//     with no conversion in the inner loop; the halo outside the image is
+//     zero, so the inner loop has no bounds test;
+//   * a thread reads its pixels' masks from the staged bytes in 8-byte words
+//     (a pixel's 12 bf16 values are 24 contiguous bytes in both layouts);
+//   * each thread computes four vertically neighbouring pixels.  One 8-
+//     or 16-byte shared load of CDNA kernel values (padded from M=10 to 12
+//     per tap) feeds four times as many FMAs, and the sliding window of
+//     K+3 taps per tap column is loaded once for the four pixels: 40 packed
+//     loads for 4 pixels at K=5 instead of 400 scalar ones.  Neighbouring
+//     threads own neighbouring columns, so their 16-byte shared loads fall
+//     on consecutive addresses.  The loop over tap columns stays rolled, so
+//     its body (280 FMAs, 23 shared loads at K=5, M=10) fits the instruction
+//     cache.
+// That leaves about 30 shared loads and 350 FMAs per pixel in the main loop:
+// the kernel is then bound by instruction throughput (about 2,300 instructions a
+// thread and tile, 1,400 of them FMAs) with the loads and stores of
+// neighbouring blocks overlapping only in part, at about 2.4 times the byte
+// bound at B=768.  The contraction over the masks stays on the FMA pipe in
+// both types: tensor-core fragments (mma.sync.m16n8k16) spread a pixel's
+// taps over the four lanes of a quad, which this sliding window cannot use.
+// It serves K in (3, 5, 7), M <= 16, C + P <= 4, r in (1, 2, 4), any H and W;
+// the general variant serves the remaining shapes (C + P > 4, other r).  The
+// caller names the variant; the choice depends on shapes alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxChannels = 4;   // C and P each at most 4
 constexpr int kMaxMasks = 16;     // M at most 16
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_float(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_float(__nv_bfloat16& d, float v) {
+  d = __float2bfloat16(v);
+}
 __device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
   return __bfloat162float(p[i]);
@@ -57,6 +105,12 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
   p[i] = __float2bfloat16(v);
 }
 
+// ---------------------------------------------------------------------------
+// General variant: one thread per output pixel, 256 pixels per block.
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;
+
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
@@ -64,7 +118,7 @@ cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
                  const T* __restrict__ first_distrib,
                  const T* __restrict__ kernels, const T* __restrict__ masks,
                  T* __restrict__ out_img, T* __restrict__ out_distrib, int H,
-                 int W, int C, int P, int M, int sna) {
+                 int W, int C, int P, int M, int sna, int r) {
   extern __shared__ float s_kernels[];  // [K*K][M] of this block's sample
   const int b = blockIdx.y;
   const int kk_m = K * K * M;
@@ -81,7 +135,14 @@ cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
   const int offset = sna ? 2 : 1;
   const int n_masks = M + offset;
 
-  const T* mrow = masks + here * n_masks;
+  const T* mrow;
+  if (r > 1) {
+    const int hb = h / r, wb = w / r;
+    const long cell = ((long)b * (H / r) + hb) * (W / r) + wb;
+    mrow = masks + (cell * r * r + (h - hb * r) * r + (w - wb * r)) * n_masks;
+  } else {
+    mrow = masks + here * n_masks;
+  }
   const float m0 = load(mrow, 0);
   const float m1 = sna ? load(mrow, 1) : 0.f;
   float mt[kMaxMasks];
@@ -137,37 +198,554 @@ cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
   }
 }
 
-template <typename T, int K>
-cudaError_t launch(const void* prev, const void* first, const void* prev_distrib,
-                   const void* first_distrib, const void* kernels, const void* masks,
-                   void* out_img, void* out_distrib, int B, int H, int W, int C,
-                   int P, int M, int sna, cudaStream_t stream) {
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  const size_t smem = sizeof(float) * K * K * M;
-  cdna_tail_kernel<T, K><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(prev), static_cast<const T*>(first),
-      static_cast<const T*>(prev_distrib), static_cast<const T*>(first_distrib),
-      static_cast<const T*>(kernels), static_cast<const T*>(masks),
-      static_cast<T*>(out_img), static_cast<T*>(out_distrib), H, W, C, P, M, sna);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// Tiled variant.
+// ---------------------------------------------------------------------------
+
+constexpr int kTileW = 64;
+constexpr int kTileH = 8;
+constexpr int kPx = 4;                                   // pixels per thread, in a column
+constexpr int kTilePix = kTileW * kTileH;
+constexpr int kTiledThreads = kTilePix / kPx;            // 128
+constexpr int kPack = 4;                                 // packed channels per pixel
+
+// floor(x / d) for 0 <= x < 2^22 and 0 < d < 2^11, given inv = 1.f / d: the
+// quotient of x + 0.5 is at least 0.5 / d away from an integer, more than
+// the rounding of the two float operations.
+__device__ __forceinline__ int fast_div(int x, float inv) {
+  return (int)(((float)x + 0.5f) * inv);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
+}
+
+// One thread hands a whole span to the copy engine (TMA bulk copy); the
+// loads report to an mbarrier that every thread then waits on.
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbarrier_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;" ::"r"(shared_address(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbarrier_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}" ::"r"(shared_address(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(shared_address(smem)),
+      "l"(gmem), "r"(bytes), "r"(shared_address(bar))
+      : "memory");
+}
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gmem),
+               "r"(shared_address(smem)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// Runs of elements in global memory and their place in shared memory.
+template <typename T>
+struct SpanT {
+  T* g;
+  std::remove_const_t<T>* s;
+  int rows, len;
+  // one run of whole 16-byte words (or nothing), as a bulk copy takes it
+  __device__ __forceinline__ bool whole_words() const {
+    return len == 0 ||
+           (rows == 1 && (uintptr_t)g % 16 == 0 && (len * sizeof(T)) % 16 == 0);
+  }
+};
+
+// Copies `rows` runs of `len` elements from global memory (run i at
+// g + i * g_stride) into shared memory (run i at s + i * s_pitch) as they
+// are: 16 bytes per thread with cp.async where the runs start on 16-byte
+// boundaries, the rest of each run (or all of it) element by element.  s and
+// s_pitch are multiples of 16 bytes.
+template <typename T>
+__device__ __forceinline__ void copy_in(const T* __restrict__ g, int rows, long g_stride,
+                                        int len, T* __restrict__ s, int s_pitch) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_ok = (uintptr_t)g % 16 == 0 &&
+                      (rows == 1 || (g_stride * sizeof(T)) % 16 == 0);
+  const int nvec = vec_ok ? len / V : 0;
+  const float inv_nvec = 1.f / (float)max(nvec, 1);
+  for (int idx = threadIdx.x; idx < rows * nvec; idx += kTiledThreads) {
+    const int run = rows > 1 ? fast_div(idx, inv_nvec) : 0;
+    const int e = (idx - run * nvec) * V;
+    cp_async16(s + run * s_pitch + e, g + run * g_stride + e);
+  }
+  const int done = nvec * V, rest = len - done;
+  for (int idx = threadIdx.x; idx < rows * rest; idx += kTiledThreads) {
+    const int run = idx / rest;
+    const int e = done + idx - run * rest;
+    s[run * s_pitch + e] = g[run * g_stride + e];
+  }
+}
+
+// The reverse of copy_in: 16-byte stores where the runs start
+// on 16-byte boundaries.
+template <typename T>
+__device__ __forceinline__ void copy_out(T* __restrict__ g, int rows, long g_stride,
+                                         int len, const T* __restrict__ s, int s_pitch) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec_ok = (uintptr_t)g % 16 == 0 &&
+                      (rows == 1 || (g_stride * sizeof(T)) % 16 == 0);
+  const int nvec = vec_ok ? len / V : 0;
+  const float inv_nvec = 1.f / (float)max(nvec, 1);
+  for (int idx = threadIdx.x; idx < rows * nvec; idx += kTiledThreads) {
+    const int run = rows > 1 ? fast_div(idx, inv_nvec) : 0;
+    const int e = (idx - run * nvec) * V;
+    *reinterpret_cast<uint4*>(g + run * g_stride + e) =
+        *reinterpret_cast<const uint4*>(s + run * s_pitch + e);
+  }
+  const int done = nvec * V, rest = len - done;
+  for (int idx = threadIdx.x; idx < rows * rest; idx += kTiledThreads) {
+    const int run = idx / rest;
+    const int e = done + idx - run * rest;
+    g[run * g_stride + e] = s[run * s_pitch + e];
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_k(int K, const void* prev, const void* first,
-                       const void* prev_distrib, const void* first_distrib,
-                       const void* kernels, const void* masks, void* out_img,
-                       void* out_distrib, int B, int H, int W, int C, int P, int M,
-                       int sna, cudaStream_t stream) {
+__device__ __forceinline__ int round_up_vec(int n) {
+  constexpr int V = 16 / sizeof(T);
+  return (n + V - 1) / V * V;
+}
+
+// A window of an NHWC tensor of `nch` channels: rows [r_lo, r_hi), columns
+// [c_lo, c_hi) of sample b.  Of full width it is one contiguous run, else
+// one run per row.  In shared memory element (row, col, ch), counted from
+// the window's corner, sits at row * stride + col * nch + ch.
+struct Window {
+  long origin;      // first element in the tensor
+  int rows, len;    // runs and elements per run
+  long g_stride;    // between runs in the tensor
+  int stride;       // between rows in shared memory
+  int size;         // elements taken in shared memory
+};
+
+template <typename T>
+__device__ __forceinline__ Window make_window(int b, int H, int W, int nch, int r_lo,
+                                              int r_hi, int c_lo, int c_hi) {
+  Window win;
+  win.origin = (((long)b * H + r_lo) * W + c_lo) * nch;
+  if (c_lo == 0 && c_hi == W) {
+    win.rows = 1;
+    win.len = (r_hi - r_lo) * W * nch;
+    win.g_stride = 0;
+    win.stride = W * nch;
+    win.size = round_up_vec<T>(win.len);
+  } else {
+    win.rows = r_hi - r_lo;
+    win.len = (c_hi - c_lo) * nch;
+    win.g_stride = (long)W * nch;
+    win.stride = round_up_vec<T>(win.len);
+    win.size = win.rows * win.stride;
+  }
+  return win;
+}
+
+// Eight bytes of shared memory as floats.
+__device__ __forceinline__ void unpack(const float*, uint2 w, float* out) {
+  out[0] = __uint_as_float(w.x);
+  out[1] = __uint_as_float(w.y);
+}
+__device__ __forceinline__ void unpack(const __nv_bfloat16*, uint2 w, float* out) {
+  out[0] = __uint_as_float(w.x << 16);
+  out[1] = __uint_as_float(w.x & 0xffff0000u);
+  out[2] = __uint_as_float(w.y << 16);
+  out[3] = __uint_as_float(w.y & 0xffff0000u);
+}
+
+template <typename T, int K, int MP>
+struct TiledShape {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int kPad = K / 2;
+  static constexpr int kTileWP = kTileW + K - 1;         // staged tile with halo
+  static constexpr int kTileHP = kTileH + K - 1;
+  static constexpr int kMPP = (MP + 3) / 4 * 4;          // kernel values per tap
+  static constexpr int kKernelFloats = K * K * kMPP;
+  static constexpr int kTileFloats = kTileHP * kTileWP * kPack;
+  // copies of the tensors' own bytes, in elements of T
+  static constexpr int kRawIn = kTileHP * (kTileWP * kPack + 2 * V);
+  static constexpr int kRawIo = kTileH * (kTileW * kPack + 2 * V);
+  static constexpr int kRawMask = kTilePix * (MP + 2) + kTileH * V;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kKernelFloats + kTileFloats) +
+      sizeof(T) * (kRawIn + 2 * kRawIo + kRawMask);
+};
+
+// Where one tile's data lies, in the tensors and in shared memory.
+template <typename T>
+struct TileGeometry {
+  int b, h0, w0, h1, w1;
+  int r_lo, c_lo;                  // corner of the input window with its halo
+  Window in_c, in_p, io_c, io_p;   // input window and the tile itself, C and P channels
+  long m_origin, m_gstride;        // the tile's masks: runs of cells
+  int m_rows, m_len, m_stride, cell;
+
+  __device__ __forceinline__ TileGeometry(int tile_x, int tile_y, int sample, int H,
+                                          int W, int C, int P, int nc, int lg, int pad) {
+    b = sample;
+    h0 = tile_y * kTileH;
+    w0 = tile_x * kTileW;
+    h1 = min(h0 + kTileH, H);
+    w1 = min(w0 + kTileW, W);
+    r_lo = max(h0 - pad, 0);
+    c_lo = max(w0 - pad, 0);
+    const int r_hi = min(h0 + kTileH + pad, H), c_hi = min(w0 + kTileW + pad, W);
+    in_c = make_window<T>(b, H, W, C, r_lo, r_hi, c_lo, c_hi);
+    in_p = make_window<T>(b, H, W, P, r_lo, r_hi, c_lo, c_hi);
+    io_c = make_window<T>(b, H, W, C, h0, h1, w0, w1);
+    io_p = make_window<T>(b, H, W, P, h0, h1, w0, w1);
+    // masks: cells are low-resolution pixels (r = 1: a cell is a pixel)
+    const int Hb = H >> lg, Wb = W >> lg;
+    const int hb0 = h0 >> lg, hb1 = h1 >> lg, wb0 = w0 >> lg, wb1 = w1 >> lg;
+    cell = nc << (2 * lg);
+    m_origin = (((long)b * Hb + hb0) * Wb + wb0) * cell;
+    if (wb0 == 0 && wb1 == Wb) {
+      m_rows = 1;
+      m_len = (hb1 - hb0) * Wb * cell;
+      m_gstride = 0;
+      m_stride = Wb * cell;
+    } else {
+      m_rows = hb1 - hb0;
+      m_len = (wb1 - wb0) * cell;
+      m_gstride = (long)Wb * cell;
+      m_stride = round_up_vec<T>((wb1 - wb0) * cell);
+    }
+  }
+};
+
+template <typename T, int K, int MP>
+__global__ void __launch_bounds__(kTiledThreads)
+cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
+                       const T* __restrict__ prev_distrib,
+                       const T* __restrict__ first_distrib,
+                       const T* __restrict__ kernels, const T* __restrict__ masks,
+                       T* __restrict__ out_img, T* __restrict__ out_distrib, int H,
+                       int W, int C, int P, int M, int sna, int lg) {
+  using S = TiledShape<T, K, MP>;
+  constexpr int kPad = S::kPad, kTileWP = S::kTileWP, kTileHP = S::kTileHP;
+  constexpr int kMPP = S::kMPP;
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long arrived;                 // mbarrier of the bulk loads
+  float* s_k = reinterpret_cast<float*>(smem4);          // [K*K][kMPP]
+  float4* tile4 = reinterpret_cast<float4*>(s_k + S::kKernelFloats);
+  T* raw_prev = reinterpret_cast<T*>(tile4 + kTileHP * kTileWP);
+  T* raw_first = raw_prev + S::kRawIn;
+  T* raw_out = raw_first + S::kRawIo;
+  T* raw_m = raw_out + S::kRawIo;
+
+  using Span = SpanT<const T>;
+  const int tid = threadIdx.x;
+  const int offset = sna ? 2 : 1;
+  const int nc = M + offset;
+  const TileGeometry<T> g(blockIdx.x, blockIdx.y, blockIdx.z, H, W, C, P, nc, lg, kPad);
+  T* raw_pd = raw_prev + g.in_c.size;
+  T* raw_fd = raw_first + g.io_c.size;
+  T* raw_od = raw_out + g.io_c.size;
+
+  // 1. the tensors' bytes into shared memory: where every run is one span
+  //    of whole 16-byte words, one thread hands them to the copy engine;
+  //    else each thread copies 16 bytes at a time, or element by element
+  const Span spans[5] = {
+      {prev + g.in_c.origin, raw_prev, g.in_c.rows, g.in_c.len},
+      {prev_distrib + g.in_p.origin, raw_pd, g.in_p.rows, P ? g.in_p.len : 0},
+      {first + g.io_c.origin, raw_first, g.io_c.rows, sna ? g.io_c.len : 0},
+      {first_distrib + g.io_p.origin, raw_fd, g.io_p.rows, sna && P ? g.io_p.len : 0},
+      {masks + g.m_origin, raw_m, g.m_rows, g.m_len}};
+  bool bulk = true;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) bulk = bulk && spans[i].whole_words();
+  if (bulk) {
+    if (tid == 0) {
+      mbarrier_init(&arrived);
+      unsigned bytes = 0;
+#pragma unroll
+      for (int i = 0; i < 5; ++i) bytes += spans[i].len * sizeof(T);
+      mbarrier_expect(&arrived, bytes);
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        if (spans[i].len)
+          bulk_load(spans[i].s, spans[i].g, spans[i].len * sizeof(T), &arrived);
+    }
+  } else {
+    copy_in(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev,
+            g.in_c.stride);
+    copy_in(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd,
+            g.in_p.stride);
+    copy_in(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
+            g.io_c.stride);
+    copy_in(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd,
+            g.io_p.stride);
+    copy_in(spans[4].g, g.m_rows, g.m_gstride, g.m_len, raw_m, g.m_stride);
+  }
+  // this sample's CDNA kernels as f32, M values padded to kMPP per tap
+  const T* kb = kernels + (long)g.b * K * K * M;
+  constexpr int kPerThread = (S::kKernelFloats + kTiledThreads - 1) / kTiledThreads;
+  T k_regs[kPerThread];
+#pragma unroll
+  for (int n = 0; n < kPerThread; ++n) {
+    const int i = tid + n * kTiledThreads;
+    const int t = i / kMPP, m = i - t * kMPP;
+    if (i < S::kKernelFloats && m < M) k_regs[n] = kb[t * M + m];
+  }
+#pragma unroll
+  for (int n = 0; n < kPerThread; ++n) {
+    const int i = tid + n * kTiledThreads;
+    const int m = i % kMPP;
+    if (i < S::kKernelFloats) s_k[i] = m < M ? to_float(k_regs[n]) : 0.f;
+  }
+  if (!bulk) cp_async_wait_all();
+  __syncthreads();   // the mbarrier is set up, the kernels and the copies are in
+  if (bulk) mbarrier_wait(&arrived);
+
+  // 2. the input tile with its halo as packed f32 pixels, zero outside the
+  //    image and in the channels not in use
+#pragma unroll
+  for (int sp0 = 0; sp0 < kTileHP * kTileWP; sp0 += kTiledThreads) {
+    const int sp = sp0 + tid;
+    if (sp >= kTileHP * kTileWP) break;
+    const int trow = sp / kTileWP;
+    const int h = g.h0 - kPad + trow;
+    const int w = g.w0 - kPad + sp - trow * kTileWP;
+    float v[kPack] = {0.f, 0.f, 0.f, 0.f};
+    if (h >= 0 && h < H && w >= 0 && w < W) {
+      const T* pc = raw_prev + (h - g.r_lo) * g.in_c.stride + (w - g.c_lo) * C;
+      const T* pp = raw_pd + (h - g.r_lo) * g.in_p.stride + (w - g.c_lo) * P - C;
+#pragma unroll
+      for (int ch = 0; ch < kPack; ++ch) {
+        if (ch < C) v[ch] = to_float(pc[ch]);
+        else if (ch < C + P) v[ch] = to_float(pp[ch]);
+      }
+    }
+    tile4[sp] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __syncthreads();
+
+  // 3. four pixels of one column per thread: rows r0..r0+3 of the tile
+  const int col = tid & (kTileW - 1);
+  const int r0 = (tid / kTileW) * kPx;
+  if (g.w0 + col < W && g.h0 + r0 < H) {
+    constexpr int kPerWord = 8 / sizeof(T);
+    constexpr int kWords = (MP + 2 + kPerWord - 1) / kPerWord;
+    const bool by_words = (nc * sizeof(T)) % 8 == 0;
+    const int words = nc / kPerWord;
+    const int sub_mask = (1 << lg) - 1;
+    float mt[kPx][MP], m0[kPx], m1[kPx];
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) {
+      const int prow = r0 + px;
+      const T* mp = raw_m + (prow >> lg) * g.m_stride + (col >> lg) * g.cell +
+                    (((prow & sub_mask) << lg) + (col & sub_mask)) * nc;
+      float vals[kWords * kPerWord] = {};
+      if (by_words) {
+#pragma unroll
+        for (int q = 0; q < kWords; ++q)
+          if (q < words)
+            unpack(mp, reinterpret_cast<const uint2*>(mp)[q], vals + q * kPerWord);
+      } else {
+#pragma unroll
+        for (int m = 0; m < MP + 2; ++m)
+          if (m < nc) vals[m] = to_float(mp[m]);
+      }
+      m0[px] = vals[0];
+      m1[px] = vals[1];
+      if (sna) {
+#pragma unroll
+        for (int m = 0; m < MP; ++m) mt[px][m] = vals[m + 2];
+      } else {
+#pragma unroll
+        for (int m = 0; m < MP; ++m) mt[px][m] = vals[m + 1];
+      }
+      if (M < MP) {
+#pragma unroll
+        for (int m = 0; m < MP; ++m)
+          if (m >= M) mt[px][m] = 0.f;
+      }
+    }
+    float4 acc[kPx];
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) acc[px] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+#pragma unroll 1   // rolled: the body of one tap column stays in the instruction cache
+    for (int j = 0; j < K; ++j) {
+      float4 win[kPx + K - 1];
+#pragma unroll
+      for (int rr = 0; rr < kPx + K - 1; ++rr)
+        win[rr] = tile4[(r0 + rr) * kTileWP + col + j];
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        float kv[kMPP];
+        const float4* k4 = reinterpret_cast<const float4*>(s_k + (i * K + j) * kMPP);
+#pragma unroll
+        for (int q = 0; q < kMPP / 4; ++q) {
+          if (4 * q + 2 < MP) {
+            const float4 v = k4[q];
+            kv[4 * q] = v.x;
+            kv[4 * q + 1] = v.y;
+            kv[4 * q + 2] = v.z;
+            kv[4 * q + 3] = v.w;
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(k4 + q);
+            kv[4 * q] = v.x;
+            kv[4 * q + 1] = v.y;
+            kv[4 * q + 2] = 0.f;
+            kv[4 * q + 3] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int px = 0; px < kPx; ++px) {
+          float e = 0.f;
+#pragma unroll
+          for (int m = 0; m < MP; ++m) e = fmaf(mt[px][m], kv[m], e);
+          const float4 x = win[px + i];
+          acc[px].x = fmaf(e, x.x, acc[px].x);
+          acc[px].y = fmaf(e, x.y, acc[px].y);
+          acc[px].z = fmaf(e, x.z, acc[px].z);
+          acc[px].w = fmaf(e, x.w, acc[px].w);
+        }
+      }
+    }
+
+    // compositing, and the results in the outputs' own layout and type
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) {
+      const int prow = r0 + px;
+      if (g.h0 + prow < H) {
+        const float4 x = tile4[(prow + kPad) * kTileWP + col + kPad];
+        const float xs[kPack] = {x.x, x.y, x.z, x.w};
+        const float as[kPack] = {acc[px].x, acc[px].y, acc[px].z, acc[px].w};
+        const int at_c = prow * g.io_c.stride + col * C;
+        const int at_p = prow * g.io_p.stride + col * P - C;
+#pragma unroll
+        for (int ch = 0; ch < kPack; ++ch) {
+          float v = fmaf(xs[ch], m0[px], as[ch]);
+          if (ch < C) {
+            if (sna) v = fmaf(to_float(raw_first[at_c + ch]), m1[px], v);
+            from_float(raw_out[at_c + ch], v);
+          } else if (ch < C + P) {
+            if (sna) v = fmaf(to_float(raw_fd[at_p + ch]), m1[px], v);
+            from_float(raw_od[at_p + ch], v);
+          }
+        }
+      }
+    }
+  }
+  // 4. the outputs' bytes to global memory, the same two ways
+  const SpanT<T> outs[2] = {
+      {out_img + g.io_c.origin, raw_out, g.io_c.rows, g.io_c.len},
+      {out_distrib + g.io_p.origin, raw_od, g.io_p.rows, P ? g.io_p.len : 0}};
+  const bool bulk_out = outs[0].whole_words() && outs[1].whole_words();
+  if (bulk_out) fence_async_shared();
+  __syncthreads();
+  if (bulk_out) {
+    if (tid == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (outs[i].len) bulk_store(outs[i].g, outs[i].s, outs[i].len * sizeof(T));
+      bulk_store_wait();
+    }
+  } else {
+    copy_out(out_img + g.io_c.origin, g.io_c.rows, g.io_c.g_stride, g.io_c.len,
+             raw_out, g.io_c.stride);
+    copy_out(out_distrib + g.io_p.origin, g.io_p.rows, g.io_p.g_stride, outs[1].len,
+             raw_od, g.io_p.stride);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launches.
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *prev, *first, *prev_distrib, *first_distrib, *kernels, *masks;
+  void *out_img, *out_distrib;
+  int B, H, W, C, P, M, sna, r;
+  cudaStream_t stream;
+};
+
+template <typename T, int K>
+cudaError_t launch_general(const Args& a) {
+  const dim3 grid((a.H * a.W + kThreads - 1) / kThreads, a.B);
+  const size_t smem = sizeof(float) * K * K * a.M;
+  cdna_tail_kernel<T, K><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
+      static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
+      static_cast<const T*>(a.kernels), static_cast<const T*>(a.masks),
+      static_cast<T*>(a.out_img), static_cast<T*>(a.out_distrib), a.H, a.W, a.C, a.P,
+      a.M, a.sna, a.r);
+  return cudaGetLastError();
+}
+
+template <typename T, int K, int MP>
+cudaError_t launch_tiled(const Args& a, int lg) {
+  using S = TiledShape<T, K, MP>;
+  static bool attribute_set = false;   // above 48 KB shared memory is opt-in
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cdna_tail_tiled_kernel<T, K, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::kBytes);
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int tiles_y = (a.H + kTileH - 1) / kTileH;
+  if (tiles_y > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((a.W + kTileW - 1) / kTileW, tiles_y, a.B);
+  cdna_tail_tiled_kernel<T, K, MP><<<grid, kTiledThreads, S::kBytes, a.stream>>>(
+      static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
+      static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
+      static_cast<const T*>(a.kernels), static_cast<const T*>(a.masks),
+      static_cast<T*>(a.out_img), static_cast<T*>(a.out_distrib), a.H, a.W, a.C, a.P,
+      a.M, a.sna, lg);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch(const Args& a, int variant) {
+  if (variant == 0) return launch_general<T, K>(a);
+  const int r = a.r > 1 ? a.r : 1;
+  if (a.C + a.P > kPack || (r != 1 && r != 2 && r != 4)) return cudaErrorInvalidValue;
+  const int lg = r == 4 ? 2 : r - 1;
+  if (a.M <= 10) return launch_tiled<T, K, 10>(a, lg);
+  return launch_tiled<T, K, kMaxMasks>(a, lg);
+}
+
+template <typename T>
+cudaError_t dispatch_k(int K, const Args& a, int variant) {
   switch (K) {
     case 3:
-      return launch<T, 3>(prev, first, prev_distrib, first_distrib, kernels, masks,
-                          out_img, out_distrib, B, H, W, C, P, M, sna, stream);
+      return launch<T, 3>(a, variant);
     case 5:
-      return launch<T, 5>(prev, first, prev_distrib, first_distrib, kernels, masks,
-                          out_img, out_distrib, B, H, W, C, P, M, sna, stream);
+      return launch<T, 5>(a, variant);
     case 7:
-      return launch<T, 7>(prev, first, prev_distrib, first_distrib, kernels, masks,
-                          out_img, out_distrib, B, H, W, C, P, M, sna, stream);
+      return launch<T, 7>(a, variant);
     default:
       return cudaErrorInvalidValue;
   }
@@ -176,24 +754,26 @@ cudaError_t dispatch_k(int K, const void* prev, const void* first,
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// mask_block: the block factor r of the mask layout (0 or 1: full resolution).
+// variant: 0 = general, 1 = tiled (refused for shapes it does not serve).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int cdna_tail_forward(const void* prev, const void* first,
                                  const void* prev_distrib, const void* first_distrib,
                                  const void* kernels, const void* masks,
                                  void* out_img, void* out_distrib, int B, int H,
                                  int W, int C, int P, int K, int M, int sna,
-                                 int dtype, void* stream) {
+                                 int dtype, int mask_block, int variant,
+                                 void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C < 1 || C > kMaxChannels ||
-      P < 0 || P > kMaxChannels || M < 1 || M > kMaxMasks)
+      P < 0 || P > kMaxChannels || M < 1 || M > kMaxMasks || mask_block < 0 ||
+      (variant != 0 && variant != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_k<float>(K, prev, first, prev_distrib, first_distrib,
-                                  kernels, masks, out_img, out_distrib, B, H, W, C,
-                                  P, M, sna, s);
-  if (dtype == 1)
-    return (int)dispatch_k<__nv_bfloat16>(K, prev, first, prev_distrib,
-                                          first_distrib, kernels, masks, out_img,
-                                          out_distrib, B, H, W, C, P, M, sna, s);
+  if (mask_block > 1 && (H % mask_block || W % mask_block))
+    return (int)cudaErrorInvalidValue;
+  const Args a{prev, first, prev_distrib, first_distrib, kernels, masks, out_img,
+               out_distrib, B, H, W, C, P, M, sna, mask_block,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)dispatch_k<float>(K, a, variant);
+  if (dtype == 1) return (int)dispatch_k<__nv_bfloat16>(K, a, variant);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,22 +22,7 @@ from visual_foresight_torch.models.layers import (ConvLSTMCell, LayerNorm,
                                                   conv_nhwc)
 from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
-
-
-def space_to_depth(x, r):
-    """(B, H, W, C) -> (B, H/r, W/r, C*r*r); channel ``(i*r + j)*C + c``
-    holds pixel (r*h + i, r*w + j), channel c."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // r, r, w // r, r, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h // r, w // r, r * r * c)
-
-
-def depth_to_space(x, r):
-    """Inverse of :func:`space_to_depth` (subpixel-major channels, unlike
-    ``F.pixel_shuffle``)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h, w, r, r, c // (r * r))
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h * r, w * r, c // (r * r))
+from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 
 def broadcast_carry(carry, batch):
@@ -102,7 +87,11 @@ class CDNAStep(nn.Module):
         self.state_head = nn.Linear(sdim + adim, sdim)
 
     def _backbone_std(self, lstm_states, prev_img, cond):
-        """Returns (new_lstm_states, h3, masks at full resolution)."""
+        """Returns (new_lstm_states, h3, masks, mask_block).  With the
+        full-resolution softmax the masks are (B, H, W, nc) and
+        ``mask_block`` is 0; with the low-resolution one they stay blocked,
+        (B, H/r, W/r, r*r*nc) with ``mask_block`` = r, as the tail reads
+        them in either layout."""
         r, dt = self.r, self.dtype
         s1, s3, s4 = lstm_states
         xg = conv_nhwc(prev_img.to(dt), self.enc0)                    # H/r
@@ -119,12 +108,10 @@ class CDNAStep(nn.Module):
         ml = self.mask_head(h4)
         if self.mask_softmax == 'fullres':
             masks = torch.softmax(depth_to_space(ml, r), dim=-1).to(dt)
-        else:
-            b, hm, wm = ml.shape[:3]
-            masks = torch.softmax(ml.reshape(b, hm, wm, r * r, -1),
-                                  dim=-1).to(dt)
-            masks = depth_to_space(masks.reshape(b, hm, wm, -1), r)
-        return (s1, s3, s4), h3, masks
+            return (s1, s3, s4), h3, masks, 0
+        b, hm, wm = ml.shape[:3]
+        masks = torch.softmax(ml.reshape(b, hm, wm, r * r, -1), dim=-1).to(dt)
+        return (s1, s3, s4), h3, masks.reshape(b, hm, wm, -1), r
 
     def forward(self, carry, x, plan_mode=True):
         (lstm_states, prev_img, prev_distrib, prev_state,
@@ -144,7 +131,8 @@ class CDNAStep(nn.Module):
                     (1.0 - u) * prev_distrib
 
         sa = torch.cat([prev_state, action], dim=-1)
-        lstm_states, h3, masks = self._backbone_std(lstm_states, prev_img, sa)
+        lstm_states, h3, masks, mask_block = self._backbone_std(
+            lstm_states, prev_img, sa)
 
         b, k, dt = prev_img.shape[0], self.kernel_size, self.dtype
         raw = self.cdna_head(h3.float().reshape(b, -1))   # NHWC flatten
@@ -157,7 +145,8 @@ class CDNAStep(nn.Module):
             pd = fd = prev_c.new_zeros(prev_c.shape[:3] + (0,))
         gen_image, gd = fused_warp_composite(
             prev_c, first_image.to(dt).contiguous(), pd, fd,
-            kernels.to(dt).contiguous(), masks.contiguous(), sna=self.sna)
+            kernels.to(dt).contiguous(), masks.contiguous(), sna=self.sna,
+            mask_block=mask_block)
         gen_distrib = prev_distrib
         if self.num_distribs:
             gen_distrib = gd

@@ -5,8 +5,17 @@ Counterpart of ``visual_foresight_tpu/ops/pallas_cdna.py``.  The kernel
 it takes the raw normalized CDNA kernels and the full mask stack, like the
 Pallas module's ``fused_warp_composite`` wrapper.
 
+The masks come at full resolution, (B, H, W, nc), or blocked, (B, H/r, W/r,
+r*r*nc) with ``mask_block=r``, as the model's low-resolution mask head
+leaves them (pixel (r*h+i, r*w+j), mask m at channel (i*r+j)*nc + m): the
+kernel indexes either, so the blocked form needs no ``depth_to_space`` copy.
+
 Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
-or raises; a CPU tensor takes :func:`fused_warp_composite_reference`.
+or raises; a CPU tensor takes :func:`fused_warp_composite_reference`.  The
+source holds two variants, chosen by shape alone (:func:`kernel_variant`):
+the tiled one (shared-memory tiles, 16-byte accesses, four pixels a thread)
+and the general one (one pixel a thread) for the shapes the tiled one does
+not serve.
 """
 
 import ctypes
@@ -17,15 +26,27 @@ import torch
 from visual_foresight_torch.ops import _build
 from visual_foresight_torch.ops.cdna_warp import (dna_warp,
                                                   effective_pixel_kernels)
+from visual_foresight_torch.ops.layout import depth_to_space
 
 SOURCE = 'cdna_tail.cu'
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHANNELS = 4
 _MAX_MASKS = 16
+VARIANTS = ('general', 'tiled')       # the C entry point's variant numbers
+_TILED_PACK = 4                       # packed channels of a staged pixel
+_TILED_BLOCKS = (1, 2, 4)
+
+
+def kernel_variant(c, p, mask_block):
+    """Which variant of ``csrc/cdna_tail.cu`` serves a call: ``'tiled'``
+    where the frame and distribution channels pack into four and the mask
+    block factor is 1, 2 or 4; ``'general'`` otherwise."""
+    tiled = c + p <= _TILED_PACK and max(mask_block, 1) in _TILED_BLOCKS
+    return 'tiled' if tiled else 'general'
 
 
 def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
-                                   kernels, masks, sna=True):
+                                   kernels, masks, sna=True, mask_block=0):
     """Plain version: ``effective_pixel_kernels`` + ``dna_warp`` +
     compositing, computed in f32 and cast to the input dtype.
 
@@ -34,10 +55,15 @@ def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
     :param prev_distrib: (B, H, W, P) pixel distributions (P may be 0)
     :param first_distrib: (B, H, W, P)
     :param kernels: (B, K, K, M) normalized CDNA kernels
-    :param masks: (B, H, W, M + (2 if sna else 1)) compositing masks
+    :param masks: (B, H, W, nc) compositing masks, nc = M + (2 if sna else
+        1); or, with ``mask_block`` = r > 1, (B, H/r, W/r, r*r*nc)
+    :param mask_block: block factor r of the mask layout (0 or 1: full
+        resolution)
     :return: (gen_image (B,H,W,C), gen_distrib_unnormalized (B,H,W,P))
     """
     offset = 2 if sna else 1
+    if mask_block > 1:
+        masks = depth_to_space(masks, mask_block)
     c = prev.shape[-1]
     masks32 = masks.float()
     eff = effective_pixel_kernels(kernels.float(), masks32, offset)
@@ -54,13 +80,14 @@ def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
 def _kernel():
     """The built kernel's C entry point, with its ctypes signature."""
     fn = _build.load(SOURCE).cdna_tail_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna):
+def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+           mask_block):
     tensors = (prev, first, prev_distrib, first_distrib, kernels, masks)
     names = ('prev', 'first', 'prev_distrib', 'first_distrib', 'kernels',
              'masks')
@@ -78,12 +105,17 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna):
     b, h, w, c = prev.shape
     p = prev_distrib.shape[-1]
     ksize, m = kernels.shape[1], kernels.shape[3]
-    offset = 2 if sna else 1
+    nc = m + (2 if sna else 1)
+    r = mask_block
+    if r < 0 or (r > 1 and (h % r or w % r)):
+        raise ValueError('mask_block {} does not divide the image {}x{}'
+                         .format(r, h, w))
+    mask_shape = (b, h // r, w // r, r * r * nc) if r > 1 else (b, h, w, nc)
     expect = {'first': (first, (b, h, w, c)),
               'prev_distrib': (prev_distrib, (b, h, w, p)),
               'first_distrib': (first_distrib, (b, h, w, p)),
               'kernels': (kernels, (b, ksize, ksize, m)),
-              'masks': (masks, (b, h, w, m + offset))}
+              'masks': (masks, mask_shape)}
     for name, (t, shape) in expect.items():
         if tuple(t.shape) != shape:
             raise ValueError('{} has shape {}, expected {}'.format(
@@ -99,25 +131,30 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna):
 
 
 def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
-                         masks, sna=True):
+                         masks, sna=True, mask_block=0):
     """Fused warp + composite of the frame and the pixel distributions.
 
     Same contract (NHWC in and out) as
     :func:`fused_warp_composite_reference`; all six tensors share one device
     and one dtype (float32 or bfloat16) and are contiguous.  On a CUDA device
     it launches ``csrc/cdna_tail.cu`` and counts the launch in
-    ``fused_warp_composite.launches``.
+    ``fused_warp_composite.launches``, by variant in
+    ``fused_warp_composite.launches_by_variant`` and, where the masks came
+    blocked, in ``fused_warp_composite.blocked_launches``.
     """
     if prev.device.type == 'cpu':
         return fused_warp_composite_reference(
-            prev, first, prev_distrib, first_distrib, kernels, masks, sna)
+            prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+            mask_block)
     if prev.device.type != 'cuda':
         raise ValueError('no CDNA tail kernel for device {}'.format(
             prev.device))
-    _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna)
+    _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+           mask_block)
     fn = _kernel()
     b, h, w, c = prev.shape
     p = prev_distrib.shape[-1]
+    variant = kernel_variant(c, p, mask_block)
     out_img = torch.empty_like(prev)
     out_distrib = torch.empty_like(prev_distrib)
     with torch.cuda.device(prev.device):
@@ -126,12 +163,17 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
                  first_distrib.data_ptr(), kernels.data_ptr(),
                  masks.data_ptr(), out_img.data_ptr(), out_distrib.data_ptr(),
                  b, h, w, c, p, kernels.shape[1], kernels.shape[3], int(sna),
-                 _DTYPES[prev.dtype], stream)
+                 _DTYPES[prev.dtype], mask_block, VARIANTS.index(variant),
+                 stream)
     if err != 0:
         raise RuntimeError('cdna_tail kernel launch failed: cudaError {}'
                            .format(err))
     fused_warp_composite.launches += 1
+    fused_warp_composite.launches_by_variant[variant] += 1
+    fused_warp_composite.blocked_launches += mask_block > 1
     return out_img, out_distrib
 
 
 fused_warp_composite.launches = 0
+fused_warp_composite.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+fused_warp_composite.blocked_launches = 0

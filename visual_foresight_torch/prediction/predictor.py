@@ -57,7 +57,11 @@ DEFAULT_HPARAMS = {
     's2d_tail': False,
     # the port's time loop is a Python loop, so there is nothing to unroll
     'scan_unroll': 1,
-    'mask_softmax': 'fullres',
+    # std-backbone mask softmax placement (identical arithmetic either way).
+    # The TPU package serves 'fullres'; here 'lowres' is the serving default:
+    # the tail kernel reads the masks as the low-resolution head leaves them,
+    # so this placement runs no depth_to_space copy at all
+    'mask_softmax': 'lowres',
     'fuse_decode': False,
 }
 

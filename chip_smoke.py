@@ -9,30 +9,47 @@
    f32 array must give exactly ``x + 1``, before anything larger is tried;
 3. holds the CDNA tail kernel against its plain PyTorch version, in both
    mask layouts (full resolution and blocked) and in bf16 and f32: at the
-   serving shapes (B=200 and B=768, 48x64, C=3, P=1, K=5, M=10, SNA) and at
+   serving shapes (B=200, 768, 800, 1536 and 10, the batches of the driven
+   paths, at 48x64, C=3, P=1, K=5, M=10, SNA) and at
    shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
    off, P=0, and C=1, P=4, which the general variant serves);
-4. golden: the restored xz_flagship in f32 (TF32 off) replays the JAX
-   package's replan ``weights/xz_flagship/golden_replan_f32.npz`` (16
-   samples x 15 steps x 3 iterations, normals injected): scores, elites and
-   the elites' frames against the JAX numbers;
+4. golden: each restored export in f32 (TF32 off) replays the JAX package's
+   replan ``weights/<name>/golden_replan_f32.npz`` with the normals
+   injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
+   24 samples x 9 steps x 3 iterations, latents injected too): scores,
+   elites and the elites' frames against the JAX numbers;
 5. drives the serving replan: ``TorchPredictor`` with the restored
    xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
    3 iterations, for a few replans with fresh contexts; checks the outputs,
    46 kernel launches per replan, and that one replan with the plain tail
-   gives the same elites and scores.  On this path, on the golden one and
-   on the controller's, every launch must be of the tiled variant;
-6. drives ``PixelCostController.act()`` at the xz_bench20 operating point
-   (768 samples, 15 actions x repeat 3 = 45 steps, 3 iterations, replan
-   every 10 steps, restored flagship, bf16) for 12 control steps on seeded
-   synthetic frames: 2 replans, 272 tail launches, finite actions;
+   gives the same elites and scores.  On every driven path every launch
+   must be of the tiled variant and on blocked masks;
+6. drives ``PixelCostController.act()`` on seeded synthetic frames, each
+   controller restoring its weights itself, with the tail's launch count
+   worked out from the policy (``replan_launches``) and checked:
+   - xz_bench20's point (768 samples, 15 actions x repeat 3 = 45 steps, 3
+     iterations, replan every 10 steps, xz_flagship, bf16), 12 control
+     steps: 2 replans x (1 + 3 x 45) = 272 launches;
+   - ag_bench20's point (768 samples, 10 actions x repeat 3 = 30 steps, 3
+     iterations, adim 4, sdim 5, one latent per sample, replan every 10
+     steps, ``predictor_propagation``, ag_r5f_v2, bf16), 12 control steps:
+     2 replans x (1 + 3 x 30) = 182 launches, the second replan on the
+     first one's propagated distribution;
+   - ag_bench20_hard's lever on the same point, ``stochastic_planning``
+     (2,) with ``stochastic_penalty`` 1.0: one replan of 1536 rows, 91
+     launches;
+   - xz_bench20's point at 800 samples with ``sample_chunk`` 200: one
+     replan = 1 context step + 3 iterations x 4 chunks x 45 steps at B=200
+     + one 45-step re-roll of the 10 visualised elites = 586 launches; and
+     the same 800 samples as one batch (136 launches), to time it against;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
    ``depth_to_space`` copy that the blocked layout saves; ``add_one`` also
-   at 2^26 floats), the 200-sample replan, and the controller's replan
-   (host clock and CUDA events), with a profiler breakdown of one replan of
-   each.
+   at 2^26 floats), the 200-sample replan, and the replans of the
+   xz_bench20, ag_bench20, chunked and one-batch 800-sample controllers
+   (host clock and CUDA events), with a profiler breakdown of one replan
+   of each but the last.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -101,8 +118,42 @@ CTRL_POLICY = {'action_order': ['x', 'z', 'grasp'], 'initial_std_lift': 0.5,
                'rejection_sampling': False, 'replan_interval': 10,
                'num_samples': 768, 'nactions': 15, 'T': 45,
                'model_path': WEIGHTS}
-CTRL_STEPS, CTRL_REPLANS, CTRL_TIMED = 12, 2, 5
-CTRL_LAUNCHES = CTRL_REPLANS * (1 + ITERS * CTRL_POLICY['T'])
+CTRL_STEPS, CTRL_TIMED = 12, 5
+# ag_bench20's policy and agent (benchmarks/ag_bench20/hparams.py), on the
+# numpy export of ag_r5f_v2; ag_bench20_hard adds the two stochastic keys
+AG_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
+                          'ag_r5f_v2')
+AG_AGENT = {'adim': 4, 'sdim': 5, 'ncam': 1, 'image_height': H,
+            'image_width': W, 'T': 30}
+AG_POLICY = {'initial_std': 0.04, 'initial_std_rot': np.pi / 32,
+             'initial_std_lift': 0.6, 'rejection_sampling': False,
+             'replan_interval': 10, 'predictor_propagation': True,
+             'num_samples': 768, 'nactions': 10, 'T': 30,
+             'model_path': AG_WEIGHTS}
+AG_HARD_POLICY = dict(AG_POLICY, stochastic_planning=(2,),
+                      stochastic_penalty=1.0)
+# xz_bench20 with VMPC_NUM_SAMPLES=800 and VMPC_SAMPLE_CHUNK=200
+CHUNK_POLICY = dict(CTRL_POLICY, num_samples=800, sample_chunk=200)
+N_VIS = 10                                    # the planner's default
+SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
+                           'initial_std_rot': np.pi / 18,
+                           'initial_std_grasp': 2,
+                           'action_order': ['x', 'z', 'grasp']},
+           'ag_r5f_v2': {'initial_std': 0.04, 'initial_std_lift': 0.6,
+                         'initial_std_rot': np.pi / 32,
+                         'initial_std_grasp': 2, 'action_order': None}}
+
+
+def replan_launches(policy):
+    """Tail launches of one cold replan under ``policy``: the context step
+    at B=1, then ``T`` steps per rollout; one rollout per iteration, or one
+    per chunk and iteration plus the re-roll of the visualised elites."""
+    rows = policy['num_samples'] * (policy.get('stochastic_planning')
+                                    or (1,))[0]
+    chunk = policy.get('sample_chunk', 0)
+    if chunk and rows > chunk and rows % chunk == 0:
+        return 1 + (ITERS * (rows // chunk) + 1) * policy['T']
+    return 1 + ITERS * policy['T']
 
 
 def card_line():
@@ -169,7 +220,12 @@ def check_tail_cases(gen):
     case's mask layouts.  Returns the largest bf16 error at the serving
     shapes."""
     err_bf16 = 0.0
-    for b in (M, CTRL_POLICY['num_samples']):
+    # the batches of the driven paths: a chunk or the 200-sample replan,
+    # the campaigns' 768, 800 in one batch, the hard set's 768 x 2 copies,
+    # the chunked replan's re-roll of the visualised elites (B=1 is among
+    # TAIL_CASES)
+    for b in (M, CTRL_POLICY['num_samples'], CHUNK_POLICY['num_samples'],
+              2 * AG_POLICY['num_samples'], N_VIS):
         for mask_block in (0, MASK_BLOCK):
             err_bf16 = max(err_bf16, check_tail(gen, b, torch.bfloat16,
                                                 mask_block=mask_block))
@@ -332,31 +388,34 @@ def compare_scores(label, got, want, k, rtol, per_element=False):
     return True, worst
 
 
-def restored_predictor(dtype):
-    """``TorchPredictor`` on the card with the numpy flagship weights;
-    raises if they did not restore."""
+def restored_predictor(dtype, weights=WEIGHTS):
+    """``TorchPredictor`` on the card with the numpy weights under
+    ``weights``; raises if they did not restore."""
     from visual_foresight_torch.prediction.predictor import TorchPredictor
-    predictor = TorchPredictor(WEIGHTS, {'dtype': dtype},
+    predictor = TorchPredictor(weights, {'dtype': dtype},
                                device='cuda').restore()
     n_params = sum(p.numel() for p in predictor.models[0].parameters())
-    print('predictor ({}): restored={} params={}'.format(
-        dtype, predictor.restored, n_params))
+    print('predictor ({}, {}): restored={} params={}'.format(
+        os.path.basename(weights), dtype, predictor.restored, n_params))
     if not predictor.restored:
-        raise AssertionError('the flagship weights did not restore')
+        raise AssertionError('the weights under {} did not restore'.format(
+            weights))
     return predictor
 
 
-def check_golden(spec_hp):
-    """Replay the JAX package's f32 replan of the restored flagship."""
+def check_golden(name):
+    """Replay the JAX package's f32 replan of the restored export ``name``
+    (plan noise injected, and the latents where the model has one)."""
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import make_action_spec
-    with np.load(os.path.join(WEIGHTS, 'golden_replan_f32.npz')) as f:
+    weights = os.path.join(os.path.dirname(WEIGHTS), name)
+    with np.load(os.path.join(weights, 'golden_replan_f32.npz')) as f:
         g = {k: f[k] for k in f.files}
-    predictor = restored_predictor('float32')
+    predictor = restored_predictor('float32', weights)
     k_elite, repeat = int(g['k_elite']), int(g['repeat'])
-    spec = make_action_spec(dict(spec_hp, nactions=int(g['nactions']),
-                                 repeat=repeat), 3)
+    spec = make_action_spec(dict(SPEC_HP[name], nactions=int(g['nactions']),
+                                 repeat=repeat), g['ctx_actions'].shape[-1])
     planner = FusedCEMPlanner(spec, int(g['num_samples']),
                               iterations=int(g['iterations']),
                               k_elite=k_elite,
@@ -366,12 +425,13 @@ def check_golden(spec_hp):
     out = planner.replan(
         predictor.models, g['images'], g['states'], g['distribs'],
         g['ctx_actions'], distance_grid(g['goal'], H, W, device='cuda'),
-        g['mean0'], g['sigma0'], noise=g['noise'])
+        g['mean0'], g['sigma0'], noise=g['noise'], latents=g.get('latents'))
     torch.cuda.synchronize()
     launches = read_tail_counts(
-        'golden', 1 + int(g['iterations']) * int(g['nactions']) * repeat)
+        'golden ' + name,
+        1 + int(g['iterations']) * int(g['nactions']) * repeat)
     same, score_err = compare_scores(
-        'golden f32 replay vs JAX', out['scores_per_itr'],
+        'golden f32 replay of {} vs JAX'.format(name), out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
     # frames of the elites both sides returned, matched by sample index
     idx = out['vis']['indices'].tolist()
@@ -382,8 +442,9 @@ def check_golden(spec_hp):
         frames = out['vis']['gen_images'][:, repeat - 1::repeat].cpu()
         frame_err = max(float((frames[a] - torch.tensor(
             g['vis_gen_images'][b])).abs().max()) for a, b in pairs)
-        print('golden frames of {} elites: max abs err {:.3e} (tol {:.0e})'
-              .format(len(pairs), frame_err, GOLDEN_FRAME_ATOL))
+        print('golden frames of {} elites ({}): max abs err {:.3e} (tol '
+              '{:.0e})'.format(len(pairs), name, frame_err,
+                               GOLDEN_FRAME_ATOL))
         if not frame_err <= GOLDEN_FRAME_ATOL:
             raise AssertionError('golden frames disagree with JAX')
     else:
@@ -423,7 +484,7 @@ def check_probe(gen):
     return launches, err
 
 
-def drive_replan_200(spec_hp):
+def drive_replan_200():
     """The 200-sample replan, on the restored weights in bf16: returns
     (launches, host latencies, replan function, contexts, generator)."""
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
@@ -432,7 +493,8 @@ def drive_replan_200(spec_hp):
                                                           initial_sigma,
                                                           make_action_spec)
     predictor = restored_predictor('bfloat16')
-    spec = make_action_spec(dict(spec_hp, nactions=NACT, repeat=REPEAT), 3)
+    spec = make_action_spec(dict(SPEC_HP['xz_flagship'], nactions=NACT,
+                                 repeat=REPEAT), 3)
     planner = FusedCEMPlanner(spec, M, iterations=ITERS, k_elite=10,
                               finalweight=10.0, action_bound=True,
                               n_vis=10, device='cuda')
@@ -502,53 +564,70 @@ def check_plain_tail_replan(replan, contexts, plan_gen):
                    SCORE_RTOL)
 
 
-def drive_controller():
-    """``PixelCostController.act()`` at the xz_bench20 operating point for
-    CTRL_STEPS control steps.  Returns (launches, controller, frames,
-    states)."""
+def drive_controller(label, agent, policy, steps):
+    """``PixelCostController.act()`` under ``policy`` for ``steps`` control
+    steps on seeded synthetic frames; a replan falls on step 1 and then
+    every ``replan_interval`` steps.  Checks that the weights restored, the
+    tail's launch count (every one tiled, on blocked masks), and that the
+    actions and the last replan's scores are finite and of the expected
+    shapes.  Returns (launches, controller, states)."""
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
-    ctrl = PixelCostController(AG_PARAMS, dict(CTRL_POLICY))
-    print('controller predictor: restored={}'.format(
-        ctrl.predictor.restored))
+    ctrl = PixelCostController(agent, dict(policy))
+    print('{} controller predictor: restored={}'.format(
+        label, ctrl.predictor.restored))
     if not ctrl.predictor.restored:
-        raise AssertionError('the controller did not restore the flagship')
+        raise AssertionError('the {} controller did not restore {}'.format(
+            label, policy['model_path']))
+    adim = agent['adim']
     rng = np.random.RandomState(2)
-    frames = (rng.rand(CTRL_STEPS, 1, H, W, 3) * 255).astype(np.uint8)
-    states = (rng.randn(CTRL_STEPS, 3) * 0.05).astype(np.float32)
+    frames = (rng.rand(steps, 1, H, W, 3) * 255).astype(np.uint8)
+    states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
     desig, goal = np.array([[[24, 32]]]), np.array([[[10, 50]]])
+    replans = 1 + (steps - 2) // policy['replan_interval']
     ctrl.reset()
     reset_tail_counts()
     actions, n_samples = [], []
-    for t in range(CTRL_STEPS):
+    for t in range(steps):
         out = ctrl.act(t=t, i_tr=0, desig_pix=desig, goal_pix=goal,
                        images=frames[:t + 1], state=states[:t + 1])
         actions.append(np.asarray(out['actions'], np.float32))
     torch.cuda.synchronize()
     launches = read_tail_counts(
-        'controller ({} act() steps, {} replans x (1 + {} x {}))'.format(
-            CTRL_STEPS, CTRL_REPLANS, ITERS, CTRL_POLICY['T']),
-        CTRL_LAUNCHES)
+        '{} controller ({} act() steps, {} replans x {})'.format(
+            label, steps, replans, replan_launches(policy)),
+        replans * replan_launches(policy))
     for a in actions:
-        if a.shape != (3,) or not np.isfinite(a).all():
-            raise AssertionError('controller action {} is malformed'.format(
-                a))
+        if a.shape != (adim,) or not np.isfinite(a).all():
+            raise AssertionError('{} controller action {} is malformed'
+                                 .format(label, a))
+    rows = policy['num_samples'] * (policy.get('stochastic_planning')
+                                    or (1,))[0]
     for itr in range(ITERS):
         scores = out['plan_stat']['scores_itr{}'.format(itr)]
         n_samples.append(scores.shape[-1])
-        if scores.shape != (CTRL_POLICY['num_samples'],) or \
-                not np.isfinite(scores).all():
-            raise AssertionError('controller scores_itr{} malformed'.format(
-                itr))
-    print('controller actions finite, shape (3,); scores_itr* lengths {}; '
-          'last action {}'.format(n_samples, actions[-1]))
+        if scores.shape != (rows,) or not np.isfinite(scores).all():
+            raise AssertionError('{} controller scores_itr{} malformed'
+                                 .format(label, itr))
+    print('{} controller actions finite, shape ({},); scores_itr* lengths '
+          '{}; last action {}'.format(label, adim, n_samples, actions[-1]))
+    if policy.get('predictor_propagation'):
+        # the next replan's context: the best plan's predicted distribution
+        d = ctrl._chosen_distrib
+        if d.shape != (N_CTX, 1, H, W, P) or not np.isfinite(d).all() or \
+                not d.sum() > 0:
+            raise AssertionError('{}: propagated distribution malformed'
+                                 .format(label))
+        print('{} propagated distribution: shape {}, mass per frame {}'
+              .format(label, d.shape, d.sum(axis=(1, 2, 3, 4))))
     return launches, ctrl, states
 
 
-def time_controller(ctrl, states, card):
+def time_controller(name, point, ctrl, states, card):
     """Host p50 of the controller's replan (``perform_CEM``, which ``act``
     calls when a replan is due) and the device span of one replan (CUDA
-    events around it)."""
+    events around it), printed as ``<name>_p50_ms`` and
+    ``<name>_device_ms``."""
     latencies = []
     for _ in range(CTRL_TIMED):
         torch.cuda.synchronize()
@@ -563,13 +642,12 @@ def time_controller(ctrl, states, card):
     ctrl.perform_CEM(states)
     end.record()
     torch.cuda.synchronize()
-    point = '768 samples x 45 steps x 48x64 x 3 iters, bf16'
-    print('controller_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
-          '[{}]'.format(float(np.percentile(latencies, 50)), point,
+    print('{}_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
+          '[{}]'.format(name, float(np.percentile(latencies, 50)), point,
                         CTRL_TIMED, ' '.join('{:.3f}'.format(x)
                                              for x in latencies), card))
-    print('controller_replan_device_ms={:.3f} ({}, CUDA events around one '
-          'replan) [{}]'.format(start.elapsed_time(end), point, card))
+    print('{}_device_ms={:.3f} ({}, CUDA events around one '
+          'replan) [{}]'.format(name, start.elapsed_time(end), point, card))
 
 
 def time_tail(gen, b, card):
@@ -674,19 +752,31 @@ def main():
                  time.time() - t0)
     err_bf16 = check_tail_cases(gen)
 
-    # -- 3. golden: the JAX package's f32 replan, replayed -----------------------
-    spec_hp = {'initial_std': 0.05, 'initial_std_lift': 0.15,
-               'initial_std_rot': np.pi / 18, 'initial_std_grasp': 2,
-               'action_order': ['x', 'z', 'grasp']}
-    golden_launches, _, _ = check_golden(spec_hp)
+    # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
+    golden_launches, _, _ = check_golden('xz_flagship')
+    golden_ag_launches, _, _ = check_golden('ag_r5f_v2')
 
     # -- 4. the 200-sample replan on the restored weights ----------------------
-    replan_launches, latencies, replan, contexts, plan_gen = \
-        drive_replan_200(spec_hp)
+    replan_launches_200, latencies, replan, contexts, plan_gen = \
+        drive_replan_200()
     check_plain_tail_replan(replan, contexts, plan_gen)
 
-    # -- 5. the controller at the xz_bench20 operating point ---------------------
-    ctrl_launches, ctrl, ctrl_states = drive_controller()
+    # -- 5. the controllers at the campaigns' operating points -------------------
+    ctrl_launches, ctrl, ctrl_states = drive_controller(
+        'xz_bench20', AG_PARAMS, CTRL_POLICY, CTRL_STEPS)
+    ag_launches, ag_ctrl, ag_states = drive_controller(
+        'ag_bench20', AG_AGENT, AG_POLICY, CTRL_STEPS)
+    hard_launches, hard_ctrl, _ = drive_controller(
+        'ag_bench20_hard (stochastic_planning 2, penalty 1.0)', AG_AGENT,
+        AG_HARD_POLICY, 2)
+    del hard_ctrl
+    chunk_launches, chunk_ctrl, chunk_states = drive_controller(
+        'xz_bench20 at 800 samples in chunks of 200', AG_PARAMS,
+        CHUNK_POLICY, 2)
+    # the same 800 samples as one batch, to time the chunked replan against
+    whole_launches, whole_ctrl, whole_states = drive_controller(
+        'xz_bench20 at 800 samples in one batch', AG_PARAMS,
+        dict(CTRL_POLICY, num_samples=CHUNK_POLICY['num_samples']), 2)
 
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
@@ -696,9 +786,26 @@ def main():
     tail = time_tail(gen, CTRL_POLICY['num_samples'], card)
     add_one_times = time_add_one(gen, card, PROBE_SHAPE)
     time_add_one(gen, card, (1 << 26,))
-    time_controller(ctrl, ctrl_states, card)
+    time_controller('controller_replan',
+                    '768 samples x 45 steps x 48x64 x 3 iters, bf16', ctrl,
+                    ctrl_states, card)
+    time_controller('ag_bench20_replan',
+                    '768 samples x 30 steps x 48x64 x 3 iters, adim 4, one '
+                    'latent per sample, bf16, ag_r5f_v2', ag_ctrl, ag_states,
+                    card)
+    time_controller('xz_chunk200_replan',
+                    '800 samples in 4 chunks of 200 x 45 steps x 48x64 x 3 '
+                    'iters + a 45-step re-roll of 10 elites, bf16',
+                    chunk_ctrl, chunk_states, card)
+    time_controller('xz_800_replan',
+                    '800 samples in one batch x 45 steps x 48x64 x 3 iters, '
+                    'bf16', whole_ctrl, whole_states, card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
+    print('profile: one ag_bench20 replan')
+    profile_replan(lambda: ag_ctrl.perform_CEM(ag_states))
+    print('profile: one xz_bench20 replan at 800 samples in chunks of 200')
+    profile_replan(lambda: chunk_ctrl.perform_CEM(chunk_states))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     print(json.dumps({'kernels': [{
@@ -706,9 +813,15 @@ def main():
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
         'launches': ctrl_launches,
-        'launches_by_path': {'golden': golden_launches,
-                             'replan_200': replan_launches,
-                             'controller': ctrl_launches},
+        'launches_by_path': {
+            'golden': golden_launches,
+            'golden_ag_r5f_v2': golden_ag_launches,
+            'replan_200': replan_launches_200,
+            'controller': ctrl_launches,
+            'controller_ag_bench20': ag_launches,
+            'controller_ag_bench20_hard': hard_launches,
+            'controller_xz_bench20_chunk200': chunk_launches,
+            'controller_xz_bench20_800': whole_launches},
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],

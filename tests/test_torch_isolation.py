@@ -24,7 +24,7 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax',
                                             'visual_foresight_tpu')))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 27 else 0)
+sys.exit(1 if bad or len(names) < 28 else 0)
 '''
 
 
@@ -35,7 +35,8 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize('entry', ['predictor', 'planner', 'controller'])
+@pytest.mark.parametrize('entry', ['predictor', 'predictor_ag_r5f_v2',
+                                   'planner', 'controller'])
 def test_entry_points_need_a_card_unless_told_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
@@ -56,6 +57,11 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
                                     'dtype': 'float32'}}
     make = {'predictor': lambda **kw: TorchPredictor(
                 'unused', {'std_factor': 4}, **kw),
+            # the latent model's export: built (not restored) from its
+            # model_config.json
+            'predictor_ag_r5f_v2': lambda **kw: TorchPredictor(
+                os.path.join(REPO, 'visual_foresight_torch', 'weights',
+                             'ag_r5f_v2'), {}, **kw),
             'planner': lambda **kw: FusedCEMPlanner(spec, 4, k_elite=2,
                                                     **kw),
             'controller': lambda **kw: PixelCostController(

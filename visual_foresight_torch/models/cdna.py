@@ -1,10 +1,13 @@
 """Action-conditioned conv-LSTM CDNA/SNA video predictor (PyTorch).
 
 Counterpart of ``visual_foresight_tpu/models/cdna.py`` for the serving
-configuration: the space-to-depth backbone (``std_factor`` > 0), CDNA
-kernels with SNA first-frame compositing, no latent.  The time loop is a
-Python loop; ``encode_context`` consumes the context frames and
-``rollout_from`` rolls the plan autoregressively.
+configurations: the space-to-depth backbone (``std_factor`` > 0), CDNA
+kernels with SNA first-frame compositing, and the optional per-rollout
+latent (``latent_dim`` > 0) that joins the state and action at the
+bottleneck.  The time loop is a Python loop; ``encode_context`` consumes the
+context frames (with a zero latent), ``rollout_from`` rolls the plan
+autoregressively, and ``forward`` is the teacher-forced pass over a whole
+trajectory.
 
 The CDNA/SNA tail of every step goes through
 ``ops.cdna_tail.fused_warp_composite``: the hand-written CUDA kernel on the
@@ -12,7 +15,8 @@ card, its plain version on the CPU.  Everything else in the step is stock
 PyTorch.
 
 Carries are tuples ``(lstm_states, prev_img, prev_distrib, prev_state,
-first_image, first_distrib)``; all image-like tensors are NHWC.
+first_image, first_distrib, latent)``; ``latent`` is ``None`` for a model
+without one.  All image-like tensors are NHWC.
 """
 
 import torch
@@ -30,6 +34,8 @@ def broadcast_carry(carry, batch):
     as the tail kernel takes contiguous tensors)."""
     if isinstance(carry, tuple):
         return tuple(broadcast_carry(t, batch) for t in carry)
+    if carry is None:       # the latent slot of a model without one
+        return None
     return carry.expand((batch,) + carry.shape[1:]).contiguous()
 
 
@@ -46,7 +52,7 @@ class CDNAStep(nn.Module):
                  num_distribs=0, sdim=3, adim=3, dtype=torch.float32,
                  enc_features=(32, 64, 128), lstm_kernel=5,
                  separable_lstm=False, std_factor=4, renorm_distribs=True,
-                 mask_softmax='lowres'):
+                 mask_softmax='lowres', latent_dim=0):
         super().__init__()
         if not std_factor:
             raise NotImplementedError('only the space-to-depth backbone '
@@ -58,7 +64,7 @@ class CDNAStep(nn.Module):
         if h % (2 * r) or w % (2 * r):
             raise ValueError('image dims must divide 2 * std_factor')
         self.num_masks, self.kernel_size = num_masks, kernel_size
-        self.sna = sna
+        self.sna, self.latent_dim = sna, latent_dim
         self.num_distribs, self.dtype, self.r = num_distribs, dtype, r
         self.renorm_distribs, self.mask_softmax = renorm_distribs, mask_softmax
         f1, f2 = enc_features[0], enc_features[1]
@@ -72,7 +78,10 @@ class CDNAStep(nn.Module):
         self.ln1 = LayerNorm(f1)
         self.enc1 = nn.Conv2d(f1, f2, 3, stride=2, dtype=dtype)
         self.enc3 = nn.Linear(f2, 4 * f2, dtype=dtype)
-        self.cond_proj = nn.Linear(sdim + adim, 4 * f2, dtype=dtype)
+        # the latent conditions the bottleneck only; state_head sees
+        # state and action alone
+        self.cond_proj = nn.Linear(sdim + adim + latent_dim, 4 * f2,
+                                   dtype=dtype)
         self.lstm3 = lstm(4 * f2, f2)
         self.ln3 = LayerNorm(f2)
         self.dec1 = nn.Linear(f2, 4 * f1, dtype=dtype)
@@ -115,7 +124,11 @@ class CDNAStep(nn.Module):
 
     def forward(self, carry, x, plan_mode=True):
         (lstm_states, prev_img, prev_distrib, prev_state,
-         first_image, first_distrib) = carry
+         first_image, first_distrib, latent) = carry
+        if (latent is None) != (not self.latent_dim):
+            raise ValueError('the carry holds {} latent but latent_dim is {}'
+                             .format('no' if latent is None else 'a',
+                                     self.latent_dim))
         if plan_mode:
             action = x
         else:
@@ -131,8 +144,10 @@ class CDNAStep(nn.Module):
                     (1.0 - u) * prev_distrib
 
         sa = torch.cat([prev_state, action], dim=-1)
+        # the f32 latent joins first; cond_proj then casts the whole vector
+        cond = sa if latent is None else torch.cat([sa, latent], dim=-1)
         lstm_states, h3, masks, mask_block = self._backbone_std(
-            lstm_states, prev_img, sa)
+            lstm_states, prev_img, cond)
 
         b, k, dt = prev_img.shape[0], self.kernel_size, self.dtype
         raw = self.cdna_head(h3.float().reshape(b, -1))   # NHWC flatten
@@ -157,22 +172,23 @@ class CDNAStep(nn.Module):
 
         gen_state = prev_state + self.state_head(sa.float())
         new_carry = (lstm_states, gen_image, gen_distrib, gen_state,
-                     first_image, first_distrib)
+                     first_image, first_distrib, latent)
         return new_carry, (gen_image, gen_distrib, gen_state)
 
 
 class CDNAPredictor(nn.Module):
-    """Context encoding and plan-mode rollout around one :class:`CDNAStep`
-    (parameters live under ``step.``, as flax's scanned step does)."""
+    """Context encoding, plan-mode rollout and the teacher-forced forward
+    around one :class:`CDNAStep` (parameters live under ``step.``, as flax's
+    scanned step does)."""
 
     def __init__(self, img_dims, n_context=2, num_masks=10, kernel_size=5,
                  sna=True, num_distribs=0, sdim=3, adim=3,
                  dtype=torch.float32, enc_features=(32, 64, 128),
                  lstm_kernel=5, separable_lstm=False, std_factor=4,
-                 renorm_distribs=True, mask_softmax='lowres'):
+                 renorm_distribs=True, mask_softmax='lowres', latent_dim=0):
         super().__init__()
         self.n_context, self.num_distribs = n_context, num_distribs
-        self.sdim, self.dtype = sdim, dtype
+        self.sdim, self.dtype, self.latent_dim = sdim, dtype, latent_dim
         self.enc_features = tuple(enc_features)
         self.std_factor = std_factor
         self.step = CDNAStep(
@@ -180,7 +196,8 @@ class CDNAPredictor(nn.Module):
             sna=sna, num_distribs=num_distribs, sdim=sdim, adim=adim,
             dtype=dtype, enc_features=enc_features, lstm_kernel=lstm_kernel,
             separable_lstm=separable_lstm, std_factor=std_factor,
-            renorm_distribs=renorm_distribs, mask_softmax=mask_softmax)
+            renorm_distribs=renorm_distribs, mask_softmax=mask_softmax,
+            latent_dim=latent_dim)
 
     def _initial_lstm_states(self, b, h, w, device):
         r = self.std_factor
@@ -190,15 +207,34 @@ class CDNAPredictor(nn.Module):
         return (init(h // r, w // r, f1), init(h // (2 * r), w // (2 * r), f2),
                 init(h // r, w // r, f1))
 
+    def _initial_carry(self, images, states, distribs, latent):
+        """The carry before the first step: zero LSTM states, the first
+        frame (and distribution) as both the previous and the SNA frame."""
+        b, _, h, w, _ = images.shape
+        dt, dev = self.dtype, images.device
+        first_image = images[:, 0].to(dt)
+        first_distrib = distribs[:, 0].to(dt) if self.num_distribs else \
+            torch.zeros((b, h, w, 0), dtype=dt, device=dev)
+        return (self._initial_lstm_states(b, h, w, dev), first_image,
+                first_distrib, states[:, 0].float(), first_image,
+                first_distrib, latent)
+
+    def _draw_latent(self, b, device, generator):
+        """One N(0, I) latent per rollout, f32, from ``generator`` (which
+        must live on ``device``)."""
+        return torch.randn((b, self.latent_dim), generator=generator,
+                           device=device)
+
     def encode_context(self, images, actions, states=None, distribs=None):
-        """Consume the context frames; return the post-context carry.
+        """Consume the context frames; return the post-context carry.  The
+        context steps of a latent model are conditioned on a zero latent.
 
         :param images: (B, n_in, H, W, C) float in [0, 1], n_in >= n_context
         :param actions: (B, >= n_context - 1, adim) executed actions
         :param states: (B, n_in, sdim) or None
         :param distribs: (B, n_in, H, W, P) or None
         """
-        b, n_in, h, w, _ = images.shape
+        b, n_in = images.shape[:2]
         if n_in < self.n_context:
             raise ValueError('need {} context frames, got {}'.format(
                 self.n_context, n_in))
@@ -206,12 +242,9 @@ class CDNAPredictor(nn.Module):
         n_pre = self.n_context - 1
         if states is None:
             states = torch.zeros((b, n_in, self.sdim), device=dev)
-        first_image = images[:, 0].to(dt)
-        first_distrib = distribs[:, 0].to(dt) if self.num_distribs else \
-            torch.zeros((b, h, w, 0), dtype=dt, device=dev)
-        carry = (self._initial_lstm_states(b, h, w, dev), first_image,
-                 first_distrib, states[:, 0].float(), first_image,
-                 first_distrib)
+        latent = torch.zeros((b, self.latent_dim), device=dev) \
+            if self.latent_dim else None
+        carry = self._initial_carry(images, states, distribs, latent)
         if n_pre == 0:
             return carry
         ones = torch.ones((b,), device=dev)
@@ -222,21 +255,32 @@ class CDNAPredictor(nn.Module):
                  states[:, t].float(), ones)
             carry, _ = self.step(carry, x, plan_mode=False)
         # the next step consumes the final context frame (teacher-forced)
-        lstm_states, _, _, _, fi, fd = carry
+        lstm_states, _, _, _, fi, fd, lat = carry
         last = self.n_context - 1
         return (lstm_states, images[:, last].to(dt),
                 distribs[:, last].to(dt) if self.num_distribs else fd,
-                states[:, last].float(), fi, fd)
+                states[:, last].float(), fi, fd, lat)
 
-    def rollout_from(self, carry, actions):
+    def rollout_from(self, carry, actions, generator=None, latent=None):
         """Autoregressive rollout from an :meth:`encode_context` carry.
 
         :param actions: (B, T_plan, adim); the first entry is the action
             paired with the final context frame
+        :param generator: ``torch.Generator`` on the carry's device: draw
+            the per-rollout latent from the prior N(0, I)
+        :param latent: (B, latent_dim) latent given outright; with neither,
+            the rollout keeps the carry's (zero) latent
         :return: dict with 'gen_images' (B, T, H, W, C) f32, 'gen_states'
             (B, T, sdim), 'gen_images_tm' (T, B, H, W, C) in the compute
             dtype and, with distributions, 'gen_distribs' (B, T, H, W, P) f32
         """
+        if self.latent_dim:
+            prev_img = carry[1]
+            if latent is None and generator is not None:
+                latent = self._draw_latent(prev_img.shape[0], prev_img.device,
+                                           generator)
+            if latent is not None:
+                carry = carry[:6] + (latent.to(prev_img.device).float(),)
         imgs, dists, sts = [], [], []
         actions = actions.float()
         for t in range(actions.shape[1]):
@@ -250,6 +294,72 @@ class CDNAPredictor(nn.Module):
             'gen_states': torch.stack(sts, dim=1).float(),
             'gen_images_tm': imgs_tm,
         }
+        if self.num_distribs:
+            result['gen_distribs'] = torch.stack(dists, dim=1).float()
+        return result
+
+    def forward(self, images, actions, states=None, distribs=None,
+                generator=None, gt_mask=None, latent=None):
+        """Teacher-forced pass over ``T = actions.shape[1]`` steps; output
+        index t predicts frame t + 1.
+
+        :param images: (B, n_in, H, W, C) float in [0, 1]; ground truth past
+            ``n_in`` is zero (and should be masked off)
+        :param gt_mask: (T,) or (B, T) float schedule, 1 = the step takes the
+            ground-truth frame; default: the first ``n_context`` steps.  The
+            first step always takes ground truth
+        :param latent: (B, latent_dim), conditioning **every** step, the
+            context steps too; else drawn from ``generator``; else zeros
+        :return: dict of 'gen_images' (B, T, H, W, C), 'gen_states'
+            (B, T, sdim) and, with distributions, 'gen_distribs'
+        """
+        b, n_in, h, w, _ = images.shape
+        T = actions.shape[1]
+        dt, dev = self.dtype, images.device
+        if states is None:
+            states = torch.zeros((b, n_in, self.sdim), device=dev)
+        if self.num_distribs and (distribs is None or
+                                  distribs.shape[-1] != self.num_distribs):
+            raise ValueError('need distributions with {} channels'.format(
+                self.num_distribs))
+
+        def pad_time(x):
+            if x.shape[1] >= T:
+                return x[:, :T]
+            zeros = x.new_zeros((b, T - x.shape[1]) + x.shape[2:])
+            return torch.cat([x, zeros], dim=1)
+
+        gt_images, gt_states = pad_time(images.to(dt)), \
+            pad_time(states.float())
+        gt_distribs = pad_time(distribs.to(dt)) if self.num_distribs else \
+            torch.zeros((b, T, 0), dtype=dt, device=dev)
+        if gt_mask is None:
+            gt_mask = (torch.arange(T, device=dev) < self.n_context).float()
+        gt_mask = torch.as_tensor(gt_mask, dtype=torch.float32, device=dev)
+        gt_mask = gt_mask.expand(b, T).clone()
+        gt_mask[:, 0] = 1.0
+
+        if not self.latent_dim:
+            latent = None
+        elif latent is not None:
+            latent = latent.to(dev).float()
+        elif generator is None:
+            latent = torch.zeros((b, self.latent_dim), device=dev)
+        else:
+            latent = self._draw_latent(b, dev, generator)
+
+        carry = self._initial_carry(images, states, distribs, latent)
+        actions = actions.float()
+        imgs, dists, sts = [], [], []
+        for t in range(T):
+            x = (actions[:, t], gt_images[:, t], gt_distribs[:, t],
+                 gt_states[:, t], gt_mask[:, t])
+            carry, (gi, gd, gs) = self.step(carry, x, plan_mode=False)
+            imgs.append(gi)
+            dists.append(gd)
+            sts.append(gs)
+        result = {'gen_images': torch.stack(imgs, dim=1).float(),
+                  'gen_states': torch.stack(sts, dim=1).float()}
         if self.num_distribs:
             result['gen_distribs'] = torch.stack(dists, dim=1).float()
         return result

@@ -1,10 +1,11 @@
 """CEM replanning on the device (PyTorch).
 
-Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner`` in
-its default Gaussian mode: encode the context once at batch 1 and broadcast
-the carry over the samples, then for each iteration sample plans, roll them
-out, score them by expected pixel distance, take the ``top_k`` elites and
-refit.  The replan makes no host round trip until the caller reads a result.
+Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner`` with
+every mode its Gaussian sampler reaches: encode the context once at batch 1
+and broadcast the carry over the samples (or over one chunk of them), then
+for each iteration sample plans, roll them out, score them, take the elites
+and refit.  The replan makes no host round trip until the caller reads a
+result.
 """
 
 import numpy as np
@@ -18,12 +19,24 @@ from visual_foresight_torch.planners.gaussian import (ActionSpec, fit_elites,
 
 # the JAX planner's other arguments, at the values that leave them off
 _UNPORTED_DEFAULTS = {
-    'rejection_rounds': 0, 'smooth_cov': False, 'add_zero_action': False,
-    'mppi': None, 'autograsp': None, 'stochastic_k': 1, 'discrete_dims': (),
-    'ag_epsilon': None, 'folding': None, 'sample_chunk': 0,
-    'stochastic_penalty': 0.0, 'mesh': None, 'cost_fn': None,
-    'donate_dist': True,
+    'mppi': None, 'autograsp': None, 'ag_epsilon': None, 'folding': None,
+    'mesh': None, 'donate_dist': True,
 }
+
+
+def _lowest(scores, k):
+    """The ``k`` lowest scores and their indices, best first; among equal
+    scores the lowest index comes first, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` promises no order among equals)."""
+    idx = torch.sort(scores, stable=True).indices[:k]
+    return scores[idx], idx
+
+
+def _first_rows(carry, n):
+    """The first ``n`` samples of a broadcast carry."""
+    if isinstance(carry, tuple):
+        return tuple(_first_rows(t, n) for t in carry)
+    return None if carry is None else carry[:n]
 
 
 class FusedCEMPlanner:
@@ -34,23 +47,44 @@ class FusedCEMPlanner:
     :param iterations: CEM iterations
     :param k_elite: elite count for the refit
     :param finalweight: last-step weight in the pixel cost
+    :param rejection_rounds: bounded rejection-resample rounds (0 = off)
     :param action_bound: clip xy/theta after sampling
+    :param cost_fn: optional override mapping (gen_images, gen_distribs,
+        cost_ctx) -> (M,) scores; defaults to expected pixel distance with
+        cost_ctx = the (ncam, P, H, W) goal distance grids
     :param n_vis: how many elite rollouts to return for visualization
+    :param smooth_cov: average each refit covariance with the previous
+        iteration's (the first with the covariance passed in)
+    :param add_zero_action: candidate 0 is always the null plan
+    :param stochastic_k: every unique plan appears this many times in the
+        batch, each copy with its own latent draw
+    :param stochastic_penalty: with ``stochastic_k`` > 1, select elites among
+        the unique plans on mean + penalty * std of their copies' scores
+    :param discrete_dims: plan dims floored and clipped into {0..4}
+    :param sample_chunk: roll the samples in chunks of this size (0 = all at
+        once); scores, elites and refit are the same, the final iteration's
+        visualisation rollouts are re-rolled for the ``n_vis`` elites alone
     :param device: where the replan runs ('cuda' unless the caller asks for
         the CPU)
 
-    The JAX planner's other modes (``_UNPORTED_DEFAULTS``: rejection
-    sampling, MPPI, autograsp, ag_epsilon, folding, stochastic_k,
-    sample_chunk, mesh sharding, custom costs and the remaining plan
-    transforms) are not ported: any value other than the one that leaves
-    a mode off raises ``NotImplementedError``.
+    With a latent model (``latent_dim`` > 0) each rollout draws one latent
+    per sample, shared by all cameras: one draw per iteration, one per chunk
+    in chunked mode, and one more for the chunked visualisation re-roll.
+
+    The JAX planner's other modes (``_UNPORTED_DEFAULTS``: MPPI, autograsp,
+    ag_epsilon, folding, mesh sharding) are not ported: any value other than
+    the one that leaves a mode off raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: ActionSpec, num_samples: int,
                  iterations: int = 3, k_elite: int = 10,
-                 finalweight: float = 10.0, action_bound: bool = True,
-                 only_first_view: bool = False, n_vis: int = 10,
-                 blockdiag_refit: bool = False, device='cuda', **modes):
+                 finalweight: float = 10.0, rejection_rounds: int = 0,
+                 action_bound: bool = True, only_first_view: bool = False,
+                 cost_fn=None, n_vis: int = 10, blockdiag_refit: bool = False,
+                 smooth_cov: bool = False, add_zero_action: bool = False,
+                 stochastic_k: int = 1, discrete_dims=(),
+                 sample_chunk: int = 0, stochastic_penalty: float = 0.0,
+                 device='cuda', **modes):
         unknown = sorted(set(modes) - set(_UNPORTED_DEFAULTS))
         if unknown:
             raise TypeError('unexpected arguments {}'.format(unknown))
@@ -66,10 +100,30 @@ class FusedCEMPlanner:
         self._iterations = iterations
         self._K = k_elite
         self._finalweight = finalweight
+        self._rej = int(rejection_rounds)
         self._bound = action_bound
         self._ofv = only_first_view
+        self._cost_fn = cost_fn
         self._n_vis = min(n_vis, num_samples)
         self._blockdiag = blockdiag_refit
+        self._smooth_cov = smooth_cov
+        self._add_zero = add_zero_action
+        self._stoch_k = int(stochastic_k)
+        if self._stoch_k < 1 or num_samples % self._stoch_k:
+            raise ValueError('num_samples must be a multiple of '
+                             'stochastic_k')
+        self._stoch_penalty = float(stochastic_penalty)
+        if self._stoch_penalty and self._stoch_k < 2:
+            raise ValueError('stochastic_penalty needs stochastic_k > 1 '
+                             'copies')
+        self._discrete = tuple(int(d) for d in discrete_dims)
+        self._chunk = int(sample_chunk)
+        if self._chunk:
+            if num_samples % self._chunk:
+                raise ValueError('num_samples must be a multiple of '
+                                 'sample_chunk')
+            if self._chunk < max(k_elite, self._n_vis):
+                raise ValueError('sample_chunk must cover k_elite and n_vis')
         self.device = resolve_device(device)
 
     @property
@@ -90,19 +144,45 @@ class FusedCEMPlanner:
         return carries
 
     @staticmethod
-    def _rollout(models, carries, plan):
-        """:return: (M,T,ncam,H,W,C) f32, (M,T,ncam,H,W,P) f32,
-        (T,M,ncam,H,W,C) in the compute dtype"""
-        outs = [model.rollout_from(carry, plan)
+    def _rollout(models, carries, plan, latent=None):
+        """Roll all cameras from the pre-encoded carries, every camera under
+        the same ``latent`` (B, latent_dim).
+
+        :return: (M,T,ncam,H,W,C) f32, (M,T,ncam,H,W,P) f32,
+            (T,M,ncam,H,W,C) in the compute dtype"""
+        outs = [model.rollout_from(carry, plan, latent=latent)
                 for model, carry in zip(models, carries)]
         return (torch.stack([o['gen_images'] for o in outs], dim=2),
                 torch.stack([o['gen_distribs'] for o in outs], dim=2),
                 torch.stack([o['gen_images_tm'] for o in outs], dim=2))
 
+    def _score(self, gen_images, gen_distribs, cost_ctx):
+        if self._cost_fn is not None:
+            return self._cost_fn(gen_images, gen_distribs, cost_ctx)
+        return cost_lib.expected_pixel_distance(
+            gen_distribs, cost_ctx, self._finalweight, normalize=True,
+            only_first_view=self._ofv)
+
+    def _sample_plans(self, mean, sigma, M, generator, z):
+        """(M, T, adim) candidate plans of one iteration."""
+        kk = self._stoch_k
+        plan = sample_actions(mean, sigma, self._spec, M // kk,
+                              rejection_rounds=self._rej,
+                              action_bound=self._bound, generator=generator,
+                              z=z)
+        if kk > 1:
+            plan = torch.repeat_interleave(plan, kk, dim=0)
+        for d in self._discrete:
+            plan[..., d] = plan[..., d].floor().clamp(0.0, 4.0)
+        if self._add_zero:
+            plan[0] = 0.0
+        return plan
+
     @torch.no_grad()
     def replan(self, models, context_images, context_states,
                context_distribs, context_actions, cost_ctx, mean, sigma,
-               generator=None, noise=None, num_samples=None):
+               generator=None, noise=None, latents=None, vis_latents=None,
+               num_samples=None):
         """One full replan.
 
         :param models: one ``CDNAPredictor`` per camera
@@ -110,16 +190,24 @@ class FusedCEMPlanner:
         :param context_states: (n_ctx, sdim)
         :param context_distribs: (ncam, n_ctx, H, W, P)
         :param context_actions: (n_ctx - 1, adim) executed actions
-        :param cost_ctx: (ncam, P, H, W) goal distance grids
+        :param cost_ctx: (ncam, P, H, W) goal distance grids (or whatever
+            ``cost_fn`` reads)
         :param mean/sigma: current sampling distribution (flattened plan)
         :param generator: ``torch.Generator`` on the planner's device for
-            the plan noise, or
-        :param noise: (iterations, M, nactions*adim) standard normals
+            the plan noise and the latents, or
+        :param noise: (iterations, M / stochastic_k, nactions*adim) standard
+            normals, (iterations, 1 + rejection_rounds, M / stochastic_k,
+            nactions*adim) with rejection sampling
+        :param latents: (iterations, M, latent_dim) latents of the scored
+            rollouts (sample i of a chunked replan keeps row i); needed with
+            ``noise`` when the models have a latent
+        :param vis_latents: (n_vis, latent_dim) latents of the chunked
+            replan's visualisation re-roll
         :param num_samples: M for this replan (defaults to the configured
             count; warm starts shrink it by ``reuse_factor``)
         :return: dict with best actions, scores, refit mean/sigma, vis
         """
-        spec, K = self._spec, self._K
+        K, kk = self._K, self._stoch_k
         M = num_samples or self._M
         dev = self.device
         if (generator is None) == (noise is None):
@@ -127,6 +215,15 @@ class FusedCEMPlanner:
         if K > M:
             raise ValueError('k_elite {} exceeds this replan\'s {} samples'
                              .format(K, M))
+        if M % kk:
+            raise ValueError('this replan\'s {} samples are no multiple of '
+                             'stochastic_k {}'.format(M, kk))
+        if self._stoch_penalty and K > M // kk:
+            raise ValueError('k_elite {} exceeds this replan\'s {} unique '
+                             'plans'.format(K, M // kk))
+        latent_dim = models[0].latent_dim if models else 0
+        if latent_dim and latents is None and generator is None:
+            raise ValueError('a latent model needs latents beside noise')
         as_dev = lambda x: x.to(dev, torch.float32) \
             if isinstance(x, torch.Tensor) else \
             torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
@@ -134,43 +231,105 @@ class FusedCEMPlanner:
             as_dev(context_states)
         context_distribs, context_actions = as_dev(context_distribs), \
             as_dev(context_actions)
-        cost_ctx, mean, sigma = as_dev(cost_ctx), as_dev(mean), as_dev(sigma)
+        mean, sigma = as_dev(mean), as_dev(sigma)
+        if self._cost_fn is None:
+            cost_ctx = as_dev(cost_ctx)
         if noise is not None:
             noise = as_dev(noise)
+        if latents is not None:
+            latents = as_dev(latents)
 
+        def draw_latent(given, b):
+            """(b, latent_dim) latent for one rollout: the given rows, or a
+            fresh draw; None for a deterministic model."""
+            if not latent_dim:
+                return None
+            if given is not None:
+                return given
+            return torch.randn((b, latent_dim), generator=generator,
+                               device=dev)
+
+        # chunked mode: the rollout batch is sample_chunk, not M (unchunked
+        # for warm-start sample counts the chunk does not divide)
+        chunk = self._chunk
+        use_chunk = bool(chunk) and M > chunk and M % chunk == 0
         carries = self._encode_contexts(models, context_images,
                                         context_states, context_distribs,
-                                        context_actions, M)
+                                        context_actions,
+                                        chunk if use_chunk else M)
+        sigma_prev = sigma
         plan_scores, vis = [], None
         for itr in range(self._iterations):
-            plan = sample_actions(
-                mean, sigma, spec, M, action_bound=self._bound,
-                generator=generator, z=None if noise is None else noise[itr])
-            gen_images, gen_distribs, gen_images_tm = self._rollout(
-                models, carries, plan)
-            scores = cost_lib.expected_pixel_distance(
-                gen_distribs, cost_ctx, self._finalweight, normalize=True,
-                only_first_view=self._ofv)
-            neg_top, elite_idx = torch.topk(-scores, K)
+            plan = self._sample_plans(mean, sigma, M, generator,
+                                      None if noise is None else noise[itr])
+            given = None if latents is None else latents[itr]
+            if use_chunk:
+                chunk_scores = []
+                for lo in range(0, M, chunk):
+                    rows = slice(lo, lo + chunk)
+                    gi, gd, _ = self._rollout(
+                        models, carries, plan[rows], draw_latent(
+                            None if given is None else given[rows], chunk))
+                    chunk_scores.append(self._score(gi, gd, cost_ctx))
+                    del gi, gd
+                scores = torch.cat(chunk_scores)
+            else:
+                gen_images, gen_distribs, gen_images_tm = self._rollout(
+                    models, carries, plan, draw_latent(given, M))
+                scores = self._score(gen_images, gen_distribs, cost_ctx)
+
+            if self._stoch_penalty:
+                # aggregate the copies of each unique plan: mean + penalty *
+                # std (over N, not N - 1), then select groups; the first
+                # row of a group stands for its plan
+                g = scores.reshape(M // kk, kk)
+                group_scores = g.mean(dim=1) + \
+                    self._stoch_penalty * g.std(dim=1, correction=0)
+                top, elite_gidx = _lowest(group_scores, K)
+                elite_idx = elite_gidx * kk
+            else:
+                top, elite_idx = _lowest(scores, K)
             elite_actions = plan[elite_idx]
             plan_scores.append(scores)
+
             if itr == self._iterations - 1:
                 nv = self._n_vis
-                if nv:
+                if nv and use_chunk:
+                    # the chunks' videos are gone: re-roll the nv elites
+                    # (under a latent of their own: vis illustrates, the
+                    # scores decide)
+                    idx = elite_idx[:nv]
+                    nv = idx.shape[0]       # fewer than n_vis elites
+                    if latent_dim and latents is not None and \
+                            vis_latents is None:
+                        raise ValueError('a chunked replan of a latent model '
+                                         'needs vis_latents beside latents')
+                    _, vd, vtm = self._rollout(
+                        models, [_first_rows(c, nv) for c in carries],
+                        plan[idx], draw_latent(
+                            None if vis_latents is None
+                            else as_dev(vis_latents), nv))
+                    vis = {'indices': idx,
+                           'gen_images': vtm.transpose(0, 1).float(),
+                           'gen_distribs': vd, 'scores': top[:nv]}
+                elif nv:
                     idx = elite_idx[:nv]
                     vis = {
                         'indices': idx,
                         'gen_images': gen_images_tm[:, idx].transpose(
                             0, 1).float(),
                         'gen_distribs': gen_distribs[idx],
-                        'scores': -neg_top[:nv],
+                        'scores': top[:nv],
                     }
             else:
-                mean, sigma = fit_elites(elite_actions, spec,
+                mean, sigma = fit_elites(elite_actions, self._spec,
                                          blockdiag=self._blockdiag)
+                if self._smooth_cov:
+                    sigma = (sigma + sigma_prev) / 2.0
+                    sigma_prev = sigma
         return {
             'best_actions': elite_actions,        # (K, T, adim) best first
-            'best_scores': -neg_top,              # (K,)
+            'best_scores': top,                   # (K,)
             'scores_per_itr': torch.stack(plan_scores),   # (iters, M)
             'mean': mean,
             'sigma': sigma,

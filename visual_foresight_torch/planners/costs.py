@@ -1,5 +1,6 @@
-"""Planning costs (PyTorch): counterpart of the expected-pixel-distance part
-of ``visual_foresight_tpu/planners/costs.py``."""
+"""Planning costs (PyTorch): counterpart of
+``visual_foresight_tpu/planners/costs.py`` (expected pixel distance,
+goal-image MSE, the success classifier's and the ensemble's costs)."""
 
 import torch
 
@@ -40,3 +41,33 @@ def expected_pixel_distance(gen_distribs, dist_grids, finalweight=10.0,
     if only_first_view:
         per_task = per_task[:, 0:1]
     return per_task.reshape(per_task.shape[0], -1).mean(dim=1)
+
+
+def goal_image_mse(gen_images, goal_image, final_frames=1):
+    """MSE between the last ``final_frames`` predicted frames and a goal
+    image.
+
+    :param gen_images: (B, T, ncam, H, W, C) in [0, 1]
+    :param goal_image: (ncam, H, W, C)
+    :return: (B,) scores (lower = better)
+    """
+    tail = gen_images[:, -final_frames:].float()
+    diff = tail - goal_image[None, None].float()
+    return diff.square().mean(dim=(1, 2, 3, 4, 5))
+
+
+def classifier_logprob_cost(logits):
+    """Success-classifier cost: -log p(success)."""
+    return -torch.nn.functional.logsigmoid(logits.float())
+
+
+def ensemble_cost(per_model_scores, lambda_var=1.0):
+    """Ensemble disagreement cost: mean + lambda * (population) variance
+    across model copies.
+
+    :param per_model_scores: (n_ensemble, B)
+    :return: (B,)
+    """
+    mean = per_model_scores.mean(dim=0)
+    var = per_model_scores.var(dim=0, correction=0)
+    return mean + lambda_var * var

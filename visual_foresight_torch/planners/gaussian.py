@@ -2,7 +2,8 @@
 
 Counterpart of ``visual_foresight_tpu/planners/gaussian.py``: full-covariance
 sampling over the flattened (nactions*adim) plan via Cholesky, a
-per-dimension std table keyed by ``action_order``, repeat expansion, xy/theta
+per-dimension std table keyed by ``action_order``, bounded rejection sampling
+(a fixed number of resample rounds, then a clamp), repeat expansion, xy/theta
 truncation, the elite mean/covariance refit and the between-replan
 covariance shift.
 """
@@ -69,6 +70,19 @@ def initial_mean(spec: ActionSpec, device=None):
     return torch.zeros(spec.adim * spec.nactions, device=device)
 
 
+def _plan_bounds(spec: ActionSpec, factor: float, device=None):
+    """(lo, hi) per flattened-plan dim for rejection bounds; +-inf
+    elsewhere."""
+    lo = np.full(spec.adim, -np.inf, np.float32)
+    hi = np.full(spec.adim, np.inf, np.float32)
+    for d in spec.rej_dims_xy:
+        lo[d], hi[d] = -factor * spec.xy_std, factor * spec.xy_std
+    for d in spec.rej_dims_lift:
+        lo[d], hi[d] = -factor * spec.lift_std, factor * spec.lift_std
+    return (torch.tensor(np.tile(lo, spec.nactions), device=device),
+            torch.tensor(np.tile(hi, spec.nactions), device=device))
+
+
 def truncate(actions, spec: ActionSpec):
     """Clip xy to +-2*xy_std and theta to +-pi/4 over (..., adim)."""
     actions = actions.clone()
@@ -81,28 +95,44 @@ def truncate(actions, spec: ActionSpec):
 
 
 def sample_actions(mean, sigma, spec: ActionSpec, nsamples: int,
-                   action_bound: bool = True, generator=None, z=None):
+                   rejection_rounds: int = 0, action_bound: bool = True,
+                   generator=None, z=None):
     """Draw nsamples plans, repeat-expanded to
     (nsamples, nactions*repeat, adim).
 
-    The standard normals come from ``generator`` or are given as ``z``
-    (nsamples, nactions*adim).  A covariance that Cholesky cannot factor
-    (singular elite refits) falls back to its diagonal, without a host
-    synchronisation.
+    ``rejection_rounds`` > 0 resamples, that many times, every plan with a
+    dim outside 1.5 std of its xy or lift bound, then clamps what is still
+    outside.  The standard normals come from ``generator`` or are given as
+    ``z``: (nsamples, nactions*adim), or (1 + rejection_rounds, nsamples,
+    nactions*adim) with rejection (the first draw, then one per round).  A
+    covariance that Cholesky cannot factor (singular elite refits) falls
+    back to its diagonal, without a host synchronisation.
     """
     dim = spec.adim * spec.nactions
-    eye = torch.eye(dim, dtype=sigma.dtype, device=sigma.device)
+    dev = sigma.device
+    eye = torch.eye(dim, dtype=sigma.dtype, device=dev)
     chol, info = torch.linalg.cholesky_ex(sigma + 1e-10 * eye)
     diag = torch.sqrt(torch.clamp(torch.diagonal(sigma), min=1e-12))
     bad = (info != 0) | torch.isnan(chol)
     chol = torch.where(bad, diag[:, None] * eye, chol)
     if z is None:
-        z = torch.randn((nsamples, dim), generator=generator,
-                        device=sigma.device)
-    elif tuple(z.shape) != (nsamples, dim):
-        raise ValueError('z has shape {}, expected {}'.format(
-            tuple(z.shape), (nsamples, dim)))
-    flat = mean[None] + z.to(sigma.device) @ chol.T
+        z = torch.randn((1 + rejection_rounds, nsamples, dim),
+                        generator=generator, device=dev)
+    else:
+        z = z.to(dev)
+        if rejection_rounds == 0 and z.dim() == 2:
+            z = z[None]
+        if tuple(z.shape) != (1 + rejection_rounds, nsamples, dim):
+            raise ValueError('z has shape {}, expected {}'.format(
+                tuple(z.shape), (1 + rejection_rounds, nsamples, dim)))
+    draw = lambda i: mean[None] + z[i] @ chol.T
+    flat = draw(0)
+    if rejection_rounds > 0:
+        lo, hi = _plan_bounds(spec, 1.5, device=dev)
+        for i in range(rejection_rounds):
+            invalid = ((flat < lo[None]) | (flat > hi[None])).any(dim=1)
+            flat = torch.where(invalid[:, None], draw(1 + i), flat)
+        flat = torch.minimum(torch.maximum(flat, lo[None]), hi[None])
     actions = flat.reshape(nsamples, spec.nactions, spec.adim)
     if action_bound:
         actions = truncate(actions, spec)

@@ -6,14 +6,18 @@ pixel_cost_controller.py`` on its fused Gaussian path: the video predictor
 (``planners/cem.py``), with cost = expected distance of the predicted
 designated-pixel distribution to the goal pixel.  Warm starts
 (``reuse_mean``/``reuse_cov``, with the sample count shrunk by
-``reuse_factor``) and ``predictor_propagation`` are ported.
+``reuse_factor``), ``predictor_propagation`` and every Gaussian sampler
+hparam (``rejection_sampling``, ``smooth_cov``, ``add_zero_action``,
+``discrete_ind``, ``stochastic_planning`` with ``stochastic_penalty``,
+``sample_chunk``) are ported.
 
 The controller runs on ``device`` (a policy hparam, ``'cuda'`` by default;
-without a card it raises unless given ``'cpu'``).  Its plan noise comes from
-a ``torch.Generator`` seeded from the ``seed`` hparam.  Not ported, each
+without a card it raises unless given ``'cpu'``).  Its plan noise and the
+latents of a stochastic predictor come from a ``torch.Generator`` seeded
+from the ``seed`` hparam.  Not ported, each
 raising ``NotImplementedError``: samplers other than ``GaussianCEMSampler``,
 the host CEM loop (``use_fused_planner=False``), the verbose HTML dump (a
-``verbose_worker``), and the planner modes that ``FusedCEMPlanner`` refuses.
+``verbose_worker``).
 """
 
 import numpy as np
@@ -84,7 +88,8 @@ class PixelCostController(CEMBaseController):
         assert spec.adim == self._adim, \
             ('action_order yields a {}-dim spec but the fused gaussian path '
              'needs {} sampled dims'.format(spec.adim, self._adim))
-        stoch_k = int(self._hp.stochastic_planning[0]) \
+        # stochastic_planning=(K,): K latent copies of every unique plan
+        stoch_k = self._stoch_k = int(self._hp.stochastic_planning[0]) \
             if self._hp.stochastic_planning else 1
         self._fused = FusedCEMPlanner(
             spec, self._hp.num_samples * stoch_k,
@@ -145,7 +150,7 @@ class PixelCostController(CEMBaseController):
         sample count by ``reuse_factor``."""
         hp = self._hp
         spec = self._fused.spec
-        M = hp.num_samples
+        M = hp.num_samples * self._stoch_k
         t = self._t
         warm_ok = t is not None and t >= spec.repeat - 1
         warm_cov = bool(hp.reuse_cov) and warm_ok and \
@@ -176,6 +181,8 @@ class PixelCostController(CEMBaseController):
 
         if warm_cov or warm_mean:
             M = max(int(M * hp.reuse_factor), self.elite_count)
+            k = self._stoch_k       # keep K copies per unique plan
+            M = ((M + k - 1) // k) * k
         return mean, sigma, M
 
     def perform_CEM(self, state):

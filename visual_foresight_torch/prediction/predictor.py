@@ -25,11 +25,13 @@ import numpy as np
 import torch
 
 from visual_foresight_torch.device import resolve_device
-from visual_foresight_torch.models.cdna import (CDNAPredictor,
-                                                broadcast_carry)
+from visual_foresight_torch.models.cdna import CDNAPredictor
 from visual_foresight_torch.models.convert import load_flax_params
 
 PARAMS_FILE = 'params.npz'
+# seed of the latent draw when ``__call__`` is given neither a generator nor
+# a latent (the JAX package then uses ``PRNGKey(0)``; the two streams differ)
+DEFAULT_LATENT_SEED = 0
 
 DEFAULT_HPARAMS = {
     'designated_pixel_count': 1,
@@ -110,8 +112,6 @@ class TorchPredictor:
             if hp[key] == value:
                 raise NotImplementedError('{}={} is not ported'.format(
                     key, value))
-        if hp['latent_dim']:
-            raise NotImplementedError('latent_dim > 0 is not ported')
         self.model = CDNAPredictor(
             tuple(hp['img_dims']), n_context=hp['context_frames'],
             num_masks=hp['num_masks'], kernel_size=hp['kernel_size'],
@@ -122,7 +122,8 @@ class TorchPredictor:
             separable_lstm=hp['separable_lstm'],
             std_factor=hp['std_factor'],
             renorm_distribs=hp['renorm_distribs'],
-            mask_softmax=hp['mask_softmax']).to(self.device).eval()
+            mask_softmax=hp['mask_softmax'],
+            latent_dim=hp['latent_dim']).to(self.device).eval()
 
     def _adopt_model_config(self):
         """Adopt the architecture recorded in ``model_config.json`` next to
@@ -195,16 +196,25 @@ class TorchPredictor:
 
     # -- reference calling convention ---------------------------------------
     @torch.no_grad()
-    def __call__(self, context, action_dict):
+    def __call__(self, context, action_dict, generator=None, latent=None):
         """
         :param context: dict with 'context_frames' (n_ctx, ncam, H, W, 3)
             float [0,1] (or (1, n_ctx, ncam, ...)), 'context_actions'
             (>= n_ctx-1, adim), 'context_states' (n_ctx, sdim) and
             'context_pixel_distributions' (n_ctx, ncam, H, W, P)
         :param action_dict: {'actions': (M, T_plan, adim)} candidate plans
+        :param generator: ``torch.Generator`` on the predictor's device for
+            the latent of a stochastic model (``latent_dim`` > 0); without
+            one, a generator seeded with ``DEFAULT_LATENT_SEED`` is used
+        :param latent: (M, latent_dim) latent given outright
         :return: dict of numpy arrays 'predicted_frames'
             (M, T', ncam, H, W, 3) and 'predicted_pixel_distributions'
-            (M, T', ncam, H, W, P), T' = T_plan + n_ctx - 1 - (n_ctx - 1)
+            (M, T', ncam, H, W, P), T' = T_plan
+
+        As in the JAX package, this runs the model's teacher-forced forward
+        over the context actions followed by the plan, so one latent per
+        sample, shared by the cameras, conditions the context steps too (the
+        fused planner's ``encode_context`` conditions them on zeros).
         """
         if self.models is None:
             raise RuntimeError('call restore() first')
@@ -228,17 +238,26 @@ class TorchPredictor:
         distribs_cam = np.swapaxes(distribs[-n_ctx:], 0, 1)
         actions = np.asarray(action_dict['actions'], np.float32)
         M = actions.shape[0]
+        full_actions = np.concatenate(
+            [np.tile(ctx_actions[None], (M, 1, 1)), actions], axis=1)
 
         dev = lambda x: torch.as_tensor(x, device=self.device)
+        if self._hp['latent_dim'] and latent is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(
+                    DEFAULT_LATENT_SEED)
+            latent = torch.randn((M, self._hp['latent_dim']),
+                                 generator=generator, device=self.device)
+        elif latent is not None:
+            latent = dev(np.asarray(latent, np.float32)) \
+                if not isinstance(latent, torch.Tensor) else latent
+        tile = lambda x: dev(x)[None].expand((M,) + x.shape)
         gen_i, gen_d = [], []
         for c, model in enumerate(self.models):
-            carry = model.encode_context(
-                dev(frames_cam[c][None]), dev(ctx_actions[None]),
-                dev(states[None]), dev(distribs_cam[c][None]))
-            carry = broadcast_carry(carry, M)
-            out = model.rollout_from(carry, dev(actions))
-            gen_i.append(out['gen_images'])
-            gen_d.append(out['gen_distribs'])
+            out = model(tile(frames_cam[c]), dev(full_actions), tile(states),
+                        tile(distribs_cam[c]), latent=latent)
+            gen_i.append(out['gen_images'][:, n_ctx - 1:])
+            gen_d.append(out['gen_distribs'][:, n_ctx - 1:])
         return {
             'predicted_frames':
                 torch.stack(gen_i, dim=2).cpu().numpy(),

@@ -17,8 +17,10 @@
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
-   24 samples x 9 steps x 3 iterations, latents injected too): scores,
-   elites and the elites' frames against the JAX numbers;
+   24 samples x 9 steps x 3 iterations, latents injected too), and
+   ag_r5f_v2 its MPPI replan ``golden_mppi_f32.npz`` (24 samples x 10 steps
+   x 3 iterations, anchored, normals and latents injected): scores, elites
+   and the elites' frames against the JAX numbers;
 5. drives the serving replan: ``TorchPredictor`` with the restored
    xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
    3 iterations, for a few replans with fresh contexts; checks the outputs,
@@ -43,13 +45,29 @@
      replan = 1 context step + 3 iterations x 4 chunks x 45 steps at B=200
      + one 45-step re-roll of the 10 visualised elites = 586 launches; and
      the same 800 samples as one batch (136 launches), to time it against;
+   - the RoboNet planning path on ag_r5f_v2
+     (``experiments/robonet/view_generalization/single_view.py``: MPPI,
+     600 samples, 5 iterations, 60 elites, 10 actions, replan every 10
+     steps, drawn warm-up actions until step 5): (a) fused, with T = 10 and
+     the AR(1) chain anchored on the last executed action, 16 steps, 2
+     replans x (1 + 5 x 10) = 102 launches; (b) as written (T 15) in the
+     host CEM loop, one teacher-forced forward of 1 + 10 steps per
+     iteration, 5 x 11 = 55 launches per replan;
+   - (c) the folding prior
+     (``experiments/sawyer/mixed_objects/hparams_deformable_objects.py``:
+     600 samples, 5 actions x repeat 3, 30 elites): 1 + 3 x 15 = 46;
+   - (d) ``AutograspSampler`` and ``AutograspEpsilon`` at ag_bench20's
+     point (768 x 10 x 3), the grip on ag_r5f_v2's fourth action dim: 91
+     launches each, the derived grip holding only the close and open
+     commands;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
    ``depth_to_space`` copy that the blocked layout saves; ``add_one`` also
    at 2^26 floats), the 200-sample replan, and the replans of the
-   xz_bench20, ag_bench20, chunked and one-batch 800-sample controllers
-   (host clock and CUDA events), with a profiler breakdown of one replan
-   of each but the last.
+   xz_bench20, ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
+   (fused and host loop) and folding controllers (host clock and CUDA
+   events), with a profiler breakdown of one replan of each but the
+   one-batch 800-sample and the folding ones.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -134,7 +152,31 @@ AG_HARD_POLICY = dict(AG_POLICY, stochastic_planning=(2,),
                       stochastic_penalty=1.0)
 # xz_bench20 with VMPC_NUM_SAMPLES=800 and VMPC_SAMPLE_CHUNK=200
 CHUNK_POLICY = dict(CTRL_POLICY, num_samples=800, sample_chunk=200)
+# the RoboNet MPPI policy (experiments/robonet/view_generalization/
+# single_view.py) on ag_r5f_v2; the sampler class is filled in by main()
+ROBONET_POLICY = {'zeros_for_start_frames': False, 'replan_interval': 10,
+                  'start_planning': 5, 'iterations': 5,
+                  'selection_frac': 1. / 10, 'nactions': 10,
+                  'num_samples': 600, 'model_path': AG_WEIGHTS}
+# fused MPPI plans at control cadence: T = nactions, anchored chain
+ROBONET_FUSED_POLICY = dict(ROBONET_POLICY, T=10,
+                            smooth_across_last_action=True)
+# as written (T left at its default): the host CEM loop
+ROBONET_HOST_POLICY = dict(ROBONET_POLICY, use_fused_planner=False)
+ROBONET_STEPS = 16            # warm-ups at t < 5, replans at t = 5 and 15
+# experiments/sawyer/mixed_objects/hparams_deformable_objects.py (its two
+# cameras cut to ag_r5f_v2's one view, its two tasks to the first)
+FOLDING_POLICY = {'replan_interval': 15, 'num_samples': 600,
+                  'selection_frac': 0.05, 'initial_std': 0.005,
+                  'initial_std_lift': 0.05,
+                  'state_append': [0.41, 0.25, 0.166],
+                  'model_path': AG_WEIGHTS}
+# the explicit-gripper samplers at ag_bench20's point; AutograspEpsilon
+# finds z and the grip by name
+AUTOGRASP_POLICY = dict(AG_POLICY)
+AG_EPSILON_POLICY = dict(AG_POLICY, action_order=['x', 'y', 'z', 'grasp'])
 N_VIS = 10                                    # the planner's default
+DEFAULT_T = 15                                # the controllers' default T
 SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
                            'initial_std_rot': np.pi / 18,
                            'initial_std_grasp': 2,
@@ -144,16 +186,23 @@ SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
                          'initial_std_grasp': 2, 'action_order': None}}
 
 
-def replan_launches(policy):
-    """Tail launches of one cold replan under ``policy``: the context step
-    at B=1, then ``T`` steps per rollout; one rollout per iteration, or one
-    per chunk and iteration plus the re-roll of the visualised elites."""
+def replan_launches(policy, iterations=None, horizon=None):
+    """Tail launches of one cold replan under ``policy`` (``iterations``
+    and the sampler's ``horizon`` default to the policy's): the context
+    step at B=1, then ``horizon`` steps per rollout; one rollout per
+    iteration, or one per chunk and iteration plus the re-roll of the
+    visualised elites.  In the host CEM loop, one teacher-forced forward
+    per iteration over the context action and the ``nactions`` plan."""
+    iterations = iterations or policy.get('iterations', ITERS)
+    if policy.get('use_fused_planner', True) is False:
+        return iterations * (N_CTX - 1 + policy['nactions'])
+    horizon = horizon or policy.get('T', DEFAULT_T)
     rows = policy['num_samples'] * (policy.get('stochastic_planning')
                                     or (1,))[0]
     chunk = policy.get('sample_chunk', 0)
     if chunk and rows > chunk and rows % chunk == 0:
-        return 1 + (ITERS * (rows // chunk) + 1) * policy['T']
-    return 1 + ITERS * policy['T']
+        return 1 + (iterations * (rows // chunk) + 1) * horizon
+    return 1 + iterations * horizon
 
 
 def card_line():
@@ -222,10 +271,11 @@ def check_tail_cases(gen):
     err_bf16 = 0.0
     # the batches of the driven paths: a chunk or the 200-sample replan,
     # the campaigns' 768, 800 in one batch, the hard set's 768 x 2 copies,
-    # the chunked replan's re-roll of the visualised elites (B=1 is among
-    # TAIL_CASES)
+    # the chunked replan's re-roll of the visualised elites, the RoboNet
+    # and folding policies' 600 (B=1 is among TAIL_CASES)
     for b in (M, CTRL_POLICY['num_samples'], CHUNK_POLICY['num_samples'],
-              2 * AG_POLICY['num_samples'], N_VIS):
+              2 * AG_POLICY['num_samples'], N_VIS,
+              ROBONET_POLICY['num_samples']):
         for mask_block in (0, MASK_BLOCK):
             err_bf16 = max(err_bf16, check_tail(gen, b, torch.bfloat16,
                                                 mask_block=mask_block))
@@ -452,6 +502,58 @@ def check_golden(name):
     return launches, score_err, frame_err
 
 
+def check_golden_mppi():
+    """Replay the JAX package's f32 MPPI replan of the restored ag_r5f_v2
+    (``golden_mppi_f32.npz``: normals, latents and the anchor injected)."""
+    from visual_foresight_torch.planners.cem import FusedCEMPlanner
+    from visual_foresight_torch.planners.costs import distance_grid
+    from visual_foresight_torch.planners.gaussian import ActionSpec
+    with np.load(os.path.join(AG_WEIGHTS, 'golden_mppi_f32.npz')) as f:
+        g = {k: f[k] for k in f.files}
+    predictor = restored_predictor('float32', AG_WEIGHTS)
+    k_elite, n = int(g['k_elite']), int(g['nactions'])
+    stds = tuple(float(x) for x in g['per_dim_std'])
+    spec = ActionSpec(adim=len(stds), nactions=n, repeat=1,
+                      per_dim_std=stds, clip_dims_xy=(), clip_dims_rot=(),
+                      rej_dims_xy=(), rej_dims_lift=(), xy_std=stds[0],
+                      lift_std=stds[2])
+    planner = FusedCEMPlanner(
+        spec, int(g['num_samples']), iterations=int(g['iterations']),
+        k_elite=k_elite, finalweight=float(g['finalweight']),
+        n_vis=int(g['n_vis']), device='cuda',
+        mppi={'kappa': float(g['kappa']), 'beta_0': float(g['beta_0']),
+              'beta_1': float(g['beta_1']), 'refit_cov': False,
+              'mean_bias': None, 'per_dim_std': stds})
+    reset_tail_counts()
+    out = planner.replan(
+        predictor.models, g['images'], g['states'], g['distribs'],
+        g['ctx_actions'], distance_grid(g['goal'], H, W, device='cuda'),
+        g['mean0'], g['sigma0'], noise=g['noise'], latents=g['latents'],
+        anchor=g['anchor'], anchor_valid=float(g['anchor_valid']))
+    torch.cuda.synchronize()
+    launches = read_tail_counts('golden MPPI ag_r5f_v2',
+                                1 + int(g['iterations']) * n)
+    same, score_err = compare_scores(
+        'golden f32 MPPI replay of ag_r5f_v2 vs JAX', out['scores_per_itr'],
+        g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
+    if not same:
+        raise AssertionError('the MPPI golden elites differ')
+    idx = out['vis']['indices'].tolist()
+    if idx != g['vis_indices'].tolist():
+        raise AssertionError('the MPPI golden visualised elites differ')
+    frames = out['vis']['gen_images'][:, 2::3].cpu()
+    frame_err = float((frames - torch.tensor(g['vis_gen_images'])).abs()
+                      .max())
+    mean_err = float((out['mean'].cpu() - torch.tensor(g['mean'])).abs()
+                     .max())
+    print('golden MPPI frames of {} elites: max abs err {:.3e} (tol {:.0e}); '
+          'mean plan max abs err {:.3e}'.format(len(idx), frame_err,
+                                                GOLDEN_FRAME_ATOL, mean_err))
+    if not (frame_err <= GOLDEN_FRAME_ATOL and mean_err <= GOLDEN_FRAME_ATOL):
+        raise AssertionError('golden MPPI frames or mean disagree with JAX')
+    return launches, score_err, frame_err
+
+
 def print_report(source, report, seconds):
     print('built {} in {:.1f} s'.format(source, seconds))
     for line in report.splitlines():
@@ -564,13 +666,27 @@ def check_plain_tail_replan(replan, contexts, plan_gen):
                    SCORE_RTOL)
 
 
+def with_sampler(policy, name):
+    """``policy`` with the port's sampler class ``name``."""
+    from visual_foresight_torch.policy.cem_controllers.samplers import (
+        autograsp_epsilon, autograsp_sampler, correlated_noise,
+        folding_sampler)
+    cls = {'mppi': correlated_noise.CorrelatedNoiseSampler,
+           'autograsp': autograsp_sampler.AutograspSampler,
+           'ag_epsilon': autograsp_epsilon.AutograspEpsilon,
+           'folding': folding_sampler.FoldingCEMSampler}[name]
+    return dict(policy, sampler=cls)
+
+
 def drive_controller(label, agent, policy, steps):
     """``PixelCostController.act()`` under ``policy`` for ``steps`` control
-    steps on seeded synthetic frames; a replan falls on step 1 and then
-    every ``replan_interval`` steps.  Checks that the weights restored, the
-    tail's launch count (every one tiled, on blocked masks), and that the
-    actions and the last replan's scores are finite and of the expected
-    shapes.  Returns (launches, controller, states)."""
+    steps on seeded synthetic frames; a replan falls on the first planning
+    step (``start_planning``, at least 1) and then every
+    ``replan_interval`` steps, earlier steps take warm-up actions.  Checks
+    that the weights restored, the tail's launch count (every one tiled, on
+    blocked masks), and that the actions and the last replan's scores are
+    finite and of the expected shapes.  Returns (launches, controller,
+    states)."""
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
     ctrl = PixelCostController(agent, dict(policy))
@@ -584,7 +700,8 @@ def drive_controller(label, agent, policy, steps):
     frames = (rng.rand(steps, 1, H, W, 3) * 255).astype(np.uint8)
     states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
     desig, goal = np.array([[[24, 32]]]), np.array([[[10, 50]]])
-    replans = 1 + (steps - 2) // policy['replan_interval']
+    start = max(policy.get('start_planning', 0), N_CTX - 1)
+    replans = 1 + (steps - 1 - start) // policy['replan_interval']
     ctrl.reset()
     reset_tail_counts()
     actions, n_samples = [], []
@@ -603,7 +720,7 @@ def drive_controller(label, agent, policy, steps):
                                  .format(label, a))
     rows = policy['num_samples'] * (policy.get('stochastic_planning')
                                     or (1,))[0]
-    for itr in range(ITERS):
+    for itr in range(policy.get('iterations', ITERS)):
         scores = out['plan_stat']['scores_itr{}'.format(itr)]
         n_samples.append(scores.shape[-1])
         if scores.shape != (rows,) or not np.isfinite(scores).all():
@@ -621,6 +738,46 @@ def drive_controller(label, agent, policy, steps):
         print('{} propagated distribution: shape {}, mass per frame {}'
               .format(label, d.shape, d.sum(axis=(1, 2, 3, 4))))
     return launches, ctrl, states
+
+
+def check_grip(label, ctrl, policy, ag_epsilon=False):
+    """The derived grip (the last action dim) holds only the close and open
+    commands: in every elite of the last replan under the autograsp latch.
+    AutograspEpsilon transforms the first ``max(int(M * base_frac *
+    base_frac_reduce ** itr), 1)`` plans of iteration ``itr``: its elites
+    among those of the last iteration are checked, and one draw of the
+    first iteration's plans (all M transformed) on the controller's
+    generator, which launches no kernel."""
+    hp = ctrl._hp
+    grip = ctrl._best_actions[..., -1]
+    rows = np.arange(grip.shape[0])
+    if ag_epsilon:
+        cmds = {1.0, -1.0}
+        amount = max(int(policy['num_samples'] * hp.base_frac *
+                         hp.base_frac_reduce ** (hp.iterations - 1)), 1)
+        rows = rows[ctrl._best_indices < amount]
+        planner, dev = ctrl._fused, ctrl.device
+        spec = planner.spec
+        plans = planner._sample_plans(
+            0, policy['num_samples'], torch.zeros(spec.nactions * spec.adim,
+                                                  device=dev),
+            torch.eye(spec.nactions * spec.adim, device=dev) * 0.01, None,
+            None, 0.0, torch.zeros((N_CTX, ctrl._sdim), device=dev), None,
+            ctrl._generator, {})
+        first = set(torch.unique(plans[..., -1]).tolist())
+        print('{}: grip commands of the first iteration\'s {} plans: {}'
+              .format(label, plans.shape[0], sorted(first)))
+        if not first <= cmds:
+            raise AssertionError('{}: the first iteration\'s grip holds {}'
+                                 .format(label, sorted(first)))
+    else:
+        cmds = {float(hp.gripper_close_cmd), float(hp.gripper_open_cmd)}
+    values = set(np.unique(grip[rows]).tolist())
+    print('{}: grip commands of {} of {} elites of the last replan: {}'
+          .format(label, len(rows), grip.shape[0], sorted(values)))
+    if not values <= cmds or not (len(rows) or ag_epsilon):
+        raise AssertionError('{}: the derived grip holds {}'.format(
+            label, sorted(values)))
 
 
 def time_controller(name, point, ctrl, states, card):
@@ -755,6 +912,7 @@ def main():
     # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
     golden_launches, _, _ = check_golden('xz_flagship')
     golden_ag_launches, _, _ = check_golden('ag_r5f_v2')
+    golden_mppi_launches, _, _ = check_golden_mppi()
 
     # -- 4. the 200-sample replan on the restored weights ----------------------
     replan_launches_200, latencies, replan, contexts, plan_gen = \
@@ -778,6 +936,31 @@ def main():
         'xz_bench20 at 800 samples in one batch', AG_PARAMS,
         dict(CTRL_POLICY, num_samples=CHUNK_POLICY['num_samples']), 2)
 
+    # -- 5a-d. the other samplers: the RoboNet path and the folding prior ------
+    mppi_launches, mppi_ctrl, mppi_states = drive_controller(
+        'RoboNet MPPI fused (T 10, anchored)', AG_AGENT,
+        with_sampler(ROBONET_FUSED_POLICY, 'mppi'), ROBONET_STEPS)
+    if not mppi_ctrl._fused.is_mppi:
+        raise AssertionError('the RoboNet MPPI policy did not plan fused')
+    host_launches, host_ctrl, host_states = drive_controller(
+        'RoboNet MPPI host loop (T 15)', AG_AGENT,
+        with_sampler(ROBONET_HOST_POLICY, 'mppi'), 6)
+    if host_ctrl._fused is not None:
+        raise AssertionError('the RoboNet policy as written planned fused')
+    fold_launches, fold_ctrl, fold_states = drive_controller(
+        'folding', AG_AGENT, with_sampler(FOLDING_POLICY, 'folding'), 2)
+    ag_grip_launches, ag_grip_ctrl, _ = drive_controller(
+        'AutograspSampler at ag_bench20', AG_AGENT,
+        with_sampler(AUTOGRASP_POLICY, 'autograsp'), 2)
+    check_grip('AutograspSampler', ag_grip_ctrl, AUTOGRASP_POLICY)
+    del ag_grip_ctrl
+    ag_eps_launches, ag_eps_ctrl, _ = drive_controller(
+        'AutograspEpsilon at ag_bench20', AG_AGENT,
+        with_sampler(AG_EPSILON_POLICY, 'ag_epsilon'), 2)
+    check_grip('AutograspEpsilon', ag_eps_ctrl, AG_EPSILON_POLICY,
+               ag_epsilon=True)
+    del ag_eps_ctrl
+
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
           'bf16, restored flagship, host clock, {} replans) [{}]'.format(
@@ -800,12 +983,26 @@ def main():
     time_controller('xz_800_replan',
                     '800 samples in one batch x 45 steps x 48x64 x 3 iters, '
                     'bf16', whole_ctrl, whole_states, card)
+    time_controller('robonet_mppi_replan',
+                    'MPPI 600 samples x 10 steps x 48x64 x 5 iters, anchored, '
+                    'bf16, ag_r5f_v2', mppi_ctrl, mppi_states, card)
+    time_controller('robonet_mppi_host_replan',
+                    'MPPI host loop, 600 samples x 5 iters of one 11-step '
+                    'teacher-forced forward, bf16, ag_r5f_v2', host_ctrl,
+                    host_states, card)
+    time_controller('folding_replan',
+                    'folding 600 samples x 15 steps x 48x64 x 3 iters, bf16, '
+                    'ag_r5f_v2', fold_ctrl, fold_states, card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
     print('profile: one ag_bench20 replan')
     profile_replan(lambda: ag_ctrl.perform_CEM(ag_states))
     print('profile: one xz_bench20 replan at 800 samples in chunks of 200')
     profile_replan(lambda: chunk_ctrl.perform_CEM(chunk_states))
+    print('profile: one RoboNet MPPI replan, fused')
+    profile_replan(lambda: mppi_ctrl.perform_CEM(mppi_states))
+    print('profile: one RoboNet MPPI replan, host loop')
+    profile_replan(lambda: host_ctrl.perform_CEM(host_states))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     print(json.dumps({'kernels': [{
@@ -821,7 +1018,13 @@ def main():
             'controller_ag_bench20': ag_launches,
             'controller_ag_bench20_hard': hard_launches,
             'controller_xz_bench20_chunk200': chunk_launches,
-            'controller_xz_bench20_800': whole_launches},
+            'controller_xz_bench20_800': whole_launches,
+            'golden_mppi_ag_r5f_v2': golden_mppi_launches,
+            'controller_robonet_mppi': mppi_launches,
+            'controller_robonet_mppi_host_loop': host_launches,
+            'controller_folding': fold_launches,
+            'controller_autograsp': ag_grip_launches,
+            'controller_ag_epsilon': ag_eps_launches},
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],

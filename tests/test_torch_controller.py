@@ -23,8 +23,6 @@ from test_controllers import AG_PARAMS, BASE_POLICY, SMALL_PREDICTOR
 from test_torch_planner import _jax_replan_draws
 from visual_foresight_torch.models.convert import params_from_flax
 from visual_foresight_torch.policy.cem_controllers import PixelCostController
-from visual_foresight_torch.policy.cem_controllers.samplers.gaussian_sampler \
-    import GaussianCEMSampler
 from visual_foresight_tpu.policy.cem_controllers.pixel_cost_controller import (
     PixelCostController as JaxController)
 
@@ -39,10 +37,6 @@ PREDICTOR = dict(SMALL_PREDICTOR, std_factor=4, enc_features=(8, 16, 16),
 POLICY = dict(BASE_POLICY, predictor_hparams=PREDICTOR, reuse_mean=True,
               reuse_cov=True, num_samples=16, minimum_selection=7,
               replan_interval=2)
-class OtherSampler(GaussianCEMSampler):
-    """Any sampler but the Gaussian one."""
-
-
 def _perturbed(params, seed, scale=0.1):
     leaves, tree = jax.tree.flatten(params)
     rng = np.random.RandomState(seed)
@@ -73,8 +67,8 @@ def _controllers(ag_params=AG_PARAMS, policy=POLICY):
         noise, latents, vis_latents = _jax_replan_draws(
             sub, hp.iterations, num_samples, spec.nactions * spec.adim,
             rejection_rounds=10 if hp.rejection_sampling else 0,
-            stochastic_k=tctrl._stoch_k, latent_dim=latent_dim, chunk=chunk,
-            n_vis=min(10, hp.num_samples * tctrl._stoch_k))
+            stochastic_k=tctrl._fused._stoch_k, latent_dim=latent_dim,
+            chunk=chunk, n_vis=min(10, hp.num_samples * tctrl._fused._stoch_k))
         return replan(*args, noise=noise, latents=latents,
                       vis_latents=vis_latents, num_samples=num_samples, **kw)
     tctrl._fused.replan = injected
@@ -126,16 +120,13 @@ def test_controller_matches_jax_over_warm_started_steps():
     assert _run_side_by_side(jctrl, tctrl, AG_PARAMS) == [16, 16, 8, 8]
 
 
-@pytest.mark.parametrize('override,where', [
-    ({'sampler': OtherSampler}, 'init'),
-    ({'use_fused_planner': False}, 'init'),
-    ({}, 'verbose_worker')])
+@pytest.mark.parametrize('override,where', [({}, 'verbose_worker')])
 def test_unported_controller_options_raise(override, where):
+    """The verbose plan dump is the one option not ported (other samplers
+    and the host loop are held against JAX in
+    ``tests/test_torch_host_loop.py`` and
+    ``tests/test_torch_controller_samplers.py``)."""
     policy = dict(POLICY, device='cpu', **override)
-    if where == 'init':
-        with pytest.raises(NotImplementedError):
-            PixelCostController(AG_PARAMS, policy)
-        return
     ctrl = PixelCostController(AG_PARAMS, policy)
     ctrl.reset()
     with pytest.raises(NotImplementedError):

@@ -179,3 +179,54 @@ def test_add_one_matches_plain_on_card(shape):
         add_one(x.double())
     with pytest.raises(ValueError, match='contiguous'):
         add_one(torch.zeros((4, 4), device='cuda').t())
+
+
+@pytest.mark.cuda
+def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
+    """One MPPI replan of a small f32 model (32 samples x 6 steps x 3
+    iterations, 48x64, anchored): the tail kernel against the plain tail on
+    the same injected normals, same elites, scores rtol 1e-5; the kernel
+    launches once per model step (1 + 3 x 6)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import numpy as np
+    from visual_foresight_torch.models import cdna as cdna_model
+    from visual_foresight_torch.models.cdna import CDNAPredictor
+    from visual_foresight_torch.planners.cem import FusedCEMPlanner
+    from visual_foresight_torch.planners.costs import distance_grid
+    from visual_foresight_torch.planners.gaussian import ActionSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = CDNAPredictor((48, 64), num_distribs=1, sdim=5, adim=4,
+                          enc_features=(16, 32, 32), lstm_kernel=3,
+                          separable_lstm=True).cuda().eval()
+    stds = (0.05, 0.05, 0.2, np.pi / 10)
+    spec = ActionSpec(adim=4, nactions=6, repeat=1, per_dim_std=stds,
+                      clip_dims_xy=(), clip_dims_rot=(), rej_dims_xy=(),
+                      rej_dims_lift=(), xy_std=stds[0], lift_std=stds[2])
+    planner = FusedCEMPlanner(
+        spec, 32, iterations=3, k_elite=6, n_vis=2, device='cuda',
+        mppi={'kappa': 1.0, 'beta_0': 0.5, 'beta_1': 0.5, 'refit_cov': True,
+              'mean_bias': None, 'per_dim_std': stds})
+    rng = np.random.RandomState(0)
+    distribs = np.zeros((1, 2, 48, 64, 1), np.float32)
+    distribs[:, :, 24, 32, 0] = 1.0
+    args = ([model], rng.rand(1, 2, 48, 64, 3), rng.randn(2, 5) * 0.05,
+            distribs, rng.randn(1, 4) * 0.05,
+            distance_grid([[[10.0, 50.0]]], 48, 64, device='cuda'),
+            np.zeros(24), np.eye(24))
+    kw = dict(noise=rng.randn(3, 32, 24), anchor=rng.randn(4) * 0.05,
+              anchor_valid=1.0)
+    before = fused_warp_composite.launches
+    got = planner.replan(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_warp_composite.launches == before + 1 + 3 * 6
+    monkeypatch.setattr(cdna_model, 'fused_warp_composite',
+                        fused_warp_composite_reference)
+    want = planner.replan(*args, **kw)
+    torch.testing.assert_close(got['scores_per_itr'], want['scores_per_itr'],
+                               rtol=1e-5, atol=0)
+    assert torch.equal(got['vis']['indices'], want['vis']['indices'])
+    torch.testing.assert_close(got['mean'], want['mean'], rtol=1e-5,
+                               atol=1e-6)

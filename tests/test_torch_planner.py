@@ -193,21 +193,17 @@ def test_warm_start_replan_with_fewer_samples_matches_jax():
     _check_replan_against_jax(num_samples=12)
 
 
-def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
-                              ncam=1, adim=3, sdim=3, cost_fn=None,
-                              cost_ctx=None, iters=3, m=16, k_elite=8,
-                              equals_unchunked=False, action_rtol=0.0):
-    h, w = 16, 32
-    modes = dict(modes or {})
+def small_models(adim=3, sdim=3, latent_dim=0, ncam=1, h=16, w=32):
+    """A small JAX model with perturbed weights per camera, the port's
+    modules on the same weights, and a seeded context.
+
+    :return: (jax model, per-camera params, port modules, images, states,
+        distribs, context actions, goal pixels)
+    """
     kw = dict(num_distribs=1, std_factor=4, enc_features=(8, 16, 16),
               lstm_kernel=3, separable_lstm=True, renorm_distribs=False,
               mask_softmax='fullres', latent_dim=latent_dim, sdim=sdim,
               adim=adim)
-    hp = dict(HP, nactions=2, repeat=2,
-              action_order=['x', 'z', 'grasp'] if adim == 3 else None)
-    jspec, tspec = jgauss.make_action_spec(hp, adim), \
-        tgauss.make_action_spec(hp, adim)
-    dim = tspec.nactions * tspec.adim
     jmodel = JaxPredictor(**kw)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, h, w, 3)),
                          jnp.zeros((1, 4, adim)), jnp.zeros((1, 2, sdim)),
@@ -223,6 +219,27 @@ def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
     distribs[:, :, 8, 16, 0] = 1.0
     actions = np.zeros((1, adim), np.float32)
     goal = np.tile(np.array([[[4.0, 25.0]]], np.float32), (ncam, 1, 1))
+    tmodels = []
+    for p in cam_params:
+        tmodels.append(CDNAPredictor((h, w), **kw))
+        load_flax_params(tmodels[-1], jax.tree.map(np.asarray, p))
+    return (jmodel, cam_params, tmodels, images, states, distribs, actions,
+            goal)
+
+
+def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
+                              ncam=1, adim=3, sdim=3, cost_fn=None,
+                              cost_ctx=None, iters=3, m=16, k_elite=8,
+                              equals_unchunked=False, action_rtol=0.0):
+    h, w = 16, 32
+    modes = dict(modes or {})
+    hp = dict(HP, nactions=2, repeat=2,
+              action_order=['x', 'z', 'grasp'] if adim == 3 else None)
+    jspec, tspec = jgauss.make_action_spec(hp, adim), \
+        tgauss.make_action_spec(hp, adim)
+    dim = tspec.nactions * tspec.adim
+    (jmodel, cam_params, tmodels, images, states, distribs, actions,
+     goal) = small_models(adim, sdim, latent_dim, ncam, h, w)
     mean0 = np.zeros(dim, np.float32)
     sigma0 = np.asarray(jgauss.initial_sigma(jspec))
     key = jax.random.PRNGKey(7)
@@ -240,10 +257,6 @@ def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
     n = num_samples or m
     assert want['scores_per_itr'].shape == (iters, n)
 
-    tmodels = []
-    for p in cam_params:
-        tmodels.append(CDNAPredictor((h, w), **kw))
-        load_flax_params(tmodels[-1], jax.tree.map(np.asarray, p))
     chunk = modes.get('sample_chunk', 0)
     chunked = bool(chunk) and n > chunk and n % chunk == 0
     noise, latents, vis_latents = _jax_replan_draws(
@@ -390,11 +403,10 @@ def test_replan_argument_checks():
         run(make(), 6, [latent_model])
 
 
-@pytest.mark.parametrize('mode', [
-    {'mppi': {'kappa': 1.0}}, {'autograsp': {'z_thresh': 0.1}},
-    {'folding': {'split_frac': 0.5}}, {'ag_epsilon': {'z_dim': 2}},
-    {'mesh': 'any'}])
+@pytest.mark.parametrize('mode', [{'mesh': 'any'}])
 def test_unported_planner_modes_raise(mode):
+    """Sample-axis sharding over a mesh is the one mode not ported (the
+    others are held against JAX in ``tests/test_torch_planner_samplers.py``)."""
     spec = tgauss.make_action_spec(dict(HP, action_order=['x', 'z', 'grasp']),
                                    3)
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,7 @@ toolchain probe's ``add_one`` as another (``csrc/probe_add_one.cu``);
 everything else is stock PyTorch.  ``weights/`` holds numpy exports of the
 trained checkpoints.
 
-Entry points (``PixelCostController``, ``TorchPredictor``,
-``FusedCEMPlanner``) run on the card unless the caller passes
-``device='cpu'``.
+Entry points (``PixelCostController``, ``GoalImController``,
+``TorchPredictor``, ``FusedCEMPlanner``) run on the card unless the caller
+passes ``device='cpu'``.
 """

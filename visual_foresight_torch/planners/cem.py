@@ -1,11 +1,14 @@
 """CEM replanning on the device (PyTorch).
 
-Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner`` with
-every mode its Gaussian sampler reaches: encode the context once at batch 1
-and broadcast the carry over the samples (or over one chunk of them), then
-for each iteration sample plans, roll them out, score them, take the elites
-and refit.  The replan makes no host round trip until the caller reads a
-result.
+Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner`` in
+every mode but ``mesh``: encode the context once at batch 1 and broadcast
+the carry over the samples (or over one chunk of them), then for each
+iteration sample plans, roll them out, score them, take the elites and
+refit.  The plans come from the Gaussian sampler (with its options), from
+MPPI's AR(1)-correlated noise around a soft elite-weighted mean, or from the
+folding prior; the autograsp latch and the AutograspEpsilon gripper derive a
+grip command on top of Gaussian plans.  The replan makes no host round trip
+until the caller reads a result.
 """
 
 import numpy as np
@@ -14,14 +17,12 @@ import torch
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import broadcast_carry
 from visual_foresight_torch.planners import costs as cost_lib
-from visual_foresight_torch.planners.gaussian import (ActionSpec, fit_elites,
-                                                      sample_actions)
+from visual_foresight_torch.planners.gaussian import (
+    ActionSpec, ag_epsilon_transform, autograsp_gripper_latch,
+    autograsp_gripper_resample, fit_elites, folding_sample, sample_actions)
 
 # the JAX planner's other arguments, at the values that leave them off
-_UNPORTED_DEFAULTS = {
-    'mppi': None, 'autograsp': None, 'ag_epsilon': None, 'folding': None,
-    'mesh': None, 'donate_dist': True,
-}
+_UNPORTED_DEFAULTS = {'mesh': None, 'donate_dist': True}
 
 
 def _lowest(scores, k):
@@ -40,7 +41,7 @@ def _first_rows(carry, n):
 
 
 class FusedCEMPlanner:
-    """Runs Gaussian CEM replans through per-camera predictor modules.
+    """Runs CEM replans through per-camera predictor modules.
 
     :param spec: ActionSpec (static sampling description)
     :param num_samples: M candidates per CEM iteration
@@ -56,14 +57,31 @@ class FusedCEMPlanner:
     :param smooth_cov: average each refit covariance with the previous
         iteration's (the first with the covariance passed in)
     :param add_zero_action: candidate 0 is always the null plan
+    :param mppi: MPPI mode (CorrelatedNoiseSampler): dict with kappa,
+        beta_0, beta_1, refit_cov, mean_bias, per_dim_std.  Plans are
+        AR(1)-filtered noise around a mean plan, the update is the
+        elites' soft ``exp(kappa * (r - max r))``-weighted mean
+    :param autograsp: autograsp mode (AutograspSampler): dict with z_thresh,
+        norm_factor, close_cmd, open_cmd, reopen, deviation_prob, no_refit,
+        z_index, state_z_index.  The spec covers the base dims; the grip
+        command is derived from the cumulative z and appended as the last
+        plan dim, and left out of the refit
     :param stochastic_k: every unique plan appears this many times in the
         batch, each copy with its own latent draw
-    :param stochastic_penalty: with ``stochastic_k`` > 1, select elites among
-        the unique plans on mean + penalty * std of their copies' scores
     :param discrete_dims: plan dims floored and clipped into {0..4}
+    :param ag_epsilon: AutograspEpsilon mode: dict with z_dim, grip_dim,
+        z_norm, zthresh, epsilon, base_frac, base_frac_reduce, repeat,
+        state_z_index.  The first ``max(int(M * base_frac *
+        base_frac_reduce ** itr), 1)`` plans of iteration ``itr`` get the
+        cumulative-z gripper with epsilon flips
+    :param folding: folding mode (FoldingCEMSampler): dict with split_frac,
+        max_shift.  The structured pick-fold-place prior mixed with
+        Gaussian plans; 4 base dims
     :param sample_chunk: roll the samples in chunks of this size (0 = all at
         once); scores, elites and refit are the same, the final iteration's
         visualisation rollouts are re-rolled for the ``n_vis`` elites alone
+    :param stochastic_penalty: with ``stochastic_k`` > 1, select elites among
+        the unique plans on mean + penalty * std of their copies' scores
     :param device: where the replan runs ('cuda' unless the caller asks for
         the CPU)
 
@@ -71,9 +89,8 @@ class FusedCEMPlanner:
     per sample, shared by all cameras: one draw per iteration, one per chunk
     in chunked mode, and one more for the chunked visualisation re-roll.
 
-    The JAX planner's other modes (``_UNPORTED_DEFAULTS``: MPPI, autograsp,
-    ag_epsilon, folding, mesh sharding) are not ported: any value other than
-    the one that leaves a mode off raises ``NotImplementedError``.
+    The JAX planner's ``mesh`` sharding (``_UNPORTED_DEFAULTS``) is not
+    ported: any value but ``None`` raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: ActionSpec, num_samples: int,
@@ -82,7 +99,8 @@ class FusedCEMPlanner:
                  action_bound: bool = True, only_first_view: bool = False,
                  cost_fn=None, n_vis: int = 10, blockdiag_refit: bool = False,
                  smooth_cov: bool = False, add_zero_action: bool = False,
-                 stochastic_k: int = 1, discrete_dims=(),
+                 mppi=None, autograsp=None, stochastic_k: int = 1,
+                 discrete_dims=(), ag_epsilon=None, folding=None,
                  sample_chunk: int = 0, stochastic_penalty: float = 0.0,
                  device='cuda', **modes):
         unknown = sorted(set(modes) - set(_UNPORTED_DEFAULTS))
@@ -108,6 +126,29 @@ class FusedCEMPlanner:
         self._blockdiag = blockdiag_refit
         self._smooth_cov = smooth_cov
         self._add_zero = add_zero_action
+        self._mppi = dict(mppi) if mppi else None
+        self._ag = dict(autograsp) if autograsp else None
+        self._ag_eps = dict(ag_epsilon) if ag_epsilon else None
+        self._folding = dict(folding) if folding else None
+        if self._ag and self._mppi:
+            raise ValueError('the autograsp latch composes with Gaussian '
+                             'sampling, not MPPI')
+        if self._ag_eps and (self._ag or self._mppi):
+            raise ValueError('ag_epsilon is its own sampling mode')
+        if self._folding and (self._ag or self._ag_eps or self._mppi):
+            raise ValueError('folding is its own sampling mode')
+        if self._folding and spec.adim != 4:
+            raise ValueError('the folding prior needs 4 base action dims')
+        self.device = resolve_device(device)
+        if self._mppi:
+            # made once: a tensor made from host data in the replan would
+            # wait for the device before each iteration
+            self._mppi_scale = torch.tensor(self._mppi['per_dim_std'],
+                                            dtype=torch.float32,
+                                            device=self.device)
+            self._mppi_bias = torch.tensor(
+                self._mppi.get('mean_bias') or [0.0] * spec.adim,
+                dtype=torch.float32, device=self.device)
         self._stoch_k = int(stochastic_k)
         if self._stoch_k < 1 or num_samples % self._stoch_k:
             raise ValueError('num_samples must be a multiple of '
@@ -124,11 +165,14 @@ class FusedCEMPlanner:
                                  'sample_chunk')
             if self._chunk < max(k_elite, self._n_vis):
                 raise ValueError('sample_chunk must cover k_elite and n_vis')
-        self.device = resolve_device(device)
 
     @property
     def spec(self):
         return self._spec
+
+    @property
+    def is_mppi(self):
+        return self._mppi is not None
 
     @staticmethod
     def _encode_contexts(models, images, states, distribs, context_actions,
@@ -163,8 +207,8 @@ class FusedCEMPlanner:
             gen_distribs, cost_ctx, self._finalweight, normalize=True,
             only_first_view=self._ofv)
 
-    def _sample_plans(self, mean, sigma, M, generator, z):
-        """(M, T, adim) candidate plans of one iteration."""
+    def _sample_gaussian(self, mean, sigma, M, generator, z):
+        """(M, T, adim) Gaussian plans of one iteration."""
         kk = self._stoch_k
         plan = sample_actions(mean, sigma, self._spec, M // kk,
                               rejection_rounds=self._rej,
@@ -178,11 +222,110 @@ class FusedCEMPlanner:
             plan[0] = 0.0
         return plan
 
+    def _sample_mppi(self, mean, cov, anchor, anchor_valid, M, generator,
+                     eps):
+        """AR(1)-correlated noise around a mean plan (CorrelatedNoiseSampler):
+        ``a_0 = b0 e_0 + b1 (anchor if anchor_valid else e_{n-1})``,
+        ``a_t = b0 e_t + b1 a_{t-1}``.  With a refit covariance the normals
+        are multiplied by the covariance itself, not by a square root of it,
+        as the host sampler does.
+
+        :param eps: (M, nactions*adim) standard normals, or None to draw
+        """
+        spec, hp = self._spec, self._mppi
+        n, adim, dev = spec.nactions, spec.adim, mean.device
+        if eps is None:
+            eps = torch.randn((M, n * adim), generator=generator, device=dev)
+        elif eps.numel() != M * n * adim:
+            raise ValueError('MPPI normals have shape {}, expected {}'.format(
+                tuple(eps.shape), (M, n * adim)))
+        if cov is not None:
+            noise = (eps.reshape(M, -1) @ cov).reshape(M, n, adim)
+        else:
+            noise = eps.reshape(M, n, adim) * self._mppi_scale + \
+                self._mppi_bias
+        b0, b1 = hp['beta_0'], hp['beta_1']
+        prev = b0 * noise[:, 0] + b1 * (anchor_valid * anchor[None] +
+                                        (1.0 - anchor_valid) * noise[:, -1])
+        steps = [prev]
+        for t in range(1, n):
+            prev = b0 * noise[:, t] + b1 * prev
+            steps.append(prev)
+        return torch.stack(steps, dim=1) + mean.reshape(1, n, adim)
+
+    def _mppi_update(self, elite_actions, elite_scores):
+        """The elites' soft-weighted mean plan, ``S = exp(kappa * (r - max
+        r))`` over rewards = negated costs, and with ``refit_cov`` their
+        covariance (over N - 1)."""
+        hp = self._mppi
+        rewards = -elite_scores
+        S = torch.exp(hp['kappa'] * (rewards - rewards.max()))
+        mean_plan = torch.einsum('n,nta->ta', S, elite_actions) / \
+            (S.sum() + 1e-4)
+        cov = None
+        if hp.get('refit_cov'):
+            flat = elite_actions.reshape(elite_actions.shape[0], -1)
+            centered = flat - flat.mean(dim=0, keepdim=True)
+            cov = centered.T @ centered / max(flat.shape[0] - 1, 1)
+        return mean_plan.reshape(-1), cov
+
+    def _sample_plans(self, itr, M, mean, sigma, mppi_cov, anchor,
+                      anchor_valid, context_states, grip_elites, generator,
+                      draws):
+        """(M, T, adim) candidate plans of iteration ``itr`` in this
+        planner's mode.  ``draws`` holds the iteration's given draws ('z',
+        and per mode 'way', 'eps', 'grip'), empty to draw from
+        ``generator``."""
+        spec, z = self._spec, draws.get('z')
+        if self._mppi is not None:
+            plan = self._sample_mppi(mean, mppi_cov, anchor, anchor_valid, M,
+                                     generator, z)
+        elif self._folding is not None:
+            fo = self._folding
+            plan = folding_sample(
+                mean, sigma, context_states[-1, :2], M, spec,
+                split_frac=fo.get('split_frac', 0.5),
+                max_shift=tuple(fo.get('max_shift', (0.2, 0.2, 1.0 / 3))),
+                first_itr=(itr == 0), generator=generator, draws=draws)
+        else:
+            plan = self._sample_gaussian(mean, sigma, M, generator, z)
+        if self._ag_eps is not None:
+            ae = self._ag_eps
+            amount = max(int(M * ae.get('base_frac', 1.0) *
+                             ae.get('base_frac_reduce', 0.3) ** itr), 1)
+            state_z = context_states[-1, ae.get('state_z_index',
+                                                ae['z_dim'])]
+            plan = ag_epsilon_transform(
+                plan, state_z, amount, ae['z_dim'], ae['grip_dim'],
+                z_norm=ae.get('z_norm', 1.0),
+                zthresh=ae.get('zthresh', 1.0 / 3),
+                epsilon=ae.get('epsilon', 0.5), repeat=ae.get('repeat', 1),
+                generator=generator, u=draws.get('grip'))
+        if self._ag is not None:
+            ag = self._ag
+            close_cmd = ag.get('close_cmd', 1.0)
+            open_cmd = ag.get('open_cmd', -1.0)
+            if grip_elites is None:
+                plan = autograsp_gripper_latch(
+                    plan, context_states[-1, ag.get('state_z_index', 2)],
+                    ag['z_thresh'], norm_factor=ag.get('norm_factor', 1.0),
+                    reopen=ag.get('reopen', False), close_cmd=close_cmd,
+                    open_cmd=open_cmd, z_index=ag.get('z_index', 2),
+                    deviation_prob=ag.get('deviation_prob', 0.0),
+                    generator=generator, u=draws.get('grip'))
+            else:
+                grip = autograsp_gripper_resample(
+                    grip_elites, M, plan.shape[1], close_cmd=close_cmd,
+                    open_cmd=open_cmd, generator=generator,
+                    u=draws.get('grip'))
+                plan = torch.cat([plan, grip[..., None]], dim=-1)
+        return plan
+
     @torch.no_grad()
     def replan(self, models, context_images, context_states,
                context_distribs, context_actions, cost_ctx, mean, sigma,
                generator=None, noise=None, latents=None, vis_latents=None,
-               num_samples=None):
+               num_samples=None, anchor=None, anchor_valid=0.0):
         """One full replan.
 
         :param models: one ``CDNAPredictor`` per camera
@@ -194,10 +337,16 @@ class FusedCEMPlanner:
             ``cost_fn`` reads)
         :param mean/sigma: current sampling distribution (flattened plan)
         :param generator: ``torch.Generator`` on the planner's device for
-            the plan noise and the latents, or
-        :param noise: (iterations, M / stochastic_k, nactions*adim) standard
-            normals, (iterations, 1 + rejection_rounds, M / stochastic_k,
-            nactions*adim) with rejection sampling
+            every draw (plans, grip commands, latents), or
+        :param noise: the draws given, indexed by iteration.  An entry is
+            the plan normals: (M / stochastic_k, nactions*adim), or (1 +
+            rejection_rounds, M / stochastic_k, nactions*adim) with
+            rejection sampling; (M, nactions*adim) in MPPI mode.  Or it is a
+            dict of them under 'z' with the mode's other draws: 'way' (2p,
+            2, 2) uniforms and 'eps' (2p, nactions, 4) normals in folding
+            mode ('z' then holds the (M - 2p, nactions*adim) Gaussian
+            rows); 'grip' uniforms for the AutograspEpsilon flips (amount,
+            T), the autograsp latch's deviations or its resample (M, T)
         :param latents: (iterations, M, latent_dim) latents of the scored
             rollouts (sample i of a chunked replan keeps row i); needed with
             ``noise`` when the models have a latent
@@ -205,7 +354,11 @@ class FusedCEMPlanner:
             replan's visualisation re-roll
         :param num_samples: M for this replan (defaults to the configured
             count; warm starts shrink it by ``reuse_factor``)
-        :return: dict with best actions, scores, refit mean/sigma, vis
+        :param anchor/anchor_valid: MPPI mode: the last executed action
+            (adim,) and 1.0 to start the AR(1) chain from it (0.0: from the
+            last step's noise)
+        :return: dict with best actions, scores, refit mean/sigma (MPPI:
+            the mean plan, sigma as given), vis
         """
         K, kk = self._K, self._stoch_k
         M = num_samples or self._M
@@ -232,12 +385,22 @@ class FusedCEMPlanner:
         context_distribs, context_actions = as_dev(context_distribs), \
             as_dev(context_actions)
         mean, sigma = as_dev(mean), as_dev(sigma)
+        anchor = torch.zeros(self._spec.adim, device=dev) if anchor is None \
+            else as_dev(anchor)
+        anchor_valid = float(anchor_valid)
         if self._cost_fn is None:
             cost_ctx = as_dev(cost_ctx)
-        if noise is not None:
-            noise = as_dev(noise)
         if latents is not None:
             latents = as_dev(latents)
+
+        def iteration_draws(itr):
+            """The given draws of iteration ``itr`` on the device."""
+            if noise is None:
+                return {}
+            given = noise[itr]
+            if not isinstance(given, dict):
+                given = {'z': given}
+            return {k: as_dev(v) for k, v in given.items()}
 
         def draw_latent(given, b):
             """(b, latent_dim) latent for one rollout: the given rows, or a
@@ -258,10 +421,14 @@ class FusedCEMPlanner:
                                         context_actions,
                                         chunk if use_chunk else M)
         sigma_prev = sigma
+        mppi_cov = None
+        grip_elites = None      # autograsp, no_refit False: last elites
         plan_scores, vis = [], None
         for itr in range(self._iterations):
-            plan = self._sample_plans(mean, sigma, M, generator,
-                                      None if noise is None else noise[itr])
+            plan = self._sample_plans(itr, M, mean, sigma, mppi_cov, anchor,
+                                      anchor_valid, context_states,
+                                      grip_elites, generator,
+                                      iteration_draws(itr))
             given = None if latents is None else latents[itr]
             if use_chunk:
                 chunk_scores = []
@@ -321,8 +488,16 @@ class FusedCEMPlanner:
                         'gen_distribs': gen_distribs[idx],
                         'scores': top[:nv],
                     }
+            elif self._mppi is not None:
+                mean, mppi_cov = self._mppi_update(elite_actions, top)
             else:
-                mean, sigma = fit_elites(elite_actions, self._spec,
+                refit_elites = elite_actions
+                if self._ag is not None:
+                    # the derived grip dim is never refit
+                    refit_elites = elite_actions[..., :-1]
+                    if not self._ag.get('no_refit', True):
+                        grip_elites = elite_actions
+                mean, sigma = fit_elites(refit_elites, self._spec,
                                          blockdiag=self._blockdiag)
                 if self._smooth_cov:
                     sigma = (sigma + sigma_prev) / 2.0

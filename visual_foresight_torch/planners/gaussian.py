@@ -4,8 +4,11 @@ Counterpart of ``visual_foresight_tpu/planners/gaussian.py``: full-covariance
 sampling over the flattened (nactions*adim) plan via Cholesky, a
 per-dimension std table keyed by ``action_order``, bounded rejection sampling
 (a fixed number of resample rounds, then a clamp), repeat expansion, xy/theta
-truncation, the elite mean/covariance refit and the between-replan
-covariance shift.
+truncation, the elite mean/covariance refit, the between-replan
+covariance shift, and the other samplers' device math: the autograsp latch
+and resample, the AutograspEpsilon gripper and the folding prior.  Every
+random draw comes from an explicit ``torch.Generator`` or is given as a
+tensor.
 """
 
 from typing import NamedTuple
@@ -169,3 +172,177 @@ def shift_sigma(sigma, spec: ActionSpec, reuse_fraction: float):
         init[:dim - adim, :dim - adim] * reuse_fraction
     out[dim - adim:, dim - adim:] = init[:adim, :adim]
     return out
+
+
+def _uniform(shape, generator, given, device, name):
+    """Uniform [0, 1) draws of ``shape``: ``given``, or from ``generator``."""
+    if given is None:
+        if generator is None:
+            raise ValueError('pass a generator or the {} draws'.format(name))
+        return torch.rand(shape, generator=generator, device=device)
+    given = _as_float(given, device)
+    if tuple(given.shape) != tuple(shape):
+        raise ValueError('{} draws have shape {}, expected {}'.format(
+            name, tuple(given.shape), tuple(shape)))
+    return given
+
+
+def _as_float(x, device):
+    """``x`` (a tensor or an array) as an f32 tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.tensor(np.asarray(x))
+    return x.to(device, torch.float32)
+
+
+def autograsp_gripper_latch(base_actions, current_z, z_thresh,
+                            norm_factor=1.0, reopen=False, close_cmd=1.0,
+                            open_cmd=-1.0, z_index=2, deviation_prob=0.0,
+                            generator=None, u=None):
+    """AutograspSampler's cumulative-z gripper derivation: close where the
+    cumulative z (from ``current_z``) is below ``z_thresh``, sticky unless
+    ``reopen``, each step flipped with ``deviation_prob`` (uniforms ``u``
+    of shape (M, T), or drawn from ``generator``).
+
+    :param base_actions: (M, T, adim_base) sampled base plans
+    :return: (M, T, adim_base + 1) plans with the grip command appended
+    """
+    z = base_actions[:, :, z_index]
+    close = (torch.cumsum(z * norm_factor, dim=1) + current_z) < z_thresh
+    if not reopen:
+        close = torch.cumsum(close.int(), dim=1) > 0
+    if deviation_prob:
+        flip = _uniform(close.shape, generator, u, close.device,
+                        'deviation') < deviation_prob
+        close = close ^ flip
+    grip = torch.where(close, close_cmd, open_cmd).to(base_actions.dtype)
+    return torch.cat([base_actions, grip[..., None]], dim=-1)
+
+
+def autograsp_gripper_resample(elite_actions, nsamples, nactions,
+                               close_cmd=1.0, open_cmd=-1.0, generator=None,
+                               u=None):
+    """``no_refit=False``: each step's close probability from the elites'
+    grip dim, then a Bernoulli grip command per fresh sample (uniforms
+    ``u`` of shape (nsamples, nactions), or drawn from ``generator``)."""
+    close_prob = (elite_actions[:, :, -1] == close_cmd).float().mean(dim=0)
+    cmd = _uniform((nsamples, nactions), generator, u, elite_actions.device,
+                   'resample') < close_prob[None]
+    return torch.where(cmd, close_cmd, open_cmd).to(elite_actions.dtype)
+
+
+def ag_epsilon_transform(plan, state_z, amount, z_dim, grip_dim, z_norm=1.0,
+                         zthresh=1.0 / 3, epsilon=0.5, repeat=1,
+                         generator=None, u=None):
+    """AutograspEpsilon's gripper for the first ``amount`` plans: open before
+    the first repeat boundary at or below the cumulative-z threshold, closed
+    from it on (a plan that never reaches it closes at t=0, as the host's
+    ``argmax`` does), then each step flipped with probability ``epsilon``
+    (uniforms ``u`` of shape (amount, T), or drawn from ``generator``)."""
+    T = plan.shape[1]
+    cum = torch.cumsum(plan[:amount, :, z_dim] / z_norm, dim=1) + state_z
+    close = cum <= zthresh
+    tidx = torch.arange(T, device=plan.device)
+    # the first True step, 0 where there is none (argmax semantics)
+    first = torch.where(close, tidx[None], T).min(dim=1).values
+    first = torch.where(first == T, 0, first)
+    pivot = first - first % repeat
+    grip = torch.where(tidx[None, :] >= pivot[:, None], 1.0, -1.0)
+    flips = torch.where(_uniform(grip.shape, generator, u, plan.device,
+                                 'epsilon') < epsilon, -1.0, 1.0)
+    plan = plan.clone()
+    plan[:amount, :, grip_dim] = (grip * flips).to(plan.dtype)
+    return plan
+
+
+def _psd_factor(sigma, eps=1e-10):
+    """F with F @ F.T = the eigenvalue-clipped symmetric part of ``sigma``.
+    The eigenvectors are fixed only up to sign (and within a repeated
+    eigenvalue's space), so F may differ from another library's in its
+    columns; F @ F.T does not."""
+    sigma = 0.5 * (sigma + sigma.T)
+    w, v = torch.linalg.eigh(sigma)
+    return v * torch.sqrt(torch.clamp(w, min=eps))[None, :]
+
+
+def folding_sample(mean, sigma, state_xy, nsamples, spec: ActionSpec,
+                   split_frac=0.5, max_shift=(0.2, 0.2, 1.0 / 3),
+                   first_itr=False, generator=None, draws=None):
+    """FoldingCEMSampler's structured prior: a pick->fold->place group
+    (waypoint-conditioned phase means, tight noise on the grasp phases), a
+    direct move->descend group whose tail holds one draw, and the rest from
+    the refit Gaussian; xy/z clipped to ``max_shift``, repeat-expanded.
+
+    The draws come from ``generator`` or are given in ``draws``: 'way'
+    (2p, 2, 2) uniform waypoints, 'eps' (2p, nactions, 4) and 'z'
+    (nsamples - 2p, nactions*adim) standard normals, p the group size.
+    """
+    n, adim = spec.nactions, spec.adim
+    if adim != 4:
+        raise ValueError('the folding prior needs 4 base action dims')
+    dev = sigma.device
+    per_split = int((nsamples * split_frac) / 2)
+    if first_itr:
+        per_split = max(int(per_split / 2), 1)
+    p2 = 2 * per_split
+    n_def = nsamples - p2
+    draws = draws or {}
+
+    def normal(name, shape):
+        given = draws.get(name)
+        if given is None:
+            if generator is None:
+                raise ValueError('pass a generator or the {} draws'.format(
+                    name))
+            return torch.randn(shape, generator=generator, device=dev)
+        given = _as_float(given, dev)
+        if tuple(given.shape) != tuple(shape):
+            raise ValueError('{} draws have shape {}, expected {}'.format(
+                name, tuple(given.shape), tuple(shape)))
+        return given
+
+    f_base = _psd_factor(sigma[:4, :4])
+    lower_sigma = sigma[:4, :4].clone()
+    lower_sigma[:2, :2] /= 10.0
+    lower_sigma[3, 3] /= 2.0
+    f_lower = _psd_factor(lower_sigma)
+    f_full = _psd_factor(sigma)
+
+    way = _uniform((p2, 2, 2), generator, draws.get('way'), dev, 'way')
+    eps = normal('eps', (p2, n, 4))
+    steps = torch.arange(n, device=dev)
+    lower_1 = (steps == 1) | (steps == 2) | (steps == 4)
+    lower_2 = (steps == 0) | (steps >= 2)
+    is_split2 = (torch.arange(p2, device=dev) >= per_split)[:, None]
+    use_lower = torch.where(is_split2, lower_2[None, :], lower_1[None, :])
+    noise = torch.where(use_lower[..., None], eps @ f_lower.T,
+                        eps @ f_base.T)
+    # the second group's tail repeats its step-3 draw
+    hold = noise[:, 3:4, :]
+    noise = torch.where((is_split2 & (steps >= 3)[None, :])[..., None],
+                        hold, noise)
+
+    first_pnt, second_pnt = way[:, 0], way[:, 1]
+    state_xy = state_xy.to(dev).float()
+    d1 = (first_pnt - state_xy[None]) / spec.repeat
+    d2s1 = (second_pnt - first_pnt) / spec.repeat
+    d2s2 = (second_pnt - state_xy[None]) / spec.repeat
+    # group 1: move(d1, up), descend, up (grasp), move(d2, up), descend
+    m1 = torch.zeros((p2, n, 4), device=dev)
+    m1[:, 0, :2], m1[:, 0, 2] = d1, 1.0
+    m1[:, 1, 2], m1[:, 2, 2] = -1.0, 1.0
+    m1[:, 3, :2], m1[:, 3, 2] = d2s1, 1.0
+    m1[:, 4, 2] = -1.0
+    # group 2: up, move(d2, up), descend, hold
+    m2 = torch.zeros((p2, n, 4), device=dev)
+    m2[:, 0, 2] = 1.0
+    m2[:, 1, :2], m2[:, 1, 2] = d2s2, 1.0
+    m2[:, 2, 2] = -1.0
+    structured = torch.where(is_split2[..., None], m2, m1) + noise
+    if n_def > 0:
+        flat = mean[None] + normal('z', (n_def, n * adim)) @ f_full.T
+        plans = torch.cat([structured, flat.reshape(n_def, n, adim)], dim=0)
+    else:
+        plans = structured[:nsamples]
+    for d, bound in enumerate(max_shift):
+        plans[:, :, d] = plans[:, :, d].clamp(-bound, bound)
+    return torch.repeat_interleave(plans, spec.repeat, dim=1)

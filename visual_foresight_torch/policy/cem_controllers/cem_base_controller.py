@@ -3,9 +3,15 @@
 Counterpart of ``visual_foresight_tpu/policy/cem_controllers/
 cem_base_controller.py``: the hparam table shared by every CEM-family
 controller, the elite count, the warm-up actions before planning starts,
-the replan schedule and ``act``.  Subclasses plan on the device in
-``perform_CEM``; the JAX package's host iterate-score-refit loop is not
-ported and raises.
+the replan schedule, ``act``, and the host iterate-score-refit loop over a
+pluggable sampler (``perform_CEM``), where subclasses provide
+``evaluate_rollouts``.  Subclasses that plan on the device override
+``perform_CEM``.
+
+The samplers' host draws come from one ``np.random.RandomState`` seeded from
+the ``seed`` hparam (0 where a controller has none), shared by every sampler
+the controller makes, so that its draws run through one stream as the JAX
+package's run through the global ``np.random``.
 
 Hparam names and defaults match the reference so its experiment configs load
 unmodified.
@@ -58,7 +64,11 @@ class CEMBaseController(Policy):
         self._logger.log('init CEM controller')
 
         self._adim, self._sdim = ag_params['adim'], ag_params['sdim']
+        self._n_iter = self._hp.iterations
+        self._np_rng = np.random.RandomState(
+            int(self._hp.seed) if 'seed' in self._hp else 0)
         self._t = None
+        self._state = None
         self._t_since_replan = None
         self._sampler = None
         self._best_indices = None
@@ -86,7 +96,7 @@ class CEMBaseController(Policy):
         self._hp.sampler = sampler_cls
 
     def reset(self):
-        self._sampler = self._hp.sampler(self._hp, self._adim, self._sdim)
+        self._sampler = self._make_sampler()
         self._best_indices = self._best_actions = None
         self._t_since_replan = None
         self.plan_stat = {}
@@ -97,12 +107,61 @@ class CEMBaseController(Policy):
         by_frac = int(self._hp.selection_frac * self._hp.num_samples)
         return max(by_frac, self._hp.minimum_selection)
 
+    def _make_sampler(self):
+        return self._hp.sampler(self._hp, self._adim, self._sdim,
+                                rng=self._np_rng)
+
+    def _append_dims(self, actions):
+        """Concatenate the constant ``append_action`` dims onto every plan."""
+        n, horizon = actions.shape[:2]
+        tail = np.broadcast_to(
+            np.asarray(self._hp.append_action, dtype=actions.dtype),
+            (n, horizon, len(self._hp.append_action)))
+        return np.concatenate([actions, tail], axis=-1)
+
     def perform_CEM(self, state):
-        """Subclass hook: plan, leaving the elite set in
-        ``self._best_actions`` (sorted best-first), and reset the replan
-        clock.  The host CEM loop is not ported."""
-        raise NotImplementedError('the host CEM loop is not ported; use a '
-                                  'controller that plans on the device')
+        """Run the full iterate-score-refit loop; leaves the elite set in
+        ``self._best_actions`` (sorted best-first) and resets the replan
+        clock."""
+        self._logger.log('starting cem at t{}...'.format(self._t))
+        K = self.elite_count
+        actions = self._sampler.sample_initial_actions(
+            self._t, self._hp.num_samples, state[-1])
+
+        for itr in range(self._n_iter):
+            if self._hp.append_action:
+                actions = self._append_dims(actions)
+            self._logger.log('iteration: ', itr)
+
+            scores = self.evaluate_rollouts(actions, itr)
+            if scores.shape != (actions.shape[0],):
+                raise AssertionError('score shape should be (n_actions,)')
+
+            order = np.argsort(scores)
+            self._best_indices = order[:K]
+            self._best_actions = actions[self._best_indices]
+            self.plan_stat['scores_itr{}'.format(itr)] = scores
+
+            last_iter = itr == self._n_iter - 1
+            if not last_iter:
+                elites = self._best_actions.copy()
+                if self._hp.append_action:
+                    # refit only over the sampled dims
+                    elites = elites[..., :-len(self._hp.append_action)]
+                actions = self._sampler.sample_next_actions(
+                    self._hp.num_samples, elites,
+                    scores[self._best_indices].copy())
+
+        self._t_since_replan = 0
+
+    def evaluate_rollouts(self, actions, cem_itr):
+        """Subclass hook: (n_samples, T, adim) plans -> (n_samples,) costs."""
+        raise NotImplementedError
+
+    def _verbose_condition(self, cem_itr):
+        if not self._hp.verbose:
+            return False
+        return self._hp.verbose_every_iter or cem_itr == self._n_iter - 1
 
     def _warmup_action(self, t, state):
         """Action for steps before ``start_planning`` (context frames)."""
@@ -112,7 +171,7 @@ class CEMBaseController(Policy):
         if self._hp.hard_coded_start_action:
             return np.array(self._hp.hard_coded_start_action)
         # single draw from a fresh sampler, scaled down per-dim
-        warm_sampler = self._hp.sampler(self._hp, self._adim, self._sdim)
+        warm_sampler = self._make_sampler()
         draw = warm_sampler.sample_initial_actions(t, 1, state[-1])[0, 0]
         action = draw * np.array(
             self._hp.context_action_weight)[:self._adim]
@@ -127,6 +186,7 @@ class CEMBaseController(Policy):
             self._t_since_replan + 1 >= self._hp.replan_interval
 
     def act(self, t=None, i_tr=None, state=None):
+        self._state = state
         self.i_tr = i_tr
         self._t = t
 

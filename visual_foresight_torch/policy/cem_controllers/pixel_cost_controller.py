@@ -1,23 +1,32 @@
 """Pixel-distance CEM controller (PyTorch port).
 
 Counterpart of ``visual_foresight_tpu/policy/cem_controllers/
-pixel_cost_controller.py`` on its fused Gaussian path: the video predictor
-(``TorchPredictor``) plugged into the device-side CEM replan
-(``planners/cem.py``), with cost = expected distance of the predicted
-designated-pixel distribution to the goal pixel.  Warm starts
-(``reuse_mean``/``reuse_cov``, with the sample count shrunk by
-``reuse_factor``), ``predictor_propagation`` and every Gaussian sampler
-hparam (``rejection_sampling``, ``smooth_cov``, ``add_zero_action``,
-``discrete_ind``, ``stochastic_planning`` with ``stochastic_penalty``,
-``sample_chunk``) are ported.
+pixel_cost_controller.py``: the video predictor (``TorchPredictor``) plugged
+into CEM, with cost = expected distance of the predicted designated-pixel
+distribution to the goal pixel.  Two paths, chosen as the JAX package
+chooses them:
+
+* **fused**: the whole replan runs on the device (``planners/cem.py``) when
+  ``use_fused_planner`` is set and the sampler is one of the five the
+  device planner knows (matched by class identity): ``GaussianCEMSampler``
+  with every one of its hparams (warm starts, ``rejection_sampling``,
+  ``smooth_cov``, ``add_zero_action``, ``discrete_ind``,
+  ``stochastic_planning`` with ``stochastic_penalty``, ``sample_chunk``),
+  ``AutograspSampler`` (the grip latched on the device),
+  ``AutograspEpsilon``, ``FoldingCEMSampler`` and ``CorrelatedNoiseSampler``
+  (MPPI, anchored on the last executed action under
+  ``smooth_across_last_action``);
+* **host loop**: ``CEMBaseController.perform_CEM`` with the sampler's host
+  draws, one ``TorchPredictor.__call__`` per CEM iteration; for any other
+  sampler (a subclass of one of the five too) or ``use_fused_planner``
+  False.
 
 The controller runs on ``device`` (a policy hparam, ``'cuda'`` by default;
-without a card it raises unless given ``'cpu'``).  Its plan noise and the
-latents of a stochastic predictor come from a ``torch.Generator`` seeded
-from the ``seed`` hparam.  Not ported, each
-raising ``NotImplementedError``: samplers other than ``GaussianCEMSampler``,
-the host CEM loop (``use_fused_planner=False``), the verbose HTML dump (a
-``verbose_worker``).
+without a card it raises unless given ``'cpu'``).  The fused planner's draws
+and the latents of a stochastic predictor come from a ``torch.Generator``
+seeded from the ``seed`` hparam, the samplers' host draws from a
+``np.random.RandomState`` seeded from it.  The verbose HTML dump (a
+``verbose_worker``) is not ported and raises ``NotImplementedError``.
 """
 
 import numpy as np
@@ -26,12 +35,17 @@ import torch
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.planners import costs as cost_lib
 from visual_foresight_torch.planners.cem import FusedCEMPlanner
-from visual_foresight_torch.planners.gaussian import (initial_mean,
+from visual_foresight_torch.planners.gaussian import (ActionSpec,
+                                                      initial_mean,
                                                       initial_sigma,
                                                       make_action_spec,
                                                       shift_sigma)
 from visual_foresight_torch.prediction.predictor import TorchPredictor
 from .cem_base_controller import CEMBaseController
+from .samplers.autograsp_epsilon import AutograspEpsilon
+from .samplers.autograsp_sampler import AutograspSampler
+from .samplers.correlated_noise import CorrelatedNoiseSampler
+from .samplers.folding_sampler import FoldingCEMSampler
 from .samplers.gaussian_sampler import GaussianCEMSampler
 
 
@@ -40,12 +54,6 @@ class PixelCostController(CEMBaseController):
 
     def __init__(self, ag_params, policyparams, gpu_id=0, ngpu=1):
         CEMBaseController.__init__(self, ag_params, policyparams)
-        if self._hp.sampler is not GaussianCEMSampler:
-            raise NotImplementedError('sampler {} is not ported'.format(
-                self._hp.sampler.__name__))
-        if not self._hp.use_fused_planner:
-            raise NotImplementedError('the host CEM loop '
-                                      '(use_fused_planner=False) is not ported')
         self.device = resolve_device(self._hp.device)
 
         predictor_hparams = dict(self._hp.predictor_hparams or {})
@@ -81,31 +89,102 @@ class PixelCostController(CEMBaseController):
         self._fused_state = None
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(self._hp.seed))
+        self._fused = self._fused_planner() if self._hp.use_fused_planner \
+            else None
 
-        spec = make_action_spec(self._hp.values(), self._adim)
-        assert spec.nactions * spec.repeat == self._hp.T, \
-            'T must equal nactions*repeat'
-        assert spec.adim == self._adim, \
-            ('action_order yields a {}-dim spec but the fused gaussian path '
-             'needs {} sampled dims'.format(spec.adim, self._adim))
-        # stochastic_planning=(K,): K latent copies of every unique plan
-        stoch_k = self._stoch_k = int(self._hp.stochastic_planning[0]) \
-            if self._hp.stochastic_planning else 1
-        self._fused = FusedCEMPlanner(
-            spec, self._hp.num_samples * stoch_k,
-            iterations=self._hp.iterations, k_elite=self.elite_count,
-            finalweight=self._hp.finalweight,
-            rejection_rounds=10 if self._hp.rejection_sampling else 0,
-            action_bound=self._hp.action_bound,
-            only_first_view=self._hp.only_take_first_view,
-            blockdiag_refit=self._hp.cov_blockdiag,
-            smooth_cov=self._hp.smooth_cov,
-            add_zero_action=self._hp.add_zero_action,
-            stochastic_k=stoch_k,
-            discrete_dims=tuple(self._hp.discrete_ind or ()),
-            sample_chunk=self._hp.sample_chunk,
-            stochastic_penalty=self._hp.stochastic_penalty,
-            device=self.device)
+    def _fused_planner(self):
+        """The device planner for this policy's sampler, or None where the
+        sampler runs in the host loop."""
+        hp, adim = self._hp, self._adim
+        common = dict(iterations=hp.iterations, k_elite=self.elite_count,
+                      finalweight=hp.finalweight,
+                      only_first_view=hp.only_take_first_view,
+                      device=self.device)
+        sampler = hp.sampler
+        if sampler in (GaussianCEMSampler, AutograspSampler,
+                       AutograspEpsilon):
+            # autograsp: the spec covers the base dims, the grip command is
+            # latched on the device as the last plan dim
+            is_ag = sampler is AutograspSampler
+            n_sampled = adim - 1 if is_ag else adim
+            spec = make_action_spec(hp.values(), n_sampled)
+            if spec.nactions * spec.repeat != hp.T:
+                raise ValueError('T must equal nactions*repeat')
+            # an action_order naming 'grasp' would sample the dim that the
+            # latch derives
+            if spec.adim != n_sampled:
+                raise ValueError(
+                    'action_order yields a {}-dim spec but the fused {} path '
+                    'needs {} sampled dims'.format(
+                        spec.adim, 'autograsp' if is_ag else 'gaussian',
+                        n_sampled))
+            ag_cfg = {
+                'z_thresh': hp.z_thresh,
+                'norm_factor': hp.action_norm_factor,
+                'close_cmd': hp.gripper_close_cmd,
+                'open_cmd': hp.gripper_open_cmd,
+                'reopen': hp.reopen, 'deviation_prob': hp.deviation_prob,
+                'no_refit': hp.no_refit} if is_ag else None
+            ag_eps_cfg = None
+            if sampler is AutograspEpsilon:
+                # the dims as the host sampler finds them
+                z_dim, grip_dim = 2, adim - 1
+                for i, a in enumerate(hp.action_order or ()):
+                    if a == 'grasp':
+                        grip_dim = i
+                    elif a == 'z':
+                        z_dim = i
+                ag_eps_cfg = {
+                    'z_dim': z_dim, 'grip_dim': grip_dim,
+                    'z_norm': hp.z_norm, 'zthresh': hp.ag_zthresh,
+                    'epsilon': hp.ag_epsilon, 'base_frac': hp.base_frac,
+                    'base_frac_reduce': hp.base_frac_reduce,
+                    'repeat': spec.repeat, 'state_z_index': z_dim}
+            # stochastic_planning=(K,): K latent copies of every unique plan
+            stoch_k = int(hp.stochastic_planning[0]) \
+                if hp.stochastic_planning else 1
+            return FusedCEMPlanner(
+                spec, hp.num_samples * stoch_k,
+                rejection_rounds=10 if hp.rejection_sampling else 0,
+                action_bound=hp.action_bound,
+                blockdiag_refit=hp.cov_blockdiag, smooth_cov=hp.smooth_cov,
+                add_zero_action=hp.add_zero_action, autograsp=ag_cfg,
+                stochastic_k=stoch_k,
+                discrete_dims=tuple(hp.discrete_ind or ()),
+                ag_epsilon=ag_eps_cfg, sample_chunk=hp.sample_chunk,
+                stochastic_penalty=hp.stochastic_penalty, **common)
+        if sampler is FoldingCEMSampler:
+            # the structured prior and its Gaussian rows sample on the
+            # device; the refit is the plain elite mean and covariance
+            spec = make_action_spec(hp.values(), adim)
+            if spec.adim != 4:
+                raise ValueError('the folding prior needs 4 base action dims')
+            if spec.nactions * spec.repeat != hp.T:
+                raise ValueError('T must equal nactions*repeat')
+            return FusedCEMPlanner(
+                spec, hp.num_samples, action_bound=False,
+                folding={'split_frac': hp.split_frac,
+                         'max_shift': tuple(hp.max_shift)}, **common)
+        if sampler is CorrelatedNoiseSampler:
+            stds = tuple(float(s) for s in hp.initial_std)
+            spec = ActionSpec(
+                adim=len(stds), nactions=hp.nactions, repeat=1,
+                per_dim_std=stds, clip_dims_xy=(), clip_dims_rot=(),
+                rej_dims_xy=(), rej_dims_lift=(), xy_std=stds[0],
+                lift_std=stds[2] if len(stds) > 2 else stds[0])
+            # the JAX package asserts this too: the RoboNet policies, which
+            # leave T at 15 with 10 actions, plan in the host loop only
+            if spec.nactions != hp.T:
+                raise ValueError('CorrelatedNoise plans at control cadence: '
+                                 'nactions ({}) must equal T ({})'.format(
+                                     spec.nactions, hp.T))
+            return FusedCEMPlanner(
+                spec, hp.num_samples,
+                mppi={'kappa': hp.kappa, 'beta_0': hp.beta_0,
+                      'beta_1': hp.beta_1, 'refit_cov': hp.refit_cov,
+                      'mean_bias': hp.mean_bias, 'per_dim_std': stds},
+                **common)
+        return None
 
     def _default_hparams(self):
         default_dict = {
@@ -133,41 +212,59 @@ class PixelCostController(CEMBaseController):
         self._chosen_distrib = None
         self._fused_state = None
 
+    # ------------------------------------------------------------ fused path
     def _cost_grids(self):
-        """Per-(cam, desig) distance grids for the fused cost."""
+        """Per-(cam, desig) distance grids for the pixel cost."""
         return cost_lib.distance_grid(
             self._goal_pix.reshape(self._n_cam, self._n_desig, 2),
             self._img_height, self._img_width, device=self.device)
 
-    def _fused_sampling_state(self):
-        """(mean, sigma, num_samples) for this replan.
+    def _fused_sampling_state(self, chosen):
+        """(mean, sigma, num_samples, anchor, anchor_valid) for this replan.
 
         Mirrors the host GaussianCEMSampler's warm-start semantics
         (reference ``samplers/gaussian_sampler.py:14-44``): with
         ``reuse_cov`` the previous replan's refit covariance is shifted one
         action block forward; with ``reuse_mean`` the mean warm-starts from
         the best plan's remaining actions; either warm start shrinks the
-        sample count by ``reuse_factor``."""
-        hp = self._hp
+        sample count by ``reuse_factor``.  MPPI mode instead supplies the
+        last executed action as the AR(1) anchor."""
+        hp, dev = self._hp, self.device
         spec = self._fused.spec
-        M = hp.num_samples * self._stoch_k
+        M = hp.num_samples
+        # Gaussian and autograsp samplers only: the others lack the key
+        stoch = hp.get('stochastic_planning')
+        k = int(stoch[0]) if stoch else 1
+        M *= k
+        anchor = np.zeros(spec.adim, np.float32)
+        anchor_valid = 0.0
+
+        if self._fused.is_mppi:
+            if hp.smooth_across_last_action and len(chosen):
+                anchor = np.asarray(chosen[-1], np.float32)
+                anchor_valid = 1.0
+            return (initial_mean(spec, device=dev),
+                    initial_sigma(spec, device=dev), M, anchor, anchor_valid)
+
         t = self._t
         warm_ok = t is not None and t >= spec.repeat - 1
-        warm_cov = bool(hp.reuse_cov) and warm_ok and \
+        # .get: the folding hparams lack the Gaussian warm-start keys
+        warm_cov = bool(hp.get('reuse_cov', 0)) and warm_ok and \
             self._fused_state is not None
         if warm_cov:
             sigma = shift_sigma(self._fused_state[1], spec,
                                 float(hp.reuse_cov))
         else:
-            sigma = initial_sigma(spec, reduce_std_dev=hp.reduce_std_dev,
-                                  reduce=t is not None and t >= 2,
-                                  device=self.device)
+            sigma = initial_sigma(
+                spec, reduce_std_dev=hp.get('reduce_std_dev', 1.0),
+                reduce=t is not None and t >= 2, device=dev)
 
         plans = self._sampler.best_action_plans
-        warm_mean = bool(hp.reuse_mean) and warm_ok and bool(plans) and \
-            plans[-1] is not None
+        warm_mean = bool(hp.get('reuse_mean', False)) and warm_ok and \
+            bool(plans) and plans[-1] is not None
         if warm_mean:
-            plan = np.asarray(plans[-1][0])       # remaining control-cadence
+            # the remaining control-cadence actions, less a derived grip dim
+            plan = np.asarray(plans[-1][0])[:, :spec.adim]
             short = plan.shape[0] % spec.repeat
             if short:
                 plan = np.concatenate(
@@ -175,24 +272,26 @@ class PixelCostController(CEMBaseController):
             per_block = plan.reshape(-1, spec.repeat, spec.adim)[:, 0]
             blocks = np.zeros((spec.nactions, spec.adim), np.float32)
             blocks[:per_block.shape[0]] = per_block[:spec.nactions]
-            mean = torch.tensor(blocks.ravel(), device=self.device)
+            mean = torch.tensor(blocks.ravel(), device=dev)
         else:
-            mean = initial_mean(spec, device=self.device)
+            mean = initial_mean(spec, device=dev)
 
         if warm_cov or warm_mean:
             M = max(int(M * hp.reuse_factor), self.elite_count)
-            k = self._stoch_k       # keep K copies per unique plan
-            M = ((M + k - 1) // k) * k
-        return mean, sigma, M
+            M = ((M + k - 1) // k) * k      # keep K copies per unique plan
+        return mean, sigma, M, anchor, anchor_valid
 
     def perform_CEM(self, state):
+        if self._fused is None:
+            return super().perform_CEM(state)
+
         self._logger.log('fused on-device CEM at t{}'.format(self._t))
         n_ctx = self._net_context
 
         # context tensors: (ncam, n_ctx, H, W, ...)
         frames = self._images[-n_ctx:].astype(np.float32) / 255.0
         frames_cam = np.swapaxes(frames, 0, 1)
-        distrib_cam = np.swapaxes(self._make_input_distrib(), 0, 1)
+        distrib_cam = np.swapaxes(self._make_input_distrib(0), 0, 1)
         states = np.asarray(state[-n_ctx:], np.float32)
 
         chosen = self._sampler.chosen_actions
@@ -202,11 +301,13 @@ class PixelCostController(CEMBaseController):
         else:
             ctx_actions = np.zeros((n_ctx - 1, self._adim), np.float32)
 
-        mean, sigma, num_samples = self._fused_sampling_state()
+        mean, sigma, num_samples, anchor, anchor_valid = \
+            self._fused_sampling_state(chosen)
         result = self._fused.replan(
             self.predictor.models, frames_cam, states, distrib_cam,
             ctx_actions, self._cost_grids(), mean, sigma,
-            generator=self._generator, num_samples=num_samples)
+            generator=self._generator, num_samples=num_samples,
+            anchor=anchor, anchor_valid=anchor_valid)
         # refit distribution feeds the next replan's reuse_mean/reuse_cov
         self._fused_state = (result['mean'], result['sigma'])
 
@@ -224,7 +325,35 @@ class PixelCostController(CEMBaseController):
 
         self._t_since_replan = 0
 
-    def _make_input_distrib(self):
+    # ------------------------------------------------------------ host loop
+    def evaluate_rollouts(self, actions, cem_itr):
+        context = {
+            'context_frames': self._images[-self._net_context:]
+            .astype(np.float32)[None] / 255.0,
+            'context_actions': self._sampler.chosen_actions,
+            'context_pixel_distributions':
+                self._make_input_distrib(cem_itr)[None],
+            'context_states': np.asarray(
+                self._state[-self._net_context:], np.float32)[None],
+        }
+        prediction_dict = self.predictor(context, {'actions': actions})
+        gen_images = prediction_dict['predicted_frames']
+        gen_distrib = prediction_dict['predicted_pixel_distributions']
+        return self._eval_pixel_cost(cem_itr, gen_distrib, gen_images)
+
+    def _eval_pixel_cost(self, cem_itr, gen_distrib, gen_images):
+        scores = cost_lib.expected_pixel_distance(
+            torch.as_tensor(gen_distrib, device=self.device),
+            self._cost_grids(), self._hp.finalweight, normalize=True,
+            only_first_view=self._hp.only_take_first_view).cpu().numpy()
+        if self._hp.predictor_propagation and \
+                cem_itr == self._hp.iterations - 1:
+            bestind = scores.argsort()[0]
+            self._chosen_distrib = gen_distrib[bestind][-self._net_context:]
+        return scores
+
+    # --------------------------------------------------------------- helpers
+    def _make_input_distrib(self, itr):
         if self._hp.predictor_propagation and self._chosen_distrib is not None:
             return self._chosen_distrib[-self._net_context:]
         return self._switch_on_pix(self._desig_pix)

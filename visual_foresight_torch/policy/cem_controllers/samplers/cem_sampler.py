@@ -1,16 +1,21 @@
 """CEM sampler interface (reference ``samplers/cem_sampler.py``).
 
 The port's own copy of ``visual_foresight_tpu/policy/cem_controllers/
-samplers/cem_sampler.py``.
+samplers/cem_sampler.py``.  The host draws of every sampler come from the
+``np.random.RandomState`` given as ``rng`` (the controller's, seeded from
+its ``seed`` hparam), never from the global ``np.random``; a RandomState
+seeded with ``s`` gives the stream that ``np.random.seed(s)`` gives the JAX
+package's samplers.
 """
 
 import numpy as np
 
 
 class CEMSampler(object):
-    def __init__(self, hp, adim, sdim, **kwargs):
+    def __init__(self, hp, adim, sdim, rng=None, **kwargs):
         self._hp = hp
         self._adim, self._sdim = adim, sdim
+        self._rng = np.random.RandomState(0) if rng is None else rng
         self._chosen_actions = []
         self._best_action_plans = []
 

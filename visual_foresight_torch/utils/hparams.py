@@ -11,7 +11,7 @@ provide a small, dependency-free clone with identical semantics:
 
 - ``add_hparam(name, value)``  — declare a new parameter (errors on redefine)
 - ``set_hparam(name, value)``  — override an existing parameter with type checking
-- ``values()``, ``in`` operator, attribute access
+- ``values()``, ``get(name, default)``, ``in`` operator, attribute access
 
 Type checking follows the TF1 behaviour: ints may widen to floats, ``None``
 defaults accept anything, and list-typed params require list overrides.
@@ -68,6 +68,9 @@ class HParams(object):
     # -- access ------------------------------------------------------------------
     def values(self):
         return dict(self._params)
+
+    def get(self, name, default=None):
+        return self._params.get(name, default)
 
     def __contains__(self, name):
         return name in self._params

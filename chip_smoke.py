@@ -13,14 +13,23 @@
    paths, at 48x64, C=3, P=1, K=5, M=10, SNA) and at
    shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
-   off, P=0, and C=1, P=4, which the general variant serves);
+   off, P=0, and C=1, P=4, which the general variant serves); and the
+   tail's effective-kernel entry (the per-pixel field given, as DNA makes
+   it) against its plain version in bf16 and f32 at B=768 and 200, P 0-3,
+   SNA on and off, K 3, 5 and 7, and at odd sizes;
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
    24 samples x 9 steps x 3 iterations, latents injected too), and
    ag_r5f_v2 its MPPI replan ``golden_mppi_f32.npz`` (24 samples x 10 steps
    x 3 iterations, anchored, normals and latents injected): scores, elites
-   and the elites' frames against the JAX numbers;
+   and the elites' frames against the JAX numbers; then the
+   flagship's golden again with ``fuse_decode`` on, and the goldens of the
+   seeded exports of the JAX package's default predictor (the classic
+   Finn-CDNA backbone, ``weights/classic_cdna``) and of its DNA twin
+   (``weights/classic_dna``), 24 samples x 15 steps x 3 iterations each:
+   the classic CDNA tail launches on full-resolution masks, DNA's through
+   the effective-kernel entry;
 5. drives the serving replan: ``TorchPredictor`` with the restored
    xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
    3 iterations, for a few replans with fresh contexts; checks the outputs,
@@ -60,14 +69,22 @@
      point (768 x 10 x 3), the grip on ag_r5f_v2's fourth action dim: 91
      launches each, the derived grip holding only the close and open
      commands;
+   - every other architecture of the JAX model, at xz_bench20's point
+     (768 x 45 x 3, bf16, one replan each):
+     (a) the classic CDNA export, 136 folded launches on full-resolution
+     masks; (b) the classic DNA export, 136 launches of the eff entry and
+     none of the folded one; (c) the flagship with ``fuse_decode``, 136;
+   every path's launches are read from the counters and must match the
+   entry and mask layout its predictor's architecture gives;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
-   ``depth_to_space`` copy that the blocked layout saves; ``add_one`` also
-   at 2^26 floats), the 200-sample replan, and the replans of the
-   xz_bench20, ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
-   (fused and host loop) and folding controllers (host clock and CUDA
-   events), with a profiler breakdown of one replan of each but the
-   one-batch 800-sample and the folding ones.
+   ``depth_to_space`` copy that the blocked layout saves; the eff entry at
+   B=768 and 200; ``add_one`` also at 2^26 floats), the 200-sample replan,
+   and the replans of the xz_bench20 (also with ``fuse_decode``, in turns
+   with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
+   (fused and host loop), folding, classic CDNA and classic DNA controllers
+   (host clock and CUDA events), with a profiler breakdown of one replan of
+   each but the one-batch 800-sample and the folding ones.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -175,6 +192,19 @@ FOLDING_POLICY = {'replan_interval': 15, 'num_samples': 600,
 # finds z and the grip by name
 AUTOGRASP_POLICY = dict(AG_POLICY)
 AG_EPSILON_POLICY = dict(AG_POLICY, action_order=['x', 'y', 'z', 'grasp'])
+# the JAX package's default predictor (the classic Finn-CDNA
+# backbone, TPUPredictor's default hparams) and its DNA twin, seeded
+# exports (tests/test_torch_weights_classic.py), at xz_bench20's point
+CLASSIC_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
+                               'classic_cdna')
+DNA_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
+                           'classic_dna')
+CLASSIC_POLICY = dict(CTRL_POLICY, model_path=CLASSIC_WEIGHTS)
+DNA_POLICY = dict(CTRL_POLICY, model_path=DNA_WEIGHTS)
+FUSE_POLICY = dict(CTRL_POLICY, predictor_hparams={'fuse_decode': True})
+# the effective-kernel entry: B, P, SNA and K swept at 48x64, C=3
+EFF_BATCHES, EFF_PS, EFF_KS = (768, 200), (0, 1, 2, 3), (3, 5, 7)
+EFF_ODD = [dict(b=3, h=13, w=10), dict(b=2, h=9, w=300, c=1, p=4)]
 N_VIS = 10                                    # the planner's default
 DEFAULT_T = 15                                # the controllers' default T
 SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
@@ -184,6 +214,7 @@ SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
            'ag_r5f_v2': {'initial_std': 0.04, 'initial_std_lift': 0.6,
                          'initial_std_rot': np.pi / 32,
                          'initial_std_grasp': 2, 'action_order': None}}
+SPEC_HP['classic_cdna'] = SPEC_HP['classic_dna'] = SPEC_HP['xz_flagship']
 
 
 def replan_launches(policy, iterations=None, horizon=None):
@@ -264,6 +295,79 @@ def check_tail(gen, b, dtype, variant='tiled', label='serving shape',
     return err
 
 
+def eff_inputs(gen, b, dtype, sna=True, p=P, h=H, w=W, c=C, k=K,
+               ones=False):
+    """Inputs of the effective-kernel entry as DNA makes them: frames in
+    [0, 1] (or all ones), normalized per-pixel kernels weighed by the
+    transform masks' total, and the background masks that complete it."""
+    dev, nbg = 'cuda', 2 if sna else 1
+    rand = lambda *s: torch.ones(s, device=dev) if ones else \
+        torch.rand(s, generator=gen, device=dev)
+    masks = torch.softmax(2.0 * torch.randn((b, h, w, nbg + 1), generator=gen,
+                                            device=dev), dim=-1)
+    pk = torch.rand((b, h, w, k * k), generator=gen, device=dev)
+    eff = pk / pk.sum(-1, keepdim=True) * masks[..., nbg:]
+    ts = (rand(b, h, w, c), rand(b, h, w, c), rand(b, h, w, p),
+          rand(b, h, w, p), eff, masks[..., :nbg])
+    return tuple(t.to(dtype).contiguous() for t in ts)
+
+
+def check_eff(gen, b, dtype, sna=True, ones=False, **shape):
+    """One launch of the effective-kernel entry against its plain version
+    on the same inputs.  Returns the max abs error."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_eff, fused_warp_composite_eff_reference)
+    args = eff_inputs(gen, b, dtype, sna=sna, ones=ones, **shape)
+    before = fused_warp_composite_eff.launches
+    got = fused_warp_composite_eff(*args, sna=sna)
+    want = fused_warp_composite_eff_reference(*args, sna=sna)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    tol = TAIL_TOL[dtype]
+    if fused_warp_composite_eff.launches != before + 1:
+        raise AssertionError('the eff entry did not launch its kernel')
+    if not err <= tol:
+        print('eff kernel vs plain: B={} {} sna={} {}: max_abs_err={:.3e} '
+              '(tol {:.0e})'.format(b, str(dtype).split('.')[-1], sna, shape,
+                                    err, tol))
+        raise AssertionError('the eff kernel disagrees with its plain '
+                             'version')
+    return err
+
+
+def check_eff_cases(gen):
+    """The effective-kernel entry in bf16 and f32 at B=768 and 200, P 0-3,
+    SNA on and off, K 3, 5 and 7 (48x64, C=3), and at odd sizes.  Returns
+    the largest bf16 error at the serving shape (K=5, P=1, SNA)."""
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    serving = 0.0
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in EFF_BATCHES:
+            for p in EFF_PS:
+                for sna in (True, False):
+                    for k in EFF_KS:
+                        err = check_eff(gen, b, dtype, sna=sna, p=p, k=k)
+                        worst[dtype] = max(worst[dtype], err)
+                        n += 1
+                        if dtype == torch.bfloat16 and (p, k, sna) == \
+                                (P, K, True):
+                            serving = max(serving, err)
+        for shape in EFF_ODD:
+            for ones in (False, True):
+                worst[dtype] = max(worst[dtype], check_eff(
+                    gen, dtype=dtype, ones=ones, **shape))
+                n += 1
+    print('eff kernel vs plain: {} launches (B {}, P {}, SNA on/off, K {}, '
+          'odd sizes {}), max_abs_err bf16 {:.3e} (tol {:.0e}), f32 {:.3e} '
+          '(tol {:.0e}); serving shape bf16 {:.3e}'.format(
+              n, EFF_BATCHES, EFF_PS, EFF_KS, EFF_ODD,
+              worst[torch.bfloat16], TAIL_TOL[torch.bfloat16],
+              worst[torch.float32], TAIL_TOL[torch.float32], serving))
+    return serving
+
+
 def check_tail_cases(gen):
     """The serving shapes and ``TAIL_CASES``, in both types and in each
     case's mask layouts.  Returns the largest bf16 error at the serving
@@ -293,34 +397,48 @@ def check_tail_cases(gen):
 
 
 def reset_tail_counts():
-    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_eff)
     fused_warp_composite.launches = 0
     fused_warp_composite.blocked_launches = 0
+    fused_warp_composite_eff.launches = 0
     for v in fused_warp_composite.launches_by_variant:
         fused_warp_composite.launches_by_variant[v] = 0
 
 
-def read_tail_counts(path, want):
-    """The launches since ``reset_tail_counts``: ``want`` in all, every one
-    of the tiled variant and on blocked masks (the serving predictor keeps
-    the masks as its low-resolution head leaves them)."""
-    from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
+def read_tail_counts(path, want, predictor):
+    """The launches since ``reset_tail_counts``: ``want`` in all, each
+    through the entry and on the mask layout that ``predictor``'s
+    architecture gives.  DNA runs the effective-kernel entry; CDNA the
+    folded entry's tiled variant, on blocked masks where the space-to-depth
+    backbone keeps its low-resolution softmax (the serving predictor), else
+    on full-resolution masks (the classic backbone).  Returns the counters
+    as read, by kernel: ``{'cdna_tail': n, 'cdna_tail_eff': n}``."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_eff)
+    hp = predictor._hp
+    dna = bool(hp['dna'])
+    blocked = bool(hp['std_factor']) and hp['mask_softmax'] == 'lowres'
+    want_folded, want_eff = (0, want) if dna else (want, 0)
     launches = fused_warp_composite.launches
-    blocked = fused_warp_composite.blocked_launches
+    on_blocks = fused_warp_composite.blocked_launches
     by_variant = dict(fused_warp_composite.launches_by_variant)
+    eff = fused_warp_composite_eff.launches
     print('{} path: {} tail kernel launches (expected {}), by variant {}, '
-          '{} on blocked masks'.format(path, launches, want, by_variant,
-                                       blocked))
-    if launches != want:
-        raise AssertionError('the {} path did not run the tail kernel {} '
-                             'times'.format(path, want))
-    if by_variant != {'general': 0, 'tiled': want}:
+          '{} on blocked masks; {} eff launches (expected {})'.format(
+              path, launches, want_folded, by_variant, on_blocks, eff,
+              want_eff))
+    if launches != want_folded or eff != want_eff:
+        raise AssertionError('the {} path did not run the tail kernels {} '
+                             'and {} times'.format(path, want_folded,
+                                                   want_eff))
+    if by_variant != {'general': 0, 'tiled': want_folded}:
         raise AssertionError('the {} path left the tiled variant'.format(
             path))
-    if blocked != want:
-        raise AssertionError('the {} path made a full-resolution copy of '
-                             'the masks'.format(path))
-    return launches
+    if on_blocks != (want_folded if blocked else 0):
+        raise AssertionError('the {} path did not keep its masks {}'.format(
+            path, 'blocked' if blocked else 'at full resolution'))
+    return {'cdna_tail': launches, 'cdna_tail_eff': eff}
 
 
 def graph_ms(fn, arg_sets, reps):
@@ -438,31 +556,36 @@ def compare_scores(label, got, want, k, rtol, per_element=False):
     return True, worst
 
 
-def restored_predictor(dtype, weights=WEIGHTS):
+def restored_predictor(dtype, weights=WEIGHTS, **hparams):
     """``TorchPredictor`` on the card with the numpy weights under
-    ``weights``; raises if they did not restore."""
+    ``weights`` (and the serving ``hparams`` given); raises if they did not
+    restore."""
     from visual_foresight_torch.prediction.predictor import TorchPredictor
-    predictor = TorchPredictor(weights, {'dtype': dtype},
+    predictor = TorchPredictor(weights, dict(hparams, dtype=dtype),
                                device='cuda').restore()
     n_params = sum(p.numel() for p in predictor.models[0].parameters())
-    print('predictor ({}, {}): restored={} params={}'.format(
-        os.path.basename(weights), dtype, predictor.restored, n_params))
+    print('predictor ({}, {}{}): restored={} params={}'.format(
+        os.path.basename(weights), dtype,
+        ''.join(', {}={}'.format(k, v) for k, v in hparams.items()),
+        predictor.restored, n_params))
     if not predictor.restored:
         raise AssertionError('the weights under {} did not restore'.format(
             weights))
     return predictor
 
 
-def check_golden(name):
+def check_golden(name, **hparams):
     """Replay the JAX package's f32 replan of the restored export ``name``
-    (plan noise injected, and the latents where the model has one)."""
+    (plan noise injected, and the latents where the model has one), with
+    the serving ``hparams`` given.  Returns (launches by kernel, score
+    error, frame error)."""
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import make_action_spec
     weights = os.path.join(os.path.dirname(WEIGHTS), name)
     with np.load(os.path.join(weights, 'golden_replan_f32.npz')) as f:
         g = {k: f[k] for k in f.files}
-    predictor = restored_predictor('float32', weights)
+    predictor = restored_predictor('float32', weights, **hparams)
     k_elite, repeat = int(g['k_elite']), int(g['repeat'])
     spec = make_action_spec(dict(SPEC_HP[name], nactions=int(g['nactions']),
                                  repeat=repeat), g['ctx_actions'].shape[-1])
@@ -477,28 +600,29 @@ def check_golden(name):
         g['ctx_actions'], distance_grid(g['goal'], H, W, device='cuda'),
         g['mean0'], g['sigma0'], noise=g['noise'], latents=g.get('latents'))
     torch.cuda.synchronize()
-    launches = read_tail_counts(
-        'golden ' + name,
-        1 + int(g['iterations']) * int(g['nactions']) * repeat)
+    steps = 1 + int(g['iterations']) * int(g['nactions']) * repeat
+    label = ' '.join([name] + ['{}={}'.format(k, v)
+                               for k, v in hparams.items()])
+    launches = read_tail_counts('golden ' + label, steps, predictor)
     same, score_err = compare_scores(
-        'golden f32 replay of {} vs JAX'.format(name), out['scores_per_itr'],
+        'golden f32 replay of {} vs JAX'.format(label), out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
+    if not same:
+        raise AssertionError('golden {}: the elites differ'.format(label))
     # frames of the elites both sides returned, matched by sample index
     idx = out['vis']['indices'].tolist()
     pairs = [(idx.index(i), j) for j, i in
              enumerate(g['vis_indices'].tolist()) if i in idx]
-    frame_err = None
-    if same and pairs:
-        frames = out['vis']['gen_images'][:, repeat - 1::repeat].cpu()
-        frame_err = max(float((frames[a] - torch.tensor(
-            g['vis_gen_images'][b])).abs().max()) for a, b in pairs)
-        print('golden frames of {} elites ({}): max abs err {:.3e} (tol '
-              '{:.0e})'.format(len(pairs), name, frame_err,
-                               GOLDEN_FRAME_ATOL))
-        if not frame_err <= GOLDEN_FRAME_ATOL:
-            raise AssertionError('golden frames disagree with JAX')
-    else:
-        print('golden frames not compared: the elites differ at a tie')
+    if not pairs:
+        raise AssertionError('golden {}: no visualised elite in common'
+                             .format(label))
+    frames = out['vis']['gen_images'][:, repeat - 1::repeat].cpu()
+    frame_err = max(float((frames[a] - torch.tensor(
+        g['vis_gen_images'][b])).abs().max()) for a, b in pairs)
+    print('golden frames of {} elites ({}): max abs err {:.3e} (tol '
+          '{:.0e})'.format(len(pairs), label, frame_err, GOLDEN_FRAME_ATOL))
+    if not frame_err <= GOLDEN_FRAME_ATOL:
+        raise AssertionError('golden frames disagree with JAX')
     return launches, score_err, frame_err
 
 
@@ -532,7 +656,7 @@ def check_golden_mppi():
         anchor=g['anchor'], anchor_valid=float(g['anchor_valid']))
     torch.cuda.synchronize()
     launches = read_tail_counts('golden MPPI ag_r5f_v2',
-                                1 + int(g['iterations']) * n)
+                                1 + int(g['iterations']) * n, predictor)
     same, score_err = compare_scores(
         'golden f32 MPPI replay of ag_r5f_v2 vs JAX', out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
@@ -628,7 +752,7 @@ def drive_replan_200():
     launches = read_tail_counts(
         '200-sample replan ({} replans, {} launches each)'.format(
             len(contexts), LAUNCHES_PER_REPLAN),
-        LAUNCHES_PER_REPLAN * len(contexts))
+        LAUNCHES_PER_REPLAN * len(contexts), predictor)
     for out in outs:
         shapes = {'best_actions': (10, T, 3), 'best_scores': (10,),
                   'scores_per_itr': (ITERS, M)}
@@ -683,10 +807,9 @@ def drive_controller(label, agent, policy, steps):
     steps on seeded synthetic frames; a replan falls on the first planning
     step (``start_planning``, at least 1) and then every
     ``replan_interval`` steps, earlier steps take warm-up actions.  Checks
-    that the weights restored, the tail's launch count (every one tiled, on
-    blocked masks), and that the actions and the last replan's scores are
-    finite and of the expected shapes.  Returns (launches, controller,
-    states)."""
+    that the weights restored, the tail's launches (``read_tail_counts``),
+    and that the actions and the last replan's scores are finite and of the
+    expected shapes.  Returns (launches by kernel, controller, states)."""
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
     ctrl = PixelCostController(agent, dict(policy))
@@ -710,10 +833,11 @@ def drive_controller(label, agent, policy, steps):
                        images=frames[:t + 1], state=states[:t + 1])
         actions.append(np.asarray(out['actions'], np.float32))
     torch.cuda.synchronize()
+    want = replans * replan_launches(policy)
     launches = read_tail_counts(
         '{} controller ({} act() steps, {} replans x {})'.format(
             label, steps, replans, replan_launches(policy)),
-        replans * replan_launches(policy))
+        want, ctrl.predictor)
     for a in actions:
         if a.shape != (adim,) or not np.isfinite(a).all():
             raise AssertionError('{} controller action {} is malformed'
@@ -851,6 +975,52 @@ def time_tail(gen, b, card):
     return res
 
 
+def eff_bound(args, outs, sna):
+    """Least time for the effective-kernel entry on an H100 SXM: every
+    input read once and every output written once, against the f32
+    arithmetic of the in-bounds taps and the compositing."""
+    b, h, w, c = args[0].shape
+    p, kk = args[2].shape[-1], args[4].shape[-1]
+    k = int(round(kk ** 0.5))
+    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
+    pad = k // 2
+    rows = k * h - 2 * sum(range(1, pad + 1))
+    cols = k * w - 2 * sum(range(1, pad + 1))
+    fma = b * rows * cols * (c + p) + b * h * w * (c + p) * (2 if sna else 1)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * fma / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations'), t_bytes * 1e3
+
+
+def time_eff(gen, b, card):
+    """The effective-kernel entry at DNA's serving shape (48x64, C=3, P=1,
+    K=5, SNA, bf16) and batch ``b``: kernel and plain version (CUDA graph,
+    CUDA events), the bound and the kernel's share of the memory rate."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_eff, fused_warp_composite_eff_reference)
+    sets = [eff_inputs(gen, b, torch.bfloat16) for _ in range(4)]
+    res = {'ms': graph_ms(lambda *a: fused_warp_composite_eff(*a), sets,
+                          reps=100),
+           'plain_ms': graph_ms(
+               lambda *a: fused_warp_composite_eff_reference(*a), sets,
+               reps=10)}
+    outs = fused_warp_composite_eff_reference(*sets[0])
+    res['bound_ms'], res['bound_by'], bytes_ms = eff_bound(sets[0], outs,
+                                                           sna=True)
+    del sets
+    share = bytes_ms / res['ms']
+    print('cdna_tail_eff_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
+          '(by {}), {:.1%} of 3.35 TB/s (B={} bf16, 48x64, C=3, P=1, K=5, '
+          'SNA, CUDA graph, CUDA events) [{}]'.format(
+              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
+              share, b, card))
+    if share > 1.0:
+        raise AssertionError('the eff kernel moved its bytes faster than the '
+                             'card can: the timing is wrong')
+    return res
+
+
 def time_add_one(gen, card, shape):
     """add_one, its plain version and PyTorch's own add on ``shape`` f32,
     beside the bound.  Returns (kernel_ms, plain_ms, library_ms, bound_ms,
@@ -908,58 +1078,87 @@ def main():
     print_report(cdna_tail.SOURCE, builds[cdna_tail.SOURCE].result()[1],
                  time.time() - t0)
     err_bf16 = check_tail_cases(gen)
+    eff_err = check_eff_cases(gen)
 
     # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
-    golden_launches, _, _ = check_golden('xz_flagship')
-    golden_ag_launches, _, _ = check_golden('ag_r5f_v2')
-    golden_mppi_launches, _, _ = check_golden_mppi()
+    # launches by kernel, for each driven path
+    paths = {}
+    paths['golden'], _, _ = check_golden('xz_flagship')
+    paths['golden_ag_r5f_v2'], _, _ = check_golden('ag_r5f_v2')
+    paths['golden_mppi_ag_r5f_v2'], _, _ = check_golden_mppi()
+    # the flagship's golden under fuse_decode; the seeded
+    # classic exports' goldens, the folded tail on full-resolution masks
+    # and DNA through the eff entry
+    paths['golden_xz_flagship_fuse_decode'], _, _ = check_golden(
+        'xz_flagship', fuse_decode=True)
+    paths['golden_classic_cdna'], _, _ = check_golden('classic_cdna')
+    paths['golden_classic_dna'], _, _ = check_golden('classic_dna')
 
     # -- 4. the 200-sample replan on the restored weights ----------------------
-    replan_launches_200, latencies, replan, contexts, plan_gen = \
+    paths['replan_200'], latencies, replan, contexts, plan_gen = \
         drive_replan_200()
     check_plain_tail_replan(replan, contexts, plan_gen)
 
     # -- 5. the controllers at the campaigns' operating points -------------------
-    ctrl_launches, ctrl, ctrl_states = drive_controller(
+    paths['controller'], ctrl, ctrl_states = drive_controller(
         'xz_bench20', AG_PARAMS, CTRL_POLICY, CTRL_STEPS)
-    ag_launches, ag_ctrl, ag_states = drive_controller(
+    paths['controller_ag_bench20'], ag_ctrl, ag_states = drive_controller(
         'ag_bench20', AG_AGENT, AG_POLICY, CTRL_STEPS)
-    hard_launches, hard_ctrl, _ = drive_controller(
+    paths['controller_ag_bench20_hard'], _, _ = drive_controller(
         'ag_bench20_hard (stochastic_planning 2, penalty 1.0)', AG_AGENT,
         AG_HARD_POLICY, 2)
-    del hard_ctrl
-    chunk_launches, chunk_ctrl, chunk_states = drive_controller(
-        'xz_bench20 at 800 samples in chunks of 200', AG_PARAMS,
-        CHUNK_POLICY, 2)
+    paths['controller_xz_bench20_chunk200'], chunk_ctrl, chunk_states = \
+        drive_controller('xz_bench20 at 800 samples in chunks of 200',
+                         AG_PARAMS, CHUNK_POLICY, 2)
     # the same 800 samples as one batch, to time the chunked replan against
-    whole_launches, whole_ctrl, whole_states = drive_controller(
-        'xz_bench20 at 800 samples in one batch', AG_PARAMS,
-        dict(CTRL_POLICY, num_samples=CHUNK_POLICY['num_samples']), 2)
+    paths['controller_xz_bench20_800'], whole_ctrl, whole_states = \
+        drive_controller('xz_bench20 at 800 samples in one batch', AG_PARAMS,
+                         dict(CTRL_POLICY,
+                              num_samples=CHUNK_POLICY['num_samples']), 2)
 
     # -- 5a-d. the other samplers: the RoboNet path and the folding prior ------
-    mppi_launches, mppi_ctrl, mppi_states = drive_controller(
-        'RoboNet MPPI fused (T 10, anchored)', AG_AGENT,
-        with_sampler(ROBONET_FUSED_POLICY, 'mppi'), ROBONET_STEPS)
+    paths['controller_robonet_mppi'], mppi_ctrl, mppi_states = \
+        drive_controller('RoboNet MPPI fused (T 10, anchored)', AG_AGENT,
+                         with_sampler(ROBONET_FUSED_POLICY, 'mppi'),
+                         ROBONET_STEPS)
     if not mppi_ctrl._fused.is_mppi:
         raise AssertionError('the RoboNet MPPI policy did not plan fused')
-    host_launches, host_ctrl, host_states = drive_controller(
-        'RoboNet MPPI host loop (T 15)', AG_AGENT,
-        with_sampler(ROBONET_HOST_POLICY, 'mppi'), 6)
+    paths['controller_robonet_mppi_host_loop'], host_ctrl, host_states = \
+        drive_controller('RoboNet MPPI host loop (T 15)', AG_AGENT,
+                         with_sampler(ROBONET_HOST_POLICY, 'mppi'), 6)
     if host_ctrl._fused is not None:
         raise AssertionError('the RoboNet policy as written planned fused')
-    fold_launches, fold_ctrl, fold_states = drive_controller(
+    paths['controller_folding'], fold_ctrl, fold_states = drive_controller(
         'folding', AG_AGENT, with_sampler(FOLDING_POLICY, 'folding'), 2)
-    ag_grip_launches, ag_grip_ctrl, _ = drive_controller(
+    paths['controller_autograsp'], ag_grip_ctrl, _ = drive_controller(
         'AutograspSampler at ag_bench20', AG_AGENT,
         with_sampler(AUTOGRASP_POLICY, 'autograsp'), 2)
     check_grip('AutograspSampler', ag_grip_ctrl, AUTOGRASP_POLICY)
     del ag_grip_ctrl
-    ag_eps_launches, ag_eps_ctrl, _ = drive_controller(
+    paths['controller_ag_epsilon'], ag_eps_ctrl, _ = drive_controller(
         'AutograspEpsilon at ag_bench20', AG_AGENT,
         with_sampler(AG_EPSILON_POLICY, 'ag_epsilon'), 2)
     check_grip('AutograspEpsilon', ag_eps_ctrl, AG_EPSILON_POLICY,
                ag_epsilon=True)
     del ag_eps_ctrl
+
+    # -- 5e-g. every architecture the JAX package builds --------------------
+    paths['controller_classic_cdna'], classic_ctrl, classic_states = \
+        drive_controller('classic CDNA (the JAX default) at xz_bench20',
+                         AG_PARAMS, CLASSIC_POLICY, 2)
+    paths['controller_classic_dna'], dna_ctrl, dna_states = \
+        drive_controller('classic DNA at xz_bench20', AG_PARAMS, DNA_POLICY,
+                         2)
+    paths['controller_xz_bench20_fuse_decode'], fuse_ctrl, fuse_states = \
+        drive_controller('xz_bench20 with fuse_decode', AG_PARAMS,
+                         FUSE_POLICY, 2)
+    built = [(c.predictor._hp['std_factor'], c.predictor._hp['dna'],
+              c.predictor.models[0].step.fuse_decode)
+             for c in (classic_ctrl, dna_ctrl, fuse_ctrl)]
+    print('built (std_factor, dna, fuse_decode): classic {}, DNA {}, '
+          'fuse_decode {}'.format(*built))
+    if built != [(0, False, False), (0, True, False), (4, False, True)]:
+        raise AssertionError('a predictor has the wrong architecture')
 
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
@@ -972,6 +1171,24 @@ def main():
     time_controller('controller_replan',
                     '768 samples x 45 steps x 48x64 x 3 iters, bf16', ctrl,
                     ctrl_states, card)
+    # fuse_decode in turns with the unfused flagship: plain, fused, fused,
+    # plain
+    for _ in range(2):
+        time_controller('xz_bench20_fuse_decode_replan',
+                        '768 samples x 45 steps x 48x64 x 3 iters, bf16, '
+                        'fuse_decode', fuse_ctrl, fuse_states, card)
+    time_controller('controller_replan',
+                    '768 samples x 45 steps x 48x64 x 3 iters, bf16', ctrl,
+                    ctrl_states, card)
+    time_controller('classic_cdna_replan',
+                    '768 samples x 45 steps x 48x64 x 3 iters, bf16, classic '
+                    'CDNA (the JAX default), seeded', classic_ctrl,
+                    classic_states, card)
+    time_controller('classic_dna_replan',
+                    '768 samples x 45 steps x 48x64 x 3 iters, bf16, classic '
+                    'DNA, seeded', dna_ctrl, dna_states, card)
+    eff = time_eff(gen, CTRL_POLICY['num_samples'], card)
+    time_eff(gen, M, card)
     time_controller('ag_bench20_replan',
                     '768 samples x 30 steps x 48x64 x 3 iters, adim 4, one '
                     'latent per sample, bf16, ag_r5f_v2', ag_ctrl, ag_states,
@@ -1003,32 +1220,36 @@ def main():
     profile_replan(lambda: mppi_ctrl.perform_CEM(mppi_states))
     print('profile: one RoboNet MPPI replan, host loop')
     profile_replan(lambda: host_ctrl.perform_CEM(host_states))
+    print('profile: one classic CDNA replan at xz_bench20')
+    profile_replan(lambda: classic_ctrl.perform_CEM(classic_states))
+    print('profile: one classic DNA replan at xz_bench20')
+    profile_replan(lambda: dna_ctrl.perform_CEM(dna_states))
+    print('profile: one xz_bench20 replan with fuse_decode')
+    profile_replan(lambda: fuse_ctrl.perform_CEM(fuse_states))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
+
+    def by_path(name):
+        return {p: n[name] for p, n in paths.items() if n[name]}
+
     print(json.dumps({'kernels': [{
         'name': 'cdna_tail', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
-        'launches': ctrl_launches,
-        'launches_by_path': {
-            'golden': golden_launches,
-            'golden_ag_r5f_v2': golden_ag_launches,
-            'replan_200': replan_launches_200,
-            'controller': ctrl_launches,
-            'controller_ag_bench20': ag_launches,
-            'controller_ag_bench20_hard': hard_launches,
-            'controller_xz_bench20_chunk200': chunk_launches,
-            'controller_xz_bench20_800': whole_launches,
-            'golden_mppi_ag_r5f_v2': golden_mppi_launches,
-            'controller_robonet_mppi': mppi_launches,
-            'controller_robonet_mppi_host_loop': host_launches,
-            'controller_folding': fold_launches,
-            'controller_autograsp': ag_grip_launches,
-            'controller_ag_epsilon': ag_eps_launches},
+        'launches': paths['controller']['cdna_tail'],
+        'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
         'bound_by': tail['bound_by'], 'library_ms': None}, {
+        'name': 'cdna_tail_eff', 'route': 'cuda',
+        'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
+        'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
+        'launches': paths['controller_classic_dna']['cdna_tail_eff'],
+        'launches_by_path': by_path('cdna_tail_eff'),
+        'max_abs_err': eff_err, 'ms': eff['ms'],
+        'plain_ms': eff['plain_ms'], 'bound_ms': eff['bound_ms'],
+        'bound_by': eff['bound_by'], 'library_ms': None}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

@@ -1,5 +1,6 @@
 """The port's kernels against their plain versions on the card: the CDNA
-tail and the toolchain probe's ``add_one``.
+tail (its folded entry and its effective-kernel entry) and the toolchain
+probe's ``add_one``.
 
 Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -7,7 +8,10 @@ the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 The tail is held against its plain version in both mask layouts (full
 resolution and blocked) at the serving shapes and at shapes that stress the
 tiled variant's 8 x 64 tiles and four pixels per thread; the frames are
-random or all ones, so that a wrong halo shows at the border.
+random or all ones, so that a wrong halo shows at the border.  The
+effective-kernel entry is held against its plain version at DNA's serving
+shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off, and inside a
+small classic-DNA rollout.
 
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
@@ -17,7 +21,8 @@ import pytest
 import torch
 
 from visual_foresight_torch.ops.cdna_tail import (
-    fused_warp_composite, fused_warp_composite_reference)
+    fused_warp_composite, fused_warp_composite_eff,
+    fused_warp_composite_eff_reference, fused_warp_composite_reference)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import space_to_depth
 from visual_foresight_torch.ops.probe import add_one, add_one_reference
@@ -200,7 +205,7 @@ def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
     torch.manual_seed(0)
     model = CDNAPredictor((48, 64), num_distribs=1, sdim=5, adim=4,
                           enc_features=(16, 32, 32), lstm_kernel=3,
-                          separable_lstm=True).cuda().eval()
+                          separable_lstm=True, std_factor=4).cuda().eval()
     stds = (0.05, 0.05, 0.2, np.pi / 10)
     spec = ActionSpec(adim=4, nactions=6, repeat=1, per_dim_std=stds,
                       clip_dims_xy=(), clip_dims_rot=(), rej_dims_xy=(),
@@ -230,3 +235,83 @@ def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
     assert torch.equal(got['vis']['indices'], want['vis']['indices'])
     torch.testing.assert_close(got['mean'], want['mean'], rtol=1e-5,
                                atol=1e-6)
+
+
+def _eff_args(gen, dtype, b, h, w, c=3, p=1, k=5, sna=True, ones=False):
+    """Frames, a DNA field (normalized kernels weighed by the transform
+    masks' total) and the background masks that complete it to one."""
+    nbg = 2 if sna else 1
+    frame = lambda *s: torch.ones(s, device='cuda') if ones else \
+        torch.rand(s, generator=gen, device='cuda')
+    masks = torch.softmax(2.0 * torch.randn((b, h, w, nbg + 1), generator=gen,
+                                            device='cuda'), dim=-1)
+    pk = torch.rand((b, h, w, k * k), generator=gen, device='cuda')
+    eff = pk / pk.sum(-1, keepdim=True) * masks[..., nbg:]
+    return tuple(t.to(dtype).contiguous() for t in (
+        frame(b, h, w, c), frame(b, h, w, c), frame(b, h, w, p),
+        frame(b, h, w, p), eff, masks[..., :nbg]))
+
+
+EFF_CASES = [
+    ('serving-768', dict(b=768, h=48, w=64)),
+    ('serving-200', dict(b=200, h=48, w=64)),
+    ('batch-1', dict(b=1, h=48, w=64)),
+    ('odd-sizes', dict(b=3, h=13, w=10)),
+    ('k3-p0', dict(b=5, h=20, w=36, k=3, p=0)),
+    ('k7-p3-sna-off', dict(b=5, h=20, w=36, k=7, p=3, sna=False)),
+    ('c1-p4-wide', dict(b=2, h=9, w=300, c=1, p=4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', EFF_CASES, ids=[c[0] for c in EFF_CASES])
+def test_eff_kernel_matches_plain_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    shape = dict(case[1])
+    sna = shape.get('sna', True)
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    for ones in (False, True):
+        args = _eff_args(gen, dtype, ones=ones, **shape)
+        before = fused_warp_composite_eff.launches
+        got = fused_warp_composite_eff(*args, sna=sna)
+        want = fused_warp_composite_eff_reference(*args, sna=sna)
+        torch.cuda.synchronize()
+        assert fused_warp_composite_eff.launches == before + 1
+        for g, r in zip(got, want):
+            assert g.dtype == dtype and g.shape == r.shape
+            if g.numel():
+                assert float((g.float() - r.float()).abs().max()) <= \
+                    TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_classic_dna_rollout_kernel_matches_plain_on_card(monkeypatch):
+    """A small f32 classic-DNA model (48x64, 8 samples, 4 steps): the
+    rollout through the effective-kernel kernel against the same rollout
+    through its plain version, atol 1e-5; one launch a step."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models import cdna as cdna_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(1)
+    model = cdna_model.CDNAPredictor(
+        (48, 64), num_distribs=1, dna=True, enc_features=(8, 16, 16),
+        lstm_kernel=3, separable_lstm=True).cuda().eval()
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    imgs = torch.rand((8, 2, 48, 64, 3), generator=gen, device='cuda')
+    dists = torch.rand((8, 2, 48, 64, 1), generator=gen, device='cuda')
+    acts = torch.randn((8, 4, 3), generator=gen, device='cuda') * 0.1
+    with torch.no_grad():
+        carry = model.encode_context(imgs, acts[:, :1], None, dists)
+        before = fused_warp_composite_eff.launches
+        got = model.rollout_from(carry, acts)
+        torch.cuda.synchronize()
+        assert fused_warp_composite_eff.launches == before + 4
+        monkeypatch.setattr(cdna_model, 'fused_warp_composite_eff',
+                            fused_warp_composite_eff_reference)
+        want = model.rollout_from(carry, acts)
+    for key in ('gen_images', 'gen_distribs'):
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-5)

@@ -193,17 +193,19 @@ def test_warm_start_replan_with_fewer_samples_matches_jax():
     _check_replan_against_jax(num_samples=12)
 
 
-def small_models(adim=3, sdim=3, latent_dim=0, ncam=1, h=16, w=32):
+def small_models(adim=3, sdim=3, latent_dim=0, ncam=1, h=16, w=32,
+                 model_kw=None):
     """A small JAX model with perturbed weights per camera, the port's
-    modules on the same weights, and a seeded context.
+    modules on the same weights, and a seeded context; ``model_kw``
+    overrides the space-to-depth model's options.
 
     :return: (jax model, per-camera params, port modules, images, states,
         distribs, context actions, goal pixels)
     """
-    kw = dict(num_distribs=1, std_factor=4, enc_features=(8, 16, 16),
-              lstm_kernel=3, separable_lstm=True, renorm_distribs=False,
-              mask_softmax='fullres', latent_dim=latent_dim, sdim=sdim,
-              adim=adim)
+    kw = dict(dict(num_distribs=1, std_factor=4, enc_features=(8, 16, 16),
+                   lstm_kernel=3, separable_lstm=True, renorm_distribs=False,
+                   mask_softmax='fullres', latent_dim=latent_dim, sdim=sdim,
+                   adim=adim), **(model_kw or {}))
     jmodel = JaxPredictor(**kw)
     params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 2, h, w, 3)),
                          jnp.zeros((1, 4, adim)), jnp.zeros((1, 2, sdim)),
@@ -230,7 +232,8 @@ def small_models(adim=3, sdim=3, latent_dim=0, ncam=1, h=16, w=32):
 def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
                               ncam=1, adim=3, sdim=3, cost_fn=None,
                               cost_ctx=None, iters=3, m=16, k_elite=8,
-                              equals_unchunked=False, action_rtol=0.0):
+                              equals_unchunked=False, action_rtol=0.0,
+                              model_kw=None):
     h, w = 16, 32
     modes = dict(modes or {})
     hp = dict(HP, nactions=2, repeat=2,
@@ -239,7 +242,7 @@ def _check_replan_against_jax(num_samples=None, modes=None, latent_dim=0,
         tgauss.make_action_spec(hp, adim)
     dim = tspec.nactions * tspec.adim
     (jmodel, cam_params, tmodels, images, states, distribs, actions,
-     goal) = small_models(adim, sdim, latent_dim, ncam, h, w)
+     goal) = small_models(adim, sdim, latent_dim, ncam, h, w, model_kw)
     mean0 = np.zeros(dim, np.float32)
     sigma0 = np.asarray(jgauss.initial_sigma(jspec))
     key = jax.random.PRNGKey(7)
@@ -360,7 +363,7 @@ def test_chunked_vis_with_fewer_elites_than_n_vis():
                                         action_order=['x', 'z', 'grasp']), 3)
     model = CDNAPredictor((16, 32), num_distribs=1, num_masks=4,
                           enc_features=(8, 16, 16), lstm_kernel=3,
-                          separable_lstm=True)
+                          separable_lstm=True, std_factor=4)
     rng = np.random.RandomState(9)
     distribs = np.zeros((1, 2, 16, 32, 1), np.float32)
     distribs[:, :, 8, 16, 0] = 1.0
@@ -398,7 +401,8 @@ def test_replan_argument_checks():
     # fewer unique plans than elites: the JAX planner has no such guard
     with pytest.raises(ValueError, match='unique plans'):
         run(make(stochastic_k=4, stochastic_penalty=1.0), 4)
-    latent_model = CDNAPredictor((16, 32), latent_dim=2, num_distribs=1)
+    latent_model = CDNAPredictor((16, 32), latent_dim=2, num_distribs=1,
+                                 std_factor=4)
     with pytest.raises(ValueError, match='latents beside noise'):
         run(make(), 6, [latent_model])
 

@@ -6,6 +6,8 @@
 // and also folds in the mask x CDNA-kernel contraction that the TPU path left
 // to XLA (visual_foresight_tpu/ops/cdna_warp.py effective_pixel_kernels), so
 // the (B, H, W, K*K) effective-kernel field never reaches device memory.
+// A second entry point, cdna_tail_eff_forward, serves the Pallas function's
+// own contract (the field given, for DNA); see "Effective-kernel mode".
 //
 // For every output pixel (b, h, w), with offset = 2 if SNA else 1:
 //   eff[t]   = sum_m masks[b,h,w,offset+m] * kernels[b,t/K,t%K,m]      (t < K*K)
@@ -176,6 +178,88 @@ cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
 #pragma unroll
         for (int c = 0; c < kMaxChannels; ++c)
           if (c < P) acc_dst[c] = fmaf(e, load(prev_distrib, q * P + c), acc_dst[c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) {
+    if (c < C) {
+      float v = load(prev, here * C + c) * m0 + acc_img[c];
+      if (sna) v += load(first, here * C + c) * m1;
+      store(out_img, here * C + c, v);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) {
+    if (c < P) {
+      float v = load(prev_distrib, here * P + c) * m0 + acc_dst[c];
+      if (sna) v += load(first_distrib, here * P + c) * m1;
+      store(out_distrib, here * P + c, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Effective-kernel mode: the contract of the Pallas function itself
+// (fused_warp_composite_eff): the per-pixel kernel field eff (B, H, W, K*K)
+// and the background masks bg (B, H, W, nbg), nbg = 1 or 2, come from the
+// caller; DNA predicts such a field outright.  One thread per output pixel,
+// 256 pixels per block, everything read straight from global memory.
+//
+// Bound on an H100 SXM at DNA's serving shapes (48x64, C=3, P=1, K=5, SNA,
+// bf16), per sample: prev and first (18,432 bytes each), both distributions
+// (6,144 each), the field (153,600), the two background masks (12,288), the
+// frame and the distribution written (18,432 + 6,144): 239,616 bytes, so
+// 184.0 MB and 54.9 us at B=768, 47.9 MB and 14.3 us at B=200, at 3.35
+// TB/s.  About 108 FMAs a pixel (25 taps x 4 channels, 8 for compositing):
+// 0.51 GFLOP (7.6 us at 67 TFLOP/s of f32) at B=768, so it is bound by
+// bytes, the field being two thirds of them.  A thread's K*K field values
+// are one contiguous run and neighbouring threads' runs follow each other,
+// so after a warp's first tap its field loads hit the lines L1 already holds.
+// ---------------------------------------------------------------------------
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+cdna_tail_eff_kernel(const T* __restrict__ prev, const T* __restrict__ first,
+                     const T* __restrict__ prev_distrib,
+                     const T* __restrict__ first_distrib, const T* __restrict__ eff,
+                     const T* __restrict__ bg, T* __restrict__ out_img,
+                     T* __restrict__ out_distrib, int H, int W, int C, int P, int nbg,
+                     int sna) {
+  const int b = blockIdx.y;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= H * W) return;
+  const int h = pix / W;
+  const int w = pix - h * W;
+  const long sample = (long)b * H * W;
+  const long here = sample + pix;
+  const T* e = eff + here * (K * K);
+  const float m0 = load(bg, here * nbg);
+  const float m1 = sna ? load(bg, here * nbg + 1) : 0.f;
+
+  float acc_img[kMaxChannels];
+  float acc_dst[kMaxChannels];
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) {
+    acc_img[c] = 0.f;
+    acc_dst[c] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int hh = h + i - K / 2;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int ww = w + j - K / 2;
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
+        const float t = load(e, i * K + j);
+        const long q = sample + (long)hh * W + ww;
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c)
+          if (c < C) acc_img[c] = fmaf(t, load(prev, q * C + c), acc_img[c]);
+#pragma unroll
+        for (int c = 0; c < kMaxChannels; ++c)
+          if (c < P) acc_dst[c] = fmaf(t, load(prev_distrib, q * P + c), acc_dst[c]);
       }
     }
   }
@@ -751,6 +835,39 @@ cudaError_t dispatch_k(int K, const Args& a, int variant) {
   }
 }
 
+struct EffArgs {
+  const void *prev, *first, *prev_distrib, *first_distrib, *eff, *bg;
+  void *out_img, *out_distrib;
+  int B, H, W, C, P, nbg, sna;
+  cudaStream_t stream;
+};
+
+template <typename T, int K>
+cudaError_t launch_eff(const EffArgs& a) {
+  const dim3 grid((a.H * a.W + kThreads - 1) / kThreads, a.B);
+  cdna_tail_eff_kernel<T, K><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
+      static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
+      static_cast<const T*>(a.eff), static_cast<const T*>(a.bg),
+      static_cast<T*>(a.out_img), static_cast<T*>(a.out_distrib), a.H, a.W, a.C, a.P,
+      a.nbg, a.sna);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_eff(int K, const EffArgs& a) {
+  switch (K) {
+    case 3:
+      return launch_eff<T, 3>(a);
+    case 5:
+      return launch_eff<T, 5>(a);
+    case 7:
+      return launch_eff<T, 7>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -775,5 +892,24 @@ extern "C" int cdna_tail_forward(const void* prev, const void* first,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)dispatch_k<float>(K, a, variant);
   if (dtype == 1) return (int)dispatch_k<__nv_bfloat16>(K, a, variant);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the effective-kernel mode.  eff: (B, H, W, K*K);
+// bg: (B, H, W, nbg), nbg = 1 or 2 (2 with SNA).  dtype as above.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int cdna_tail_eff_forward(const void* prev, const void* first,
+                                     const void* prev_distrib, const void* first_distrib,
+                                     const void* eff, const void* bg, void* out_img,
+                                     void* out_distrib, int B, int H, int W, int C, int P,
+                                     int K, int nbg, int sna, int dtype, void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C < 1 || C > kMaxChannels || P < 0 ||
+      P > kMaxChannels || nbg < 1 || nbg > 2 || (sna && nbg < 2) ||
+      (long)H * W > (1L << 30))
+    return (int)cudaErrorInvalidValue;
+  const EffArgs a{prev, first, prev_distrib, first_distrib, eff, bg, out_img, out_distrib,
+                  B, H, W, C, P, nbg, sna, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)dispatch_eff<float>(K, a);
+  if (dtype == 1) return (int)dispatch_eff<__nv_bfloat16>(K, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,6 +33,34 @@ def conv_nhwc(x, conv, padding='VALID'):
     return out.permute(0, 2, 3, 1)
 
 
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(features, (3, 3), strides=(2, 2),
+    padding='SAME')`` on NHWC tensors, as the classic decoder has it.
+
+    flax does not flip the kernel (``transpose_kernel=False``) and pads the
+    dilated input by (2, 1), which ``F.conv_transpose2d``'s symmetric
+    padding cannot express.  So the kernel is flipped spatially, the
+    transposed convolution runs unpadded (which pads (2, 2)), and the last
+    row and column are cut off.
+
+    The weight is held in conv layout ``(out, in, 3, 3)``, where
+    ``params_from_flax`` places the flax HWIO kernel ``(3, 3, in, out)``.
+    """
+
+    def __init__(self, in_features, features, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3,
+                                               dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
+        nn.init.kaiming_uniform_(self.weight)
+
+    def forward(self, x):
+        w = self.weight.flip(2, 3).transpose(0, 1)      # (in, out, 3, 3)
+        out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, self.bias,
+                                 stride=2)
+        return out[:, :, :-1, :-1].permute(0, 2, 3, 1)
+
+
 class ConvLSTMCell(nn.Module):
     """Convolutional LSTM cell; state is (c, h), both (B, H, W, features).
 

@@ -16,6 +16,12 @@ source holds two variants, chosen by shape alone (:func:`kernel_variant`):
 the tiled one (shared-memory tiles, 16-byte accesses, four pixels a thread)
 and the general one (one pixel a thread) for the shapes the tiled one does
 not serve.
+
+:func:`fused_warp_composite_eff` serves the Pallas function's own contract:
+the per-pixel kernel field (B, H, W, K*K) and the background masks come
+from the caller (DNA predicts the field outright).  It launches the same
+source's effective-kernel mode (one pixel a thread) on the card and takes
+:func:`fused_warp_composite_eff_reference` on the CPU, by the same rules.
 """
 
 import ctypes
@@ -86,12 +92,13 @@ def _kernel():
     return fn
 
 
-def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
-           mask_block):
-    tensors = (prev, first, prev_distrib, first_distrib, kernels, masks)
-    names = ('prev', 'first', 'prev_distrib', 'first_distrib', 'kernels',
-             'masks')
-    for name, t in zip(names, tensors):
+def _check_tensors(tensors, shapes):
+    """The checks both entries share: ``tensors`` (name -> tensor, ``prev``
+    first) on one device, of one supported dtype, contiguous, of the
+    ``shapes`` given (name -> shape), with 1..4 frame and 0..4 distribution
+    channels."""
+    prev = tensors['prev']
+    for name, t in tensors.items():
         if t.device != prev.device:
             raise ValueError('{} is on {}, prev on {}'.format(
                 name, t.device, prev.device))
@@ -102,6 +109,19 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
             raise ValueError('{} must be contiguous'.format(name))
     if prev.dtype not in _DTYPES:
         raise ValueError('unsupported dtype {}'.format(prev.dtype))
+    for name, shape in shapes.items():
+        if tuple(tensors[name].shape) != shape:
+            raise ValueError('{} has shape {}, expected {}'.format(
+                name, tuple(tensors[name].shape), shape))
+    c, p = prev.shape[-1], tensors['prev_distrib'].shape[-1]
+    if not (1 <= c <= _MAX_CHANNELS and 0 <= p <= _MAX_CHANNELS):
+        raise ValueError('kernel takes 1..{0} frame and 0..{0} distribution '
+                         'channels, got C={1}, P={2}'.format(
+                             _MAX_CHANNELS, c, p))
+
+
+def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+           mask_block):
     b, h, w, c = prev.shape
     p = prev_distrib.shape[-1]
     ksize, m = kernels.shape[1], kernels.shape[3]
@@ -111,19 +131,12 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
         raise ValueError('mask_block {} does not divide the image {}x{}'
                          .format(r, h, w))
     mask_shape = (b, h // r, w // r, r * r * nc) if r > 1 else (b, h, w, nc)
-    expect = {'first': (first, (b, h, w, c)),
-              'prev_distrib': (prev_distrib, (b, h, w, p)),
-              'first_distrib': (first_distrib, (b, h, w, p)),
-              'kernels': (kernels, (b, ksize, ksize, m)),
-              'masks': (masks, mask_shape)}
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape:
-            raise ValueError('{} has shape {}, expected {}'.format(
-                name, tuple(t.shape), shape))
-    if not (1 <= c <= _MAX_CHANNELS and 0 <= p <= _MAX_CHANNELS):
-        raise ValueError('kernel takes 1..{0} frame and 0..{0} distribution '
-                         'channels, got C={1}, P={2}'.format(
-                             _MAX_CHANNELS, c, p))
+    _check_tensors(
+        {'prev': prev, 'first': first, 'prev_distrib': prev_distrib,
+         'first_distrib': first_distrib, 'kernels': kernels, 'masks': masks},
+        {'first': (b, h, w, c), 'prev_distrib': (b, h, w, p),
+         'first_distrib': (b, h, w, p), 'kernels': (b, ksize, ksize, m),
+         'masks': mask_shape})
     if ksize not in (3, 5, 7) or not 1 <= m <= _MAX_MASKS or b > 65535:
         raise ValueError('kernel takes K in (3, 5, 7), M <= {}, B <= 65535; '
                          'got K={}, M={}, B={}'.format(_MAX_MASKS, ksize, m,
@@ -177,3 +190,97 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
 fused_warp_composite.launches = 0
 fused_warp_composite.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 fused_warp_composite.blocked_launches = 0
+
+
+def fused_warp_composite_eff_reference(prev, first, prev_distrib,
+                                       first_distrib, eff_kernels, bg_masks,
+                                       sna=True):
+    """Plain version of the effective-kernel contract: ``dna_warp`` of the
+    frame and the distributions by the given field plus compositing,
+    computed in f32 and cast to the input dtype.
+
+    :param eff_kernels: (B, H, W, K*K) per-pixel kernels
+    :param bg_masks: (B, H, W, 1 or 2) background masks: channel 0 weighs
+        the previous frame, channel 1 (read only with ``sna``) the first
+    :return: (gen_image (B,H,W,C), gen_distrib_unnormalized (B,H,W,P))
+    """
+    c = prev.shape[-1]
+    masks32 = bg_masks.float()
+    x = torch.cat([prev.float(), prev_distrib.float()], dim=-1)
+    out = x * masks32[..., 0:1] + dna_warp(x, eff_kernels.float())
+    if sna:
+        out = out + torch.cat([first.float(), first_distrib.float()],
+                              dim=-1) * masks32[..., 1:2]
+    return out[..., :c].to(prev.dtype), out[..., c:].to(prev_distrib.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _eff_kernel():
+    """The effective-kernel mode's C entry point, with its signature."""
+    fn = _build.load(SOURCE).cdna_tail_eff_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_eff(prev, first, prev_distrib, first_distrib, eff_kernels,
+               bg_masks, sna):
+    b, h, w, c = prev.shape
+    p, kk, nbg = (prev_distrib.shape[-1], eff_kernels.shape[-1],
+                  bg_masks.shape[-1])
+    _check_tensors(
+        {'prev': prev, 'first': first, 'prev_distrib': prev_distrib,
+         'first_distrib': first_distrib, 'eff_kernels': eff_kernels,
+         'bg_masks': bg_masks},
+        {'first': (b, h, w, c), 'prev_distrib': (b, h, w, p),
+         'first_distrib': (b, h, w, p), 'eff_kernels': (b, h, w, kk),
+         'bg_masks': (b, h, w, nbg)})
+    if kk not in (9, 25, 49) or nbg not in (1, 2) or (sna and nbg < 2) or \
+            b > 65535:
+        raise ValueError('kernel takes K*K in (9, 25, 49), 1 or 2 background '
+                         'masks (2 with SNA), B <= 65535; got K*K={}, {} '
+                         'masks, B={}'.format(kk, nbg, b))
+
+
+def fused_warp_composite_eff(prev, first, prev_distrib, first_distrib,
+                             eff_kernels, bg_masks, sna=True):
+    """Warp + composite of the frame and the pixel distributions by a given
+    per-pixel kernel field: the contract of the Pallas
+    ``fused_warp_composite_eff`` (NHWC in and out, distributions returned
+    unnormalized), as :func:`fused_warp_composite_eff_reference` computes
+    it.  All six tensors share one device and one dtype (float32 or
+    bfloat16) and are contiguous.  On a CUDA device it launches the
+    effective-kernel mode of ``csrc/cdna_tail.cu`` and counts the launch in
+    ``fused_warp_composite_eff.launches``.
+    """
+    if prev.device.type == 'cpu':
+        return fused_warp_composite_eff_reference(
+            prev, first, prev_distrib, first_distrib, eff_kernels, bg_masks,
+            sna)
+    if prev.device.type != 'cuda':
+        raise ValueError('no CDNA tail kernel for device {}'.format(
+            prev.device))
+    _check_eff(prev, first, prev_distrib, first_distrib, eff_kernels,
+               bg_masks, sna)
+    fn = _eff_kernel()
+    b, h, w, c = prev.shape
+    p = prev_distrib.shape[-1]
+    ksize = int(round(eff_kernels.shape[-1] ** 0.5))
+    out_img = torch.empty_like(prev)
+    out_distrib = torch.empty_like(prev_distrib)
+    with torch.cuda.device(prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
+                 first_distrib.data_ptr(), eff_kernels.data_ptr(),
+                 bg_masks.data_ptr(), out_img.data_ptr(),
+                 out_distrib.data_ptr(), b, h, w, c, p, ksize,
+                 bg_masks.shape[-1], int(sna), _DTYPES[prev.dtype], stream)
+    if err != 0:
+        raise RuntimeError('cdna_tail eff kernel launch failed: cudaError {}'
+                           .format(err))
+    fused_warp_composite_eff.launches += 1
+    return out_img, out_distrib
+
+
+fused_warp_composite_eff.launches = 0

@@ -10,10 +10,14 @@ Counterpart of ``visual_foresight_tpu/prediction/predictor.py``::
     out['predicted_frames']                # (M, T', ncam, H, W, 3) float32
     out['predicted_pixel_distributions']   # (M, T', ncam, H, W, P)
 
-One ``CDNAPredictor`` module per camera lives in ``predictor.models``.
-Weights come from a numpy parameter file (``params.npz``: the flax tree
-flattened with '/'-joined keys) in each ``view<c>/`` directory, or from a
-seeded initialization.
+One ``CDNAPredictor`` module per camera lives in ``predictor.models``; it
+is any architecture ``TPUPredictor`` builds (the classic backbone by
+default, the space-to-depth one, DNA, ``fuse_decode``; ``s2d_tail`` is taken
+and runs the full-resolution tail), as the hparams and the checkpoint's
+``model_config.json`` say.  Weights come from a
+numpy parameter file (``params.npz``: the flax tree flattened with
+'/'-joined keys) in each ``view<c>/`` directory, or from a seeded
+initialization.
 """
 
 import copy
@@ -56,6 +60,8 @@ DEFAULT_HPARAMS = {
     # the port's tail is always the CUDA kernel on the card; the TPU
     # package's switch between its Pallas and XLA tails has no meaning here
     'use_pallas_warp': False,
+    # the TPU package's plan-mode step in a block layout for its lanes; the
+    # port takes it and runs the full-resolution tail kernel all the same
     's2d_tail': False,
     # the port's time loop is a Python loop, so there is nothing to unroll
     'scan_unroll': 1,
@@ -64,11 +70,10 @@ DEFAULT_HPARAMS = {
     # the tail kernel reads the masks as the low-resolution head leaves them,
     # so this placement runs no depth_to_space copy at all
     'mask_softmax': 'lowres',
+    # opt-in, as in JAX: dec1, depth_to_space and dec1_gates composed into
+    # one product (the weights composed once a rollout)
     'fuse_decode': False,
 }
-
-# hparam values the port does not implement yet (each raises)
-_UNPORTED = {'dna': True, 's2d_tail': True, 'fuse_decode': True}
 
 _ARCH_KEYS = ('context_frames', 'num_masks', 'kernel_size', 'sna', 'dna',
               'latent_dim', 'lstm_kernel', 'separable_lstm', 'adim', 'sdim',
@@ -88,8 +93,8 @@ class TorchPredictor:
         self.device = resolve_device(device)
         self.models = None
         self.restored = False
-        # adopt the checkpoint's architecture before the first build: the
-        # defaults describe the classic backbone, which the port lacks
+        # adopt the checkpoint's architecture before the one build; without
+        # a model_config.json the defaults build the classic backbone
         self._adopt_model_config()
         self._build_model()
 
@@ -108,14 +113,11 @@ class TorchPredictor:
 
     def _build_model(self):
         hp = self._hp
-        for key, value in _UNPORTED.items():
-            if hp[key] == value:
-                raise NotImplementedError('{}={} is not ported'.format(
-                    key, value))
         self.model = CDNAPredictor(
             tuple(hp['img_dims']), n_context=hp['context_frames'],
             num_masks=hp['num_masks'], kernel_size=hp['kernel_size'],
-            sna=hp['sna'], num_distribs=hp['designated_pixel_count'],
+            sna=hp['sna'], dna=hp['dna'],
+            num_distribs=hp['designated_pixel_count'],
             sdim=hp['sdim'], adim=hp['adim'], dtype=self.dtype,
             enc_features=tuple(hp['enc_features']),
             lstm_kernel=hp['lstm_kernel'],
@@ -123,7 +125,8 @@ class TorchPredictor:
             std_factor=hp['std_factor'],
             renorm_distribs=hp['renorm_distribs'],
             mask_softmax=hp['mask_softmax'],
-            latent_dim=hp['latent_dim']).to(self.device).eval()
+            latent_dim=hp['latent_dim'],
+            fuse_decode=hp['fuse_decode']).to(self.device).eval()
 
     def _adopt_model_config(self):
         """Adopt the architecture recorded in ``model_config.json`` next to

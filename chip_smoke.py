@@ -7,6 +7,8 @@
    starts one nvcc per kernel source (``csrc/*.cu``, sm_90a), all at once;
 2. toolchain probe: ``add_one`` (``csrc/probe_add_one.cu``) on an (8, 128)
    f32 array must give exactly ``x + 1``, before anything larger is tried;
+   then exactly ``x + 1`` at an odd length, on a tensor sliced one element
+   in (not 16-byte aligned) and at n = 0;
 3. holds the CDNA tail kernel against its plain PyTorch version, in both
    mask layouts (full resolution and blocked) and in bf16 and f32: at the
    serving shapes (B=200, 768, 800, 1536 and 10, the batches of the driven
@@ -14,9 +16,11 @@
    shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
    off, P=0, and C=1, P=4, which the general variant serves); and the
-   tail's effective-kernel entry (the per-pixel field given, as DNA makes
-   it) against its plain version in bf16 and f32 at B=768 and 200, P 0-3,
-   SNA on and off, K 3, 5 and 7, and at odd sizes;
+   source's second kernel against its plain versions in bf16 and f32 at
+   B=768 and 200, P 0-3, SNA on and off, K 3, 5 and 7, and at odd sizes:
+   through its effective-kernel entry (the per-pixel field given) and
+   through its DNA mode (the field made from the DNA head's logits and the
+   masks, the masks in f32 and in the compute type);
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
@@ -29,7 +33,7 @@
    Finn-CDNA backbone, ``weights/classic_cdna``) and of its DNA twin
    (``weights/classic_dna``), 24 samples x 15 steps x 3 iterations each:
    the classic CDNA tail launches on full-resolution masks, DNA's through
-   the effective-kernel entry;
+   the DNA mode;
 5. drives the serving replan: ``TorchPredictor`` with the restored
    xz_flagship (bf16) and ``FusedCEMPlanner`` with 200 samples x 15 steps x
    3 iterations, for a few replans with fresh contexts; checks the outputs,
@@ -72,14 +76,17 @@
    - every other architecture of the JAX model, at xz_bench20's point
      (768 x 45 x 3, bf16, one replan each):
      (a) the classic CDNA export, 136 folded launches on full-resolution
-     masks; (b) the classic DNA export, 136 launches of the eff entry and
-     none of the folded one; (c) the flagship with ``fuse_decode``, 136;
+     masks; (b) the classic DNA export, 136 launches of the DNA mode and
+     none of the folded or the field-given entry; (c) the flagship with
+     ``fuse_decode``, 136;
    every path's launches are read from the counters and must match the
    entry and mask layout its predictor's architecture gives;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
-   ``depth_to_space`` copy that the blocked layout saves; the eff entry at
-   B=768 and 200; ``add_one`` also at 2^26 floats), the 200-sample replan,
+   ``depth_to_space`` copy that the blocked layout saves; the second
+   kernel's effective-kernel entry and DNA mode at B=768 and 200, each
+   beside the bound of its own inputs; ``add_one`` also at 2^26 floats,
+   beside ``torch.add``), the 200-sample replan,
    and the replans of the xz_bench20 (also with ``fuse_decode``, in turns
    with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
    (fused and host loop), folding, classic CDNA and classic DNA controllers
@@ -336,35 +343,95 @@ def check_eff(gen, b, dtype, sna=True, ones=False, **shape):
     return err
 
 
+def dna_inputs(gen, b, dtype, mask_dtype=torch.float32, sna=True, p=P, h=H,
+               w=W, c=C, k=K, m=NUM_MASKS, ones=False):
+    """Inputs of the DNA mode as the DNA head and the mask head leave them:
+    frames in [0, 1] (or all ones), logits of the per-pixel kernels (some
+    below zero, so that the ReLU shift matters) in ``dtype``, and softmax
+    masks over the background and ``m`` transform masks in ``mask_dtype``."""
+    dev, nc = 'cuda', m + (2 if sna else 1)
+    rand = lambda *s: torch.ones(s, device=dev) if ones else \
+        torch.rand(s, generator=gen, device=dev)
+    logits = torch.randn((b, h, w, k * k), generator=gen, device=dev) * 0.5 \
+        + 0.3
+    masks = torch.softmax(2.0 * torch.randn((b, h, w, nc), generator=gen,
+                                            device=dev), dim=-1)
+    ts = (rand(b, h, w, c), rand(b, h, w, c), rand(b, h, w, p),
+          rand(b, h, w, p), logits)
+    return tuple(t.to(dtype).contiguous() for t in ts) + \
+        (masks.to(mask_dtype).contiguous(),)
+
+
+def check_dna(gen, b, dtype, mask_dtype, sna=True, ones=False, **shape):
+    """One launch of the DNA mode against its plain version on the same
+    inputs.  Returns the max abs error."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_dna, fused_warp_composite_dna_reference)
+    args = dna_inputs(gen, b, dtype, mask_dtype, sna=sna, ones=ones, **shape)
+    before = fused_warp_composite_dna.launches
+    got = fused_warp_composite_dna(*args, sna=sna)
+    want = fused_warp_composite_dna_reference(*args, sna=sna)
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
+              for g, w in zip(got, want))
+    tol = TAIL_TOL[dtype]
+    if fused_warp_composite_dna.launches != before + 1:
+        raise AssertionError('the DNA mode did not launch its kernel')
+    if not err <= tol:
+        print('DNA kernel vs plain: B={} {} masks {} sna={} {}: max_abs_err='
+              '{:.3e} (tol {:.0e})'.format(b, str(dtype).split('.')[-1],
+                                          str(mask_dtype).split('.')[-1], sna,
+                                          shape, err, tol))
+        raise AssertionError('the DNA kernel disagrees with its plain '
+                             'version')
+    return err
+
+
 def check_eff_cases(gen):
-    """The effective-kernel entry in bf16 and f32 at B=768 and 200, P 0-3,
-    SNA on and off, K 3, 5 and 7 (48x64, C=3), and at odd sizes.  Returns
-    the largest bf16 error at the serving shape (K=5, P=1, SNA)."""
-    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    serving = 0.0
-    n = 0
-    for dtype in (torch.bfloat16, torch.float32):
-        for b in EFF_BATCHES:
-            for p in EFF_PS:
-                for sna in (True, False):
-                    for k in EFF_KS:
-                        err = check_eff(gen, b, dtype, sna=sna, p=p, k=k)
-                        worst[dtype] = max(worst[dtype], err)
-                        n += 1
-                        if dtype == torch.bfloat16 and (p, k, sna) == \
-                                (P, K, True):
-                            serving = max(serving, err)
-        for shape in EFF_ODD:
-            for ones in (False, True):
-                worst[dtype] = max(worst[dtype], check_eff(
-                    gen, dtype=dtype, ones=ones, **shape))
-                n += 1
-    print('eff kernel vs plain: {} launches (B {}, P {}, SNA on/off, K {}, '
-          'odd sizes {}), max_abs_err bf16 {:.3e} (tol {:.0e}), f32 {:.3e} '
-          '(tol {:.0e}); serving shape bf16 {:.3e}'.format(
-              n, EFF_BATCHES, EFF_PS, EFF_KS, EFF_ODD,
-              worst[torch.bfloat16], TAIL_TOL[torch.bfloat16],
-              worst[torch.float32], TAIL_TOL[torch.float32], serving))
+    """The effective-kernel entry, and the DNA mode with f32 masks and with
+    masks in the compute type, in bf16 and f32 at B=768 and 200, P 0-3, SNA
+    on and off, K 3, 5 and 7 (48x64, C=3), and at odd sizes.  Returns the
+    largest bf16 error at the serving shape (K=5, P=1, SNA) of each:
+    ``{'eff': err, 'dna': err}``."""
+    def check(mode, dtype, mask_dtype, **kw):
+        if mode == 'eff':
+            return check_eff(gen, dtype=dtype, **kw)
+        return check_dna(gen, dtype=dtype, mask_dtype=mask_dtype, **kw)
+
+    types = {'eff': [(torch.bfloat16, None), (torch.float32, None)],
+             'dna': [(torch.bfloat16, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.float32)]}
+    serving = {}
+    for mode, pairs in types.items():
+        worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+        serving[mode] = 0.0
+        n = 0
+        for dtype, mask_dtype in pairs:
+            for b in EFF_BATCHES:
+                for p in EFF_PS:
+                    for sna in (True, False):
+                        for k in EFF_KS:
+                            err = check(mode, dtype, mask_dtype, b=b,
+                                        sna=sna, p=p, k=k)
+                            worst[dtype] = max(worst[dtype], err)
+                            n += 1
+                            if dtype == torch.bfloat16 and (p, k, sna) == \
+                                    (P, K, True):
+                                serving[mode] = max(serving[mode], err)
+            for shape in EFF_ODD:
+                for ones in (False, True):
+                    worst[dtype] = max(worst[dtype], check(
+                        mode, dtype, mask_dtype, ones=ones, **shape))
+                    n += 1
+        print('{} kernel vs plain: {} launches (B {}, P {}, SNA on/off, K {}, '
+              'odd sizes {}{}), max_abs_err bf16 {:.3e} (tol {:.0e}), f32 '
+              '{:.3e} (tol {:.0e}); serving shape bf16 {:.3e}'.format(
+                  mode, n, EFF_BATCHES, EFF_PS, EFF_KS, EFF_ODD,
+                  '; bf16 with f32 and bf16 masks' if mode == 'dna' else '',
+                  worst[torch.bfloat16], TAIL_TOL[torch.bfloat16],
+                  worst[torch.float32], TAIL_TOL[torch.float32],
+                  serving[mode]))
     return serving
 
 
@@ -398,10 +465,12 @@ def check_tail_cases(gen):
 
 def reset_tail_counts():
     from visual_foresight_torch.ops.cdna_tail import (
-        fused_warp_composite, fused_warp_composite_eff)
+        fused_warp_composite, fused_warp_composite_dna,
+        fused_warp_composite_eff)
     fused_warp_composite.launches = 0
     fused_warp_composite.blocked_launches = 0
     fused_warp_composite_eff.launches = 0
+    fused_warp_composite_dna.launches = 0
     for v in fused_warp_composite.launches_by_variant:
         fused_warp_composite.launches_by_variant[v] = 0
 
@@ -409,36 +478,41 @@ def reset_tail_counts():
 def read_tail_counts(path, want, predictor):
     """The launches since ``reset_tail_counts``: ``want`` in all, each
     through the entry and on the mask layout that ``predictor``'s
-    architecture gives.  DNA runs the effective-kernel entry; CDNA the
-    folded entry's tiled variant, on blocked masks where the space-to-depth
-    backbone keeps its low-resolution softmax (the serving predictor), else
-    on full-resolution masks (the classic backbone).  Returns the counters
-    as read, by kernel: ``{'cdna_tail': n, 'cdna_tail_eff': n}``."""
+    architecture gives.  DNA runs the DNA mode (the field made inside the
+    kernel), never the field-given entry; CDNA the folded entry's tiled
+    variant, on blocked masks where the space-to-depth backbone keeps its
+    low-resolution softmax (the serving predictor), else on full-resolution
+    masks (the classic backbone).  Returns the counters as read, by kernel
+    entry: ``{'cdna_tail': n, 'cdna_tail_eff': n, 'cdna_tail_dna': n}``."""
     from visual_foresight_torch.ops.cdna_tail import (
-        fused_warp_composite, fused_warp_composite_eff)
+        fused_warp_composite, fused_warp_composite_dna,
+        fused_warp_composite_eff)
     hp = predictor._hp
     dna = bool(hp['dna'])
     blocked = bool(hp['std_factor']) and hp['mask_softmax'] == 'lowres'
-    want_folded, want_eff = (0, want) if dna else (want, 0)
+    want_folded, want_dna = (0, want) if dna else (want, 0)
     launches = fused_warp_composite.launches
     on_blocks = fused_warp_composite.blocked_launches
     by_variant = dict(fused_warp_composite.launches_by_variant)
     eff = fused_warp_composite_eff.launches
+    dna_launches = fused_warp_composite_dna.launches
     print('{} path: {} tail kernel launches (expected {}), by variant {}, '
-          '{} on blocked masks; {} eff launches (expected {})'.format(
-              path, launches, want_folded, by_variant, on_blocks, eff,
-              want_eff))
-    if launches != want_folded or eff != want_eff:
-        raise AssertionError('the {} path did not run the tail kernels {} '
-                             'and {} times'.format(path, want_folded,
-                                                   want_eff))
+          '{} on blocked masks; {} DNA-mode launches (expected {}), {} of the '
+          'field-given entry (expected 0)'.format(
+              path, launches, want_folded, by_variant, on_blocks,
+              dna_launches, want_dna, eff))
+    if launches != want_folded or dna_launches != want_dna or eff:
+        raise AssertionError('the {} path did not run the tail kernels {}, '
+                             '{} and 0 times'.format(path, want_folded,
+                                                     want_dna))
     if by_variant != {'general': 0, 'tiled': want_folded}:
         raise AssertionError('the {} path left the tiled variant'.format(
             path))
     if on_blocks != (want_folded if blocked else 0):
         raise AssertionError('the {} path did not keep its masks {}'.format(
             path, 'blocked' if blocked else 'at full resolution'))
-    return {'cdna_tail': launches, 'cdna_tail_eff': eff}
+    return {'cdna_tail': launches, 'cdna_tail_eff': eff,
+            'cdna_tail_dna': dna_launches}
 
 
 def graph_ms(fn, arg_sets, reps):
@@ -707,6 +781,17 @@ def check_probe(gen):
         PROBE_SHAPE, err))
     if not torch.equal(got, want):
         raise AssertionError('add_one is not x + 1')
+    # an odd length, a tensor sliced one element in (not 16-byte aligned,
+    # while its output is) and an empty tensor
+    base = torch.randn(4099, generator=gen, device='cuda') * 1e3
+    for label, x in (('odd length', base[:4097]),
+                     ('sliced one element in', base[1:]),
+                     ('empty', base[:0])):
+        got = add_one(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, add_one_reference(x)):
+            raise AssertionError('add_one is not x + 1 ({})'.format(label))
+        print('add_one {} (n={}): exact'.format(label, x.numel()))
     return launches, err
 
 
@@ -975,10 +1060,14 @@ def time_tail(gen, b, card):
     return res
 
 
-def eff_bound(args, outs, sna):
-    """Least time for the effective-kernel entry on an H100 SXM: every
-    input read once and every output written once, against the f32
-    arithmetic of the in-bounds taps and the compositing."""
+def eff_bound(args, outs, sna, dna=False):
+    """Least time for the effective-kernel entry (or, with ``dna``, the DNA
+    mode, whose fifth and sixth inputs are the logits and the masks) on an
+    H100 SXM: every input read once and every output written once, against
+    the f32 arithmetic of the in-bounds taps and the compositing and, in the
+    DNA mode, of the field: for each tap the shifted ReLU (three
+    operations), the sum, the division and the product with the transform
+    masks' total, and that total."""
     b, h, w, c = args[0].shape
     p, kk = args[2].shape[-1], args[4].shape[-1]
     k = int(round(kk ** 0.5))
@@ -987,37 +1076,50 @@ def eff_bound(args, outs, sna):
     rows = k * h - 2 * sum(range(1, pad + 1))
     cols = k * w - 2 * sum(range(1, pad + 1))
     fma = b * rows * cols * (c + p) + b * h * w * (c + p) * (2 if sna else 1)
+    flop = 2 * fma
+    if dna:
+        nc = args[5].shape[-1]
+        flop += b * h * w * (6 * kk + nc - (2 if sna else 1))
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2 * fma / PEAK_F32_FLOP_PER_S
+    t_ops = flop / PEAK_F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
                                        else 'operations'), t_bytes * 1e3
 
 
 def time_eff(gen, b, card):
-    """The effective-kernel entry at DNA's serving shape (48x64, C=3, P=1,
-    K=5, SNA, bf16) and batch ``b``: kernel and plain version (CUDA graph,
-    CUDA events), the bound and the kernel's share of the memory rate."""
+    """The effective-kernel entry and the DNA mode at DNA's serving shape
+    (48x64, C=3, P=1, K=5, SNA, bf16; the DNA mode with the classic
+    backbone's f32 masks, 12 a pixel) and batch ``b``: kernel and plain
+    version (CUDA graph, CUDA events), each bound from its own inputs and
+    the kernel's share of the memory rate.  Returns ``{'eff': {...}, 'dna':
+    {...}}``."""
     from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_dna, fused_warp_composite_dna_reference,
         fused_warp_composite_eff, fused_warp_composite_eff_reference)
-    sets = [eff_inputs(gen, b, torch.bfloat16) for _ in range(4)]
-    res = {'ms': graph_ms(lambda *a: fused_warp_composite_eff(*a), sets,
-                          reps=100),
-           'plain_ms': graph_ms(
-               lambda *a: fused_warp_composite_eff_reference(*a), sets,
-               reps=10)}
-    outs = fused_warp_composite_eff_reference(*sets[0])
-    res['bound_ms'], res['bound_by'], bytes_ms = eff_bound(sets[0], outs,
-                                                           sna=True)
-    del sets
-    share = bytes_ms / res['ms']
-    print('cdna_tail_eff_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
-          '(by {}), {:.1%} of 3.35 TB/s (B={} bf16, 48x64, C=3, P=1, K=5, '
-          'SNA, CUDA graph, CUDA events) [{}]'.format(
-              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
-              share, b, card))
-    if share > 1.0:
-        raise AssertionError('the eff kernel moved its bytes faster than the '
-                             'card can: the timing is wrong')
+    res = {}
+    for mode, make, kernel, plain in (
+            ('eff', eff_inputs, fused_warp_composite_eff,
+             fused_warp_composite_eff_reference),
+            ('dna', dna_inputs, fused_warp_composite_dna,
+             fused_warp_composite_dna_reference)):
+        sets = [make(gen, b, torch.bfloat16) for _ in range(4)]
+        r = {'ms': graph_ms(lambda *a: kernel(*a), sets, reps=100),
+             'plain_ms': graph_ms(lambda *a: plain(*a), sets, reps=10)}
+        outs = plain(*sets[0])
+        r['bound_ms'], r['bound_by'], bytes_ms = eff_bound(
+            sets[0], outs, sna=True, dna=mode == 'dna')
+        del sets, outs
+        share = bytes_ms / r['ms']
+        print('cdna_tail_{}_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
+              '(by {}), {:.1%} of 3.35 TB/s (B={} bf16{}, 48x64, C=3, P=1, '
+              'K=5, SNA, CUDA graph, CUDA events) [{}]'.format(
+                  mode, r['ms'], r['plain_ms'], r['bound_ms'], r['bound_by'],
+                  share, b, ', f32 masks' if mode == 'dna' else '', card))
+        if share > 1.0:
+            raise AssertionError('the {} kernel moved its bytes faster than '
+                                 'the card can: the timing is wrong'.format(
+                                     mode))
+        res[mode] = r
     return res
 
 
@@ -1228,6 +1330,7 @@ def main():
     profile_replan(lambda: fuse_ctrl.perform_CEM(fuse_states))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
+    dna_path = paths['controller_classic_dna']
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items() if n[name]}
@@ -1242,14 +1345,26 @@ def main():
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
         'bound_by': tail['bound_by'], 'library_ms': None}, {
+        # the source's second kernel, cdna_tail_eff_kernel: its DNA mode
+        # on the DNA paths (the top-level numbers), its field-given entry
+        # (the Pallas function's own contract) on none
         'name': 'cdna_tail_eff', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
-        'launches': paths['controller_classic_dna']['cdna_tail_eff'],
-        'launches_by_path': by_path('cdna_tail_eff'),
-        'max_abs_err': eff_err, 'ms': eff['ms'],
-        'plain_ms': eff['plain_ms'], 'bound_ms': eff['bound_ms'],
-        'bound_by': eff['bound_by'], 'library_ms': None}, {
+        'launches': sum(dna_path[e] for e in ('cdna_tail_dna',
+                                              'cdna_tail_eff')),
+        'launches_by_path': by_path('cdna_tail_dna'),
+        'max_abs_err': eff_err['dna'], 'ms': eff['dna']['ms'],
+        'plain_ms': eff['dna']['plain_ms'],
+        'bound_ms': eff['dna']['bound_ms'],
+        'bound_by': eff['dna']['bound_by'], 'library_ms': None,
+        'entries': {
+            'cdna_tail_dna_forward': dict(
+                eff['dna'], launches=dna_path['cdna_tail_dna'],
+                max_abs_err=eff_err['dna']),
+            'cdna_tail_eff_forward': dict(
+                eff['eff'], launches=dna_path['cdna_tail_eff'],
+                max_abs_err=eff_err['eff'])}}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

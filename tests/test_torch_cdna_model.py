@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_tpu.models import cdna as jcdna
 from visual_foresight_torch.models import cdna as tcdna
 from visual_foresight_torch.models.convert import load_flax_params

@@ -230,21 +230,21 @@ def test_teacher_forced_forward_matches_flax(case):
 
 
 @pytest.mark.parametrize('kw,tail,blocks', [
-    (CLASSIC, 'folded', 0), (dict(CLASSIC, dna=True), 'eff', 0),
-    (dict(STD, dna=True), 'eff', 0), (STD, 'folded', 4),
+    (CLASSIC, 'folded', 0), (dict(CLASSIC, dna=True), 'dna', 0),
+    (dict(STD, dna=True), 'dna', 0), (STD, 'folded', 4),
     (dict(STD, s2d_tail=True), 'folded', 4)],
     ids=['classic', 'classic-dna', 'std-dna', 'std', 'std-s2d-tail'])
 def test_each_architecture_takes_its_tail(kw, tail, blocks, monkeypatch):
     """CDNA runs the folded tail (full-resolution masks on the classic
-    backbone), DNA the effective-kernel entry with the full-resolution
-    field and the background masks; ``s2d_tail`` takes the same tail as
-    without it."""
+    backbone), DNA the DNA mode with the full-resolution logits and masks
+    (f32 on the classic backbone, the compute type on the space-to-depth
+    one); ``s2d_tail`` takes the same tail as without it."""
     seen = []
-    for name in ('fused_warp_composite', 'fused_warp_composite_eff'):
+    for name in ('fused_warp_composite', 'fused_warp_composite_dna'):
         fn = getattr(tcdna, name)
         monkeypatch.setattr(
             tcdna, name, lambda *a, _f=fn, _n=name, **k: seen.append(
-                (_n, tuple(a[4].shape), tuple(a[5].shape),
+                (_n, tuple(a[4].shape), tuple(a[5].shape), a[5].dtype,
                  k.get('mask_block'))) or _f(*a, **k))
     tm = tcdna.CDNAPredictor((H, W), **kw)
     gen = torch.Generator().manual_seed(0)
@@ -256,14 +256,16 @@ def test_each_architecture_takes_its_tail(kw, tail, blocks, monkeypatch):
                                   torch.rand((b, 2, H, W, 1), generator=gen))
         n_context = len(seen)
         tm.rollout_from(carry, torch.zeros((b, 2, 3)))
-    if tail == 'eff':
-        want = ('fused_warp_composite_eff', (b, H, W, 25), (b, H, W, 2),
-                None)
+    if tail == 'dna':
+        want = ('fused_warp_composite_dna', (b, H, W, 25), (b, H, W, nc),
+                torch.float32, None)
     elif blocks:
         want = ('fused_warp_composite', (b, 5, 5, 4),
-                (b, H // blocks, W // blocks, blocks * blocks * nc), blocks)
+                (b, H // blocks, W // blocks, blocks * blocks * nc),
+                torch.float32, blocks)
     else:
-        want = ('fused_warp_composite', (b, 5, 5, 4), (b, H, W, nc), 0)
+        want = ('fused_warp_composite', (b, 5, 5, 4), (b, H, W, nc),
+                torch.float32, 0)
     assert n_context == 1 and seen == [want] * 3
 
 

@@ -21,6 +21,7 @@ import pytest
 
 from test_controllers import AG_PARAMS, BASE_POLICY, SMALL_PREDICTOR
 from test_torch_planner import _jax_replan_draws
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_torch.models.convert import params_from_flax
 from visual_foresight_torch.policy.cem_controllers import PixelCostController
 from visual_foresight_tpu.policy.cem_controllers.pixel_cost_controller import (

@@ -12,6 +12,7 @@ import pytest
 from test_controllers import AG_PARAMS
 from test_torch_controller import (POLICY, PREDICTOR, _controllers,
                                    _run_side_by_side)
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_torch.policy.cem_controllers import PixelCostController
 
 # the grasp-transport campaigns: (x, y, z, theta) deltas, a 5-dim state and

@@ -23,6 +23,7 @@ import pytest
 from test_controllers import AG_PARAMS
 from test_torch_controller import PREDICTOR
 from test_torch_host_loop import SAMPLERS, SEED, _compare_step, _frames, _pair
+from test_torch_planner import few_torch_threads  # noqa: F401
 from test_torch_planner_samplers import (_ridge_factor_jax,
                                          _ridge_factor_torch, jax_mode_draws)
 from visual_foresight_torch.planners import gaussian as tgauss

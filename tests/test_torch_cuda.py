@@ -1,6 +1,6 @@
 """The port's kernels against their plain versions on the card: the CDNA
-tail (its folded entry and its effective-kernel entry) and the toolchain
-probe's ``add_one``.
+tail (its folded entry, its effective-kernel entry and its DNA mode) and the
+toolchain probe's ``add_one``.
 
 Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -10,8 +10,9 @@ resolution and blocked) at the serving shapes and at shapes that stress the
 tiled variant's 8 x 64 tiles and four pixels per thread; the frames are
 random or all ones, so that a wrong halo shows at the border.  The
 effective-kernel entry is held against its plain version at DNA's serving
-shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off, and inside a
-small classic-DNA rollout.
+shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off; the DNA mode
+at the same shapes with f32 masks and masks in the compute type, and inside
+a small classic-DNA rollout.
 
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
@@ -21,7 +22,8 @@ import pytest
 import torch
 
 from visual_foresight_torch.ops.cdna_tail import (
-    fused_warp_composite, fused_warp_composite_eff,
+    fused_warp_composite, fused_warp_composite_dna,
+    fused_warp_composite_dna_reference, fused_warp_composite_eff,
     fused_warp_composite_eff_reference, fused_warp_composite_reference)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import space_to_depth
@@ -187,6 +189,23 @@ def test_add_one_matches_plain_on_card(shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('case', ['odd-length', 'sliced-one-in', 'empty'])
+def test_add_one_edge_cases_on_card(case):
+    """Exact at an odd length (the vector body and a scalar tail), on a
+    tensor sliced one element in (not 16-byte aligned, while its output is)
+    and at n = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    base = torch.randn(4099, generator=gen, device='cuda') * 1e3
+    x = {'odd-length': base[:4097], 'sliced-one-in': base[1:],
+         'empty': base[:0]}[case]
+    got = add_one(x)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and torch.equal(got, add_one_reference(x))
+
+
+@pytest.mark.cuda
 def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
     """One MPPI replan of a small f32 model (32 samples x 6 steps x 3
     iterations, 48x64, anchored): the tail kernel against the plain tail on
@@ -287,11 +306,53 @@ def test_eff_kernel_matches_plain_on_card(case, dtype):
                     TOL[dtype]
 
 
+def _dna_args(gen, dtype, mask_dtype, b, h, w, c=3, p=1, k=5, sna=True,
+              ones=False, m=10):
+    """Frames, DNA logits (some below zero) and softmax masks over the
+    background and ``m`` transform masks, in ``mask_dtype``."""
+    nc = m + (2 if sna else 1)
+    frame = lambda *s: torch.ones(s, device='cuda') if ones else \
+        torch.rand(s, generator=gen, device='cuda')
+    logits = torch.randn((b, h, w, k * k), generator=gen,
+                         device='cuda') * 0.5 + 0.3
+    masks = torch.softmax(2.0 * torch.randn((b, h, w, nc), generator=gen,
+                                            device='cuda'), dim=-1)
+    return tuple(t.to(dtype).contiguous() for t in (
+        frame(b, h, w, c), frame(b, h, w, c), frame(b, h, w, p),
+        frame(b, h, w, p), logits)) + (masks.to(mask_dtype).contiguous(),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,mask_dtype', [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)], ids=['f32', 'bf16-f32-masks', 'bf16'])
+@pytest.mark.parametrize('case', EFF_CASES, ids=[c[0] for c in EFF_CASES])
+def test_dna_kernel_matches_plain_on_card(case, dtype, mask_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    shape = dict(case[1])
+    sna = shape.get('sna', True)
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    for ones in (False, True):
+        args = _dna_args(gen, dtype, mask_dtype, ones=ones, **shape)
+        before = fused_warp_composite_dna.launches
+        got = fused_warp_composite_dna(*args, sna=sna)
+        want = fused_warp_composite_dna_reference(*args, sna=sna)
+        torch.cuda.synchronize()
+        assert fused_warp_composite_dna.launches == before + 1
+        for g, r in zip(got, want):
+            assert g.dtype == dtype and g.shape == r.shape
+            if g.numel():
+                assert float((g.float() - r.float()).abs().max()) <= \
+                    TOL[dtype]
+
+
 @pytest.mark.cuda
 def test_classic_dna_rollout_kernel_matches_plain_on_card(monkeypatch):
     """A small f32 classic-DNA model (48x64, 8 samples, 4 steps): the
-    rollout through the effective-kernel kernel against the same rollout
-    through its plain version, atol 1e-5; one launch a step."""
+    rollout through the DNA mode against the same rollout through its
+    plain version, atol 1e-5; one launch a step, none of the field-given
+    entry."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from visual_foresight_torch.models import cdna as cdna_model
@@ -306,12 +367,15 @@ def test_classic_dna_rollout_kernel_matches_plain_on_card(monkeypatch):
     acts = torch.randn((8, 4, 3), generator=gen, device='cuda') * 0.1
     with torch.no_grad():
         carry = model.encode_context(imgs, acts[:, :1], None, dists)
-        before = fused_warp_composite_eff.launches
+        before = (fused_warp_composite_dna.launches,
+                  fused_warp_composite_eff.launches)
         got = model.rollout_from(carry, acts)
         torch.cuda.synchronize()
-        assert fused_warp_composite_eff.launches == before + 4
-        monkeypatch.setattr(cdna_model, 'fused_warp_composite_eff',
-                            fused_warp_composite_eff_reference)
+        assert (fused_warp_composite_dna.launches,
+                fused_warp_composite_eff.launches) == (before[0] + 4,
+                                                       before[1])
+        monkeypatch.setattr(cdna_model, 'fused_warp_composite_dna',
+                            fused_warp_composite_dna_reference)
         want = model.rollout_from(carry, acts)
     for key in ('gen_images', 'gen_distribs'):
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-5)

@@ -28,6 +28,7 @@ import pytest
 from test_controllers import AG_PARAMS, BASE_POLICY
 from test_torch_controller import POLICY, PREDICTOR, _perturbed
 from test_torch_planner import _jax_replan_draws
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_torch.models.convert import params_from_flax
 from visual_foresight_torch.policy.cem_controllers import (GoalImController,
                                                            PixelCostController)

@@ -36,6 +36,20 @@ HP = {'initial_std': 0.05, 'initial_std_lift': 0.15,
       'initial_std_rot': np.pi / 18, 'initial_std_grasp': 2,
       'nactions': 5, 'repeat': 3}
 
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True)
+def few_torch_threads():
+    """At most ``TORCH_THREADS`` torch threads a test.  The suite runs in
+    several processes at once; with torch's whole thread pool in each, the
+    cores are oversubscribed and a replay that takes 2 s alone took 250 s.
+    Autouse here and in every port test module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, TORCH_THREADS))
+    yield
+    torch.set_num_threads(n)
+
 
 def _np(x):
     return np.asarray(x.detach().numpy() if isinstance(x, torch.Tensor)

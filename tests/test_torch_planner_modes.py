@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_planner import MODE_ACTION_RTOL, _check_replan_against_jax
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_tpu.planners import costs as jcosts
 from visual_foresight_torch.planners import costs as tcosts
 

@@ -29,6 +29,7 @@ import torch
 
 from test_torch_planner import (HP, MODE_ACTION_RTOL, _jax_sample_normals,
                                 _np, small_models)
+from test_torch_planner import few_torch_threads  # noqa: F401
 from test_torch_samplers import jax_folding_draws
 from visual_foresight_torch.planners import costs as tcosts
 from visual_foresight_torch.planners import gaussian as tgauss

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_torch.models.convert import params_from_flax
 from visual_foresight_torch.prediction import predictor as tpred
 from visual_foresight_tpu.prediction.predictor import TPUPredictor

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_planner import few_torch_threads  # noqa: F401
 from visual_foresight_torch.planners import gaussian as tgauss
 from visual_foresight_torch.policy.cem_controllers.samplers import (
     autograsp_epsilon as t_age, autograsp_sampler as t_ag,

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 from test_torch_planner import _jax_replan_draws
+from test_torch_planner import few_torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W = 48, 64

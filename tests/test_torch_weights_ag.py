@@ -21,6 +21,7 @@ import jax
 import numpy as np
 import pytest
 
+from test_torch_planner import few_torch_threads  # noqa: F401
 from test_torch_weights import (AG_R5F_V2, H, LIVE_ATOL, LIVE_RTOL,
                                 PORT_ATOL, PORT_RTOL,
                                 _check_export_bit_for_bit,

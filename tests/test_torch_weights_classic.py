@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_planner import few_torch_threads  # noqa: F401
 from test_torch_weights import (H, W, Export, _check_golden_is_live,
                                 _check_port_replays, _check_port_restores,
                                 _load, flatten_params, golden_inputs,
@@ -58,18 +59,6 @@ CLASSIC_DNA = Export('classic_dna', adim=3, sdim=3, latent_dim=0,
                      n_params=469466, golden=dict(GOLDEN, seed=42),
                      spec_hp=SPEC_HP)
 EXPORTS = {CLASSIC_CDNA: False, CLASSIC_DNA: True}     # export: dna
-TORCH_THREADS = 2
-
-
-@pytest.fixture(autouse=True)
-def few_torch_threads():
-    """At most ``TORCH_THREADS`` torch threads a test.  The suite runs in
-    several processes at once; with torch's whole thread pool in each, the
-    cores are oversubscribed and a replay that takes 2 s alone took 250 s."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, TORCH_THREADS))
-    yield
-    torch.set_num_threads(n)
 
 
 def model_config(dna):

@@ -6,8 +6,10 @@
 // and also folds in the mask x CDNA-kernel contraction that the TPU path left
 // to XLA (visual_foresight_tpu/ops/cdna_warp.py effective_pixel_kernels), so
 // the (B, H, W, K*K) effective-kernel field never reaches device memory.
-// A second entry point, cdna_tail_eff_forward, serves the Pallas function's
-// own contract (the field given, for DNA); see "Effective-kernel mode".
+// A second kernel serves the Pallas function's own contract (the field given,
+// entry cdna_tail_eff_forward) and, in its DNA mode (entry
+// cdna_tail_dna_forward), makes DNA's field from the DNA head's logits and
+// the masks itself; see "Effective-kernel entry and DNA mode".
 //
 // For every output pixel (b, h, w), with offset = 2 if SNA else 1:
 //   eff[t]   = sum_m masks[b,h,w,offset+m] * kernels[b,t/K,t%K,m]      (t < K*K)
@@ -178,88 +180,6 @@ cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
 #pragma unroll
         for (int c = 0; c < kMaxChannels; ++c)
           if (c < P) acc_dst[c] = fmaf(e, load(prev_distrib, q * P + c), acc_dst[c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < C) {
-      float v = load(prev, here * C + c) * m0 + acc_img[c];
-      if (sna) v += load(first, here * C + c) * m1;
-      store(out_img, here * C + c, v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < P) {
-      float v = load(prev_distrib, here * P + c) * m0 + acc_dst[c];
-      if (sna) v += load(first_distrib, here * P + c) * m1;
-      store(out_distrib, here * P + c, v);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Effective-kernel mode: the contract of the Pallas function itself
-// (fused_warp_composite_eff): the per-pixel kernel field eff (B, H, W, K*K)
-// and the background masks bg (B, H, W, nbg), nbg = 1 or 2, come from the
-// caller; DNA predicts such a field outright.  One thread per output pixel,
-// 256 pixels per block, everything read straight from global memory.
-//
-// Bound on an H100 SXM at DNA's serving shapes (48x64, C=3, P=1, K=5, SNA,
-// bf16), per sample: prev and first (18,432 bytes each), both distributions
-// (6,144 each), the field (153,600), the two background masks (12,288), the
-// frame and the distribution written (18,432 + 6,144): 239,616 bytes, so
-// 184.0 MB and 54.9 us at B=768, 47.9 MB and 14.3 us at B=200, at 3.35
-// TB/s.  About 108 FMAs a pixel (25 taps x 4 channels, 8 for compositing):
-// 0.51 GFLOP (7.6 us at 67 TFLOP/s of f32) at B=768, so it is bound by
-// bytes, the field being two thirds of them.  A thread's K*K field values
-// are one contiguous run and neighbouring threads' runs follow each other,
-// so after a warp's first tap its field loads hit the lines L1 already holds.
-// ---------------------------------------------------------------------------
-
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-cdna_tail_eff_kernel(const T* __restrict__ prev, const T* __restrict__ first,
-                     const T* __restrict__ prev_distrib,
-                     const T* __restrict__ first_distrib, const T* __restrict__ eff,
-                     const T* __restrict__ bg, T* __restrict__ out_img,
-                     T* __restrict__ out_distrib, int H, int W, int C, int P, int nbg,
-                     int sna) {
-  const int b = blockIdx.y;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= H * W) return;
-  const int h = pix / W;
-  const int w = pix - h * W;
-  const long sample = (long)b * H * W;
-  const long here = sample + pix;
-  const T* e = eff + here * (K * K);
-  const float m0 = load(bg, here * nbg);
-  const float m1 = sna ? load(bg, here * nbg + 1) : 0.f;
-
-  float acc_img[kMaxChannels];
-  float acc_dst[kMaxChannels];
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    acc_img[c] = 0.f;
-    acc_dst[c] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int hh = h + i - K / 2;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int ww = w + j - K / 2;
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        const float t = load(e, i * K + j);
-        const long q = sample + (long)hh * W + ww;
-#pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c)
-          if (c < C) acc_img[c] = fmaf(t, load(prev, q * C + c), acc_img[c]);
-#pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c)
-          if (c < P) acc_dst[c] = fmaf(t, load(prev_distrib, q * P + c), acc_dst[c]);
       }
     }
   }
@@ -526,6 +446,71 @@ struct TileGeometry {
   }
 };
 
+// The input window of frame channels (raw_c) and distribution channels
+// (raw_p), staged as they came, restaged as packed f32 pixels with the halo:
+// NP planes of float4, plane q holding channels 4q..4q+3 of every staged
+// pixel (the C frame channels first, then the P distribution channels), so
+// that neighbouring threads' 16-byte loads fall on consecutive addresses.
+// Zero outside the image and in the channels not in use.
+template <typename T, int K, int NP>
+__device__ __forceinline__ void stage_tile(float4* __restrict__ tile, const T* __restrict__ raw_c,
+                                           const T* __restrict__ raw_p,
+                                           const TileGeometry<T>& g, int H, int W, int C,
+                                           int P) {
+  constexpr int kPad = K / 2, kTileWP = kTileW + K - 1, kTileHP = kTileH + K - 1;
+  constexpr int kN = kTileHP * kTileWP;
+#pragma unroll
+  for (int sp0 = 0; sp0 < kN; sp0 += kTiledThreads) {
+    const int sp = sp0 + threadIdx.x;
+    if (sp >= kN) break;
+    const int trow = sp / kTileWP;
+    const int h = g.h0 - kPad + trow;
+    const int w = g.w0 - kPad + sp - trow * kTileWP;
+    float v[kPack * NP] = {};
+    if (h >= 0 && h < H && w >= 0 && w < W) {
+      const T* pc = raw_c + (h - g.r_lo) * g.in_c.stride + (w - g.c_lo) * C;
+      const T* pp = raw_p + (h - g.r_lo) * g.in_p.stride + (w - g.c_lo) * P - C;
+#pragma unroll
+      for (int ch = 0; ch < kPack * NP; ++ch) {
+        if (ch < C) v[ch] = to_float(pc[ch]);
+        else if (ch < C + P) v[ch] = to_float(pp[ch]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < NP; ++q)
+      tile[q * kN + sp] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+}
+
+// The tile's outputs, composited in shared memory in their own layout and
+// type, to global memory: one bulk store each where both are runs of whole
+// 16-byte words, else 16 bytes (or one element) a thread.
+template <typename T>
+__device__ __forceinline__ void store_outputs(T* __restrict__ out_img,
+                                              T* __restrict__ out_distrib,
+                                              const TileGeometry<T>& g, T* raw_out,
+                                              T* raw_od, int P) {
+  const SpanT<T> outs[2] = {
+      {out_img + g.io_c.origin, raw_out, g.io_c.rows, g.io_c.len},
+      {out_distrib + g.io_p.origin, raw_od, g.io_p.rows, P ? g.io_p.len : 0}};
+  const bool bulk_out = outs[0].whole_words() && outs[1].whole_words();
+  if (bulk_out) fence_async_shared();
+  __syncthreads();
+  if (bulk_out) {
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (outs[i].len) bulk_store(outs[i].g, outs[i].s, outs[i].len * sizeof(T));
+      bulk_store_wait();
+    }
+  } else {
+    copy_out(out_img + g.io_c.origin, g.io_c.rows, g.io_c.g_stride, g.io_c.len, raw_out,
+             g.io_c.stride);
+    copy_out(out_distrib + g.io_p.origin, g.io_p.rows, g.io_p.g_stride, outs[1].len,
+             raw_od, g.io_p.stride);
+  }
+}
+
 template <typename T, int K, int MP>
 __global__ void __launch_bounds__(kTiledThreads)
 cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
@@ -610,27 +595,8 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
   __syncthreads();   // the mbarrier is set up, the kernels and the copies are in
   if (bulk) mbarrier_wait(&arrived);
 
-  // 2. the input tile with its halo as packed f32 pixels, zero outside the
-  //    image and in the channels not in use
-#pragma unroll
-  for (int sp0 = 0; sp0 < kTileHP * kTileWP; sp0 += kTiledThreads) {
-    const int sp = sp0 + tid;
-    if (sp >= kTileHP * kTileWP) break;
-    const int trow = sp / kTileWP;
-    const int h = g.h0 - kPad + trow;
-    const int w = g.w0 - kPad + sp - trow * kTileWP;
-    float v[kPack] = {0.f, 0.f, 0.f, 0.f};
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      const T* pc = raw_prev + (h - g.r_lo) * g.in_c.stride + (w - g.c_lo) * C;
-      const T* pp = raw_pd + (h - g.r_lo) * g.in_p.stride + (w - g.c_lo) * P - C;
-#pragma unroll
-      for (int ch = 0; ch < kPack; ++ch) {
-        if (ch < C) v[ch] = to_float(pc[ch]);
-        else if (ch < C + P) v[ch] = to_float(pp[ch]);
-      }
-    }
-    tile4[sp] = make_float4(v[0], v[1], v[2], v[3]);
-  }
+  // 2. the input tile with its halo as packed f32 pixels
+  stage_tile<T, K, 1>(tile4, raw_prev, raw_pd, g, H, W, C, P);
   __syncthreads();
 
   // 3. four pixels of one column per thread: rows r0..r0+3 of the tile
@@ -743,25 +709,274 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
     }
   }
   // 4. the outputs' bytes to global memory, the same two ways
-  const SpanT<T> outs[2] = {
-      {out_img + g.io_c.origin, raw_out, g.io_c.rows, g.io_c.len},
-      {out_distrib + g.io_p.origin, raw_od, g.io_p.rows, P ? g.io_p.len : 0}};
-  const bool bulk_out = outs[0].whole_words() && outs[1].whole_words();
-  if (bulk_out) fence_async_shared();
-  __syncthreads();
-  if (bulk_out) {
-    if (tid == 0) {
+  store_outputs(out_img, out_distrib, g, raw_out, raw_od, P);
+}
+
+// ---------------------------------------------------------------------------
+// Effective-kernel entry and DNA mode.
+//
+// The effective-kernel entry serves the contract of the Pallas function
+// itself (fused_warp_composite_eff): the per-pixel kernel field eff (B, H, W,
+// K*K) and the background masks bg (B, H, W, nbg), nbg = 1 or 2, come from
+// the caller.  The DNA mode (kDna) reads what the DNA head and the mask head
+// leave instead - the logits l (B, H, W, K*K) in the compute type T and the
+// softmax masks (B, H, W, nc) in T or f32 - and makes the field per pixel in
+// f32, as visual_foresight_tpu/models/cdna.py:461-466 does:
+//   pk  = relu(l - 1e-12) + 1e-12;   pk /= sum_t pk
+//   eff = round_T(pk * round_TM(sum_m masks[offset + m]));   bg = round_T(masks[:offset])
+// The two roundings to the compute type keep the port's arithmetic JAX's.
+//
+// Bound on an H100 SXM at DNA's serving shapes (48x64, C=3, P=1, K=5, SNA,
+// bf16), per sample.  Effective-kernel entry: prev and first (18,432 bytes
+// each), both distributions (6,144 each), the field (153,600), the two
+// background masks (12,288), the frame and the distribution written (18,432
+// + 6,144): 239,616 bytes, so 184.0 MB and 54.9 us at B=768, 47.9 MB and 14.3
+// us at B=200, at 3.35 TB/s.  DNA mode: the field's 153,600 bytes of logits
+// and 147,456 bytes of f32 masks (12 a pixel) in place of the field and the
+// background masks: 374,784 bytes, 287.8 MB and 85.9 us at B=768, 75.0 MB and
+// 22.4 us at B=200.  About 108 FMAs a pixel (25 taps x 4 channels, 8 for
+// compositing) and, in the DNA mode, about ten more operations a tap for
+// the field (250 a pixel): bound by bytes either way.
+//
+// What held the first design (one thread a pixel, everything read from
+// global memory) at 2.8-3.4 times its bound was load instructions: per pixel
+// 25 two-byte field loads with neighbouring threads 50 bytes apart, 100
+// neighbour loads at 6- and 2-byte strides behind a bounds test each, for
+// 108 FMAs.  The redesign takes the tiled variant's machinery: one block of
+// 128 threads owns a tile of 8 rows x 64 columns of one sample, and each
+// thread computes four vertically neighbouring pixels;
+//   * the frame and distribution window with its halo, the tile's part of
+//     the SNA background, its field (logits) and its masks come into shared
+//     memory as they are: where each is one run of whole 16-byte words (at
+//     W = 64 a tile spans whole rows, so its field is one run of 512 x 25
+//     values) one thread hands them to the copy engine (cp.async.bulk on an
+//     mbarrier), elsewhere 16-byte cp.async or single elements;
+//   * the frame and distributions are restaged as packed f32 pixels with a
+//     zero halo, one plane of float4 where C + P <= 4 and two planes up to 8,
+//     so the inner loop has no bounds test and one 16-byte shared load
+//     brings four channels of a tap; the sliding window of K+3 rows serves
+//     the four pixels of a column;
+//   * the field stays where it landed, in its own type: a thread reads tap
+//     t of its pixel at a stride of K*K values from its neighbour's, which
+//     falls on distinct banks in f32 and on at most two words a bank in
+//     bf16.  Restaging it tap-major as f32 would double its shared memory
+//     (51,200 bytes a tile at K=5) and cost a pass of stores for reads that
+//     are already free of conflicts;
+//   * the DNA mode makes the field in place: each thread normalizes its own
+//     four pixels' logits, weighs them by the transform masks' total and
+//     writes the rounded field over them, so no other thread waits on it;
+//   * the outputs are composited into the shared copy of the input window,
+//     free once it is restaged, and leave with bulk stores.
+// It serves K in (3, 5, 7), C <= 4, P <= 4, any H and W, SNA on and off,
+// f32 and bf16.
+// ---------------------------------------------------------------------------
+
+constexpr float kReluShift = 1e-12f;   // visual_foresight_tpu/models/cdna.py:463
+
+// v rounded to the type T (f32: unchanged).
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Shared memory of one block, in bytes; every region starts on 16 bytes.
+// The field's masks are nm channels of TM a pixel.
+template <typename T, typename TM, int K, int NP>
+struct EffShape {
+  static constexpr int V = 16 / sizeof(T), VM = 16 / sizeof(TM);
+  static constexpr int kTileWP = kTileW + K - 1, kTileHP = kTileH + K - 1;
+  static constexpr int kTileBytes = 16 * NP * kTileHP * kTileWP;
+  // the input window as it came (later the outputs), the tile's SNA
+  // background and field, in elements of T
+  static constexpr int kRawIn = kTileHP * (kTileWP * kPack * NP + 2 * V);
+  static constexpr int kRawIo = kTileH * (kTileW * kPack * NP + 2 * V);
+  static constexpr int kRawField = kTileH * (kTileW * K * K + V);
+  static constexpr size_t bytes(int nm) {
+    return kTileBytes + sizeof(T) * (kRawIn + kRawIo + kRawField) +
+           sizeof(TM) * kTileH * (kTileW * nm + VM);
+  }
+};
+
+template <typename T, typename TM, int K, int NP, bool kDna>
+__global__ void __launch_bounds__(kTiledThreads)
+cdna_tail_eff_kernel(const T* __restrict__ prev, const T* __restrict__ first,
+                     const T* __restrict__ prev_distrib,
+                     const T* __restrict__ first_distrib, const T* __restrict__ field,
+                     const TM* __restrict__ masks, T* __restrict__ out_img,
+                     T* __restrict__ out_distrib, int H, int W, int C, int P, int nm,
+                     int sna) {
+  using S = EffShape<T, TM, K, NP>;
+  constexpr int kKK = K * K, kPad = K / 2, kTileWP = S::kTileWP;
+  constexpr int kN = S::kTileHP * kTileWP;                 // staged pixels a plane
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long arrived;                    // mbarrier of the bulk loads
+  float4* tile = smem4;                                     // [NP][kN]
+  T* raw_prev = reinterpret_cast<T*>(smem4 + NP * kN);
+  T* raw_first = raw_prev + S::kRawIn;
+  T* raw_field = raw_first + S::kRawIo;
+  TM* raw_m = reinterpret_cast<TM*>(raw_field + S::kRawField);
+  T* raw_out = raw_prev;                                    // once the window is restaged
+
+  const int tid = threadIdx.x;
+  const TileGeometry<T> g(blockIdx.x, blockIdx.y, blockIdx.z, H, W, C, P, nm, 0, kPad);
+  const Window fw = make_window<T>(g.b, H, W, kKK, g.h0, g.h1, g.w0, g.w1);
+  const Window mw = make_window<TM>(g.b, H, W, nm, g.h0, g.h1, g.w0, g.w1);
+  T* raw_pd = raw_prev + g.in_c.size;
+  T* raw_fd = raw_first + g.io_c.size;
+  T* raw_od = raw_out + g.io_c.size;
+
+  // 1. the tensors' bytes into shared memory, as the tiled variant brings them
+  const SpanT<const T> spans[5] = {
+      {prev + g.in_c.origin, raw_prev, g.in_c.rows, g.in_c.len},
+      {prev_distrib + g.in_p.origin, raw_pd, g.in_p.rows, P ? g.in_p.len : 0},
+      {first + g.io_c.origin, raw_first, g.io_c.rows, sna ? g.io_c.len : 0},
+      {first_distrib + g.io_p.origin, raw_fd, g.io_p.rows, sna && P ? g.io_p.len : 0},
+      {field + fw.origin, raw_field, fw.rows, fw.len}};
+  const SpanT<const TM> mspan = {masks + mw.origin, raw_m, mw.rows, mw.len};
+  bool bulk = mspan.whole_words();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (outs[i].len) bulk_store(outs[i].g, outs[i].s, outs[i].len * sizeof(T));
-      bulk_store_wait();
+  for (int i = 0; i < 5; ++i) bulk = bulk && spans[i].whole_words();
+  if (bulk) {
+    if (tid == 0) {
+      mbarrier_init(&arrived);
+      unsigned bytes = mspan.len * sizeof(TM);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) bytes += spans[i].len * sizeof(T);
+      mbarrier_expect(&arrived, bytes);
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        if (spans[i].len)
+          bulk_load(spans[i].s, spans[i].g, spans[i].len * sizeof(T), &arrived);
+      bulk_load(mspan.s, mspan.g, mspan.len * sizeof(TM), &arrived);
     }
   } else {
-    copy_out(out_img + g.io_c.origin, g.io_c.rows, g.io_c.g_stride, g.io_c.len,
-             raw_out, g.io_c.stride);
-    copy_out(out_distrib + g.io_p.origin, g.io_p.rows, g.io_p.g_stride, outs[1].len,
-             raw_od, g.io_p.stride);
+    copy_in(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev, g.in_c.stride);
+    copy_in(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd, g.in_p.stride);
+    copy_in(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
+            g.io_c.stride);
+    copy_in(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd, g.io_p.stride);
+    copy_in(spans[4].g, fw.rows, fw.g_stride, fw.len, raw_field, fw.stride);
+    copy_in(mspan.g, mw.rows, mw.g_stride, mw.len, raw_m, mw.stride);
+    cp_async_wait_all();
   }
+  __syncthreads();   // the mbarrier is set up, the copies are in
+  if (bulk) mbarrier_wait(&arrived);
+
+  // 2. the input tile with its halo as packed f32 pixels; in the DNA mode
+  //    each thread makes its own four pixels' field over their logits
+  stage_tile<T, K, NP>(tile, raw_prev, raw_pd, g, H, W, C, P);
+  const int col = tid & (kTileW - 1);
+  const int r0 = (tid / kTileW) * kPx;
+  const bool active = g.w0 + col < W && g.h0 + r0 < H;
+  if (kDna && active) {
+    const int offset = sna ? 2 : 1;
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) {
+      if (g.h0 + r0 + px < H) {
+        T* f = raw_field + (r0 + px) * fw.stride + col * kKK;
+        const TM* m = raw_m + (r0 + px) * mw.stride + col * nm;
+        float pk[kKK], total = 0.f, trans = 0.f;
+#pragma unroll
+        for (int t = 0; t < kKK; ++t) {
+          pk[t] = fmaxf(to_float(f[t]) - kReluShift, 0.f) + kReluShift;
+          total += pk[t];
+        }
+        for (int c = offset; c < nm; ++c) trans += to_float(m[c]);
+        trans = round_to<TM>(trans);
+        // pk / total, correctly rounded as JAX's division is: a product with
+        // the rounded reciprocal and one correction of its residual
+        // (Markstein) instead of an IEEE division per tap
+        const float inv = 1.f / total;
+#pragma unroll
+        for (int t = 0; t < kKK; ++t) {
+          const float q = pk[t] * inv;
+          from_float(f[t], fmaf(fmaf(-q, total, pk[t]), inv, q) * trans);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. four pixels of one column per thread: rows r0..r0+3 of the tile
+  if (active) {
+    const T* f[kPx];
+    float4 acc[kPx][NP];
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) {
+      f[px] = raw_field + (r0 + px) * fw.stride + col * kKK;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) acc[px][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      float4 win[kPx + K - 1][NP];
+#pragma unroll
+      for (int rr = 0; rr < kPx + K - 1; ++rr) {
+#pragma unroll
+        for (int q = 0; q < NP; ++q) win[rr][q] = tile[q * kN + (r0 + rr) * kTileWP + col + j];
+      }
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+#pragma unroll
+        for (int px = 0; px < kPx; ++px) {
+          const float e = to_float(f[px][i * K + j]);
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            const float4 x = win[px + i][q];
+            acc[px][q].x = fmaf(e, x.x, acc[px][q].x);
+            acc[px][q].y = fmaf(e, x.y, acc[px][q].y);
+            acc[px][q].z = fmaf(e, x.z, acc[px][q].z);
+            acc[px][q].w = fmaf(e, x.w, acc[px][q].w);
+          }
+        }
+      }
+    }
+
+    // compositing, and the results in the outputs' own layout and type
+#pragma unroll
+    for (int px = 0; px < kPx; ++px) {
+      const int prow = r0 + px;
+      if (g.h0 + prow < H) {
+        const TM* m = raw_m + prow * mw.stride + col * nm;
+        const float m0 = round_to<T>(to_float(m[0]));
+        const float m1 = sna ? round_to<T>(to_float(m[1])) : 0.f;
+        float xs[kPack * NP], as[kPack * NP];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const float4 x = tile[q * kN + (prow + kPad) * kTileWP + col + kPad];
+          xs[4 * q] = x.x;
+          xs[4 * q + 1] = x.y;
+          xs[4 * q + 2] = x.z;
+          xs[4 * q + 3] = x.w;
+          as[4 * q] = acc[px][q].x;
+          as[4 * q + 1] = acc[px][q].y;
+          as[4 * q + 2] = acc[px][q].z;
+          as[4 * q + 3] = acc[px][q].w;
+        }
+        const int at_c = prow * g.io_c.stride + col * C;
+        const int at_p = prow * g.io_p.stride + col * P - C;
+#pragma unroll
+        for (int ch = 0; ch < kPack * NP; ++ch) {
+          float v = fmaf(xs[ch], m0, as[ch]);
+          if (ch < C) {
+            if (sna) v = fmaf(to_float(raw_first[at_c + ch]), m1, v);
+            from_float(raw_out[at_c + ch], v);
+          } else if (ch < C + P) {
+            if (sna) v = fmaf(to_float(raw_fd[at_p + ch]), m1, v);
+            from_float(raw_od[at_p + ch], v);
+          }
+        }
+      }
+    }
+  }
+  // 4. the outputs' bytes to global memory
+  store_outputs(out_img, out_distrib, g, raw_out, raw_od, P);
 }
 
 // ---------------------------------------------------------------------------
@@ -836,33 +1051,52 @@ cudaError_t dispatch_k(int K, const Args& a, int variant) {
 }
 
 struct EffArgs {
-  const void *prev, *first, *prev_distrib, *first_distrib, *eff, *bg;
+  const void *prev, *first, *prev_distrib, *first_distrib, *field, *masks;
   void *out_img, *out_distrib;
-  int B, H, W, C, P, nbg, sna;
+  int B, H, W, C, P, nm, sna;
   cudaStream_t stream;
 };
 
-template <typename T, int K>
+template <typename T, typename TM, int K, int NP, bool kDna>
 cudaError_t launch_eff(const EffArgs& a) {
-  const dim3 grid((a.H * a.W + kThreads - 1) / kThreads, a.B);
-  cdna_tail_eff_kernel<T, K><<<grid, kThreads, 0, a.stream>>>(
+  using S = EffShape<T, TM, K, NP>;
+  static bool attribute_set = false;   // above 48 KB shared memory is opt-in
+  if (!attribute_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        cdna_tail_eff_kernel<T, TM, K, NP, kDna>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::bytes(kDna ? kMaxMasks + 2 : 2));
+    if (err != cudaSuccess) return err;
+    attribute_set = true;
+  }
+  const int tiles_y = (a.H + kTileH - 1) / kTileH;
+  if (tiles_y > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((a.W + kTileW - 1) / kTileW, tiles_y, a.B);
+  cdna_tail_eff_kernel<T, TM, K, NP, kDna><<<grid, kTiledThreads, S::bytes(a.nm), a.stream>>>(
       static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
       static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
-      static_cast<const T*>(a.eff), static_cast<const T*>(a.bg),
+      static_cast<const T*>(a.field), static_cast<const TM*>(a.masks),
       static_cast<T*>(a.out_img), static_cast<T*>(a.out_distrib), a.H, a.W, a.C, a.P,
-      a.nbg, a.sna);
+      a.nm, a.sna);
   return cudaGetLastError();
 }
 
-template <typename T>
+// one plane of packed channels where C + P <= 4, two up to 8
+template <typename T, typename TM, int K, bool kDna>
+cudaError_t launch_eff_planes(const EffArgs& a) {
+  if (a.C + a.P <= kPack) return launch_eff<T, TM, K, 1, kDna>(a);
+  return launch_eff<T, TM, K, 2, kDna>(a);
+}
+
+template <typename T, typename TM, bool kDna>
 cudaError_t dispatch_eff(int K, const EffArgs& a) {
   switch (K) {
     case 3:
-      return launch_eff<T, 3>(a);
+      return launch_eff_planes<T, TM, 3, kDna>(a);
     case 5:
-      return launch_eff<T, 5>(a);
+      return launch_eff_planes<T, TM, 5, kDna>(a);
     case 7:
-      return launch_eff<T, 7>(a);
+      return launch_eff_planes<T, TM, 7, kDna>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -895,7 +1129,7 @@ extern "C" int cdna_tail_forward(const void* prev, const void* first,
   return (int)cudaErrorInvalidValue;
 }
 
-// Plain C entry point of the effective-kernel mode.  eff: (B, H, W, K*K);
+// Plain C entry point of the effective-kernel entry.  eff: (B, H, W, K*K);
 // bg: (B, H, W, nbg), nbg = 1 or 2 (2 with SNA).  dtype as above.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int cdna_tail_eff_forward(const void* prev, const void* first,
@@ -909,7 +1143,31 @@ extern "C" int cdna_tail_eff_forward(const void* prev, const void* first,
     return (int)cudaErrorInvalidValue;
   const EffArgs a{prev, first, prev_distrib, first_distrib, eff, bg, out_img, out_distrib,
                   B, H, W, C, P, nbg, sna, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch_eff<float>(K, a);
-  if (dtype == 1) return (int)dispatch_eff<__nv_bfloat16>(K, a);
+  if (dtype == 0) return (int)dispatch_eff<float, float, false>(K, a);
+  if (dtype == 1) return (int)dispatch_eff<__nv_bfloat16, __nv_bfloat16, false>(K, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the DNA mode.  logits: (B, H, W, K*K) of dtype;
+// masks: (B, H, W, nc), nc = the transform masks + (2 if SNA else 1), of
+// mask_dtype (0 = float32, 1 = bfloat16; bfloat16 only with a bfloat16
+// dtype).  Returns the cudaError_t of the launch (0 on success).
+extern "C" int cdna_tail_dna_forward(const void* prev, const void* first,
+                                     const void* prev_distrib, const void* first_distrib,
+                                     const void* logits, const void* masks, void* out_img,
+                                     void* out_distrib, int B, int H, int W, int C, int P,
+                                     int K, int nc, int sna, int dtype, int mask_dtype,
+                                     void* stream) {
+  if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C < 1 || C > kMaxChannels || P < 0 ||
+      P > kMaxChannels || nc < (sna ? 3 : 2) || nc > kMaxMasks + 2 ||
+      (long)H * W > (1L << 30))
+    return (int)cudaErrorInvalidValue;
+  const EffArgs a{prev, first, prev_distrib, first_distrib, logits, masks, out_img,
+                  out_distrib, B, H, W, C, P, nc, sna, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0 && mask_dtype == 0) return (int)dispatch_eff<float, float, true>(K, a);
+  if (dtype == 1 && mask_dtype == 0)
+    return (int)dispatch_eff<__nv_bfloat16, float, true>(K, a);
+  if (dtype == 1 && mask_dtype == 1)
+    return (int)dispatch_eff<__nv_bfloat16, __nv_bfloat16, true>(K, a);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,10 +23,11 @@ trajectory.
 The warp-and-composite tail of a step runs through a kernel of
 ``ops.cdna_tail`` (on the card the hand-written CUDA kernel, on the CPU its
 plain version): CDNA through ``fused_warp_composite`` (the mask x kernel
-contraction folded in), DNA through ``fused_warp_composite_eff`` (the field
-given).  ``s2d_tail`` is accepted and changes nothing: the JAX package's
-option runs the step in a block layout chosen for the TPU's lanes, and
-here every step takes the full-resolution tail kernel.
+contraction folded in), DNA through ``fused_warp_composite_dna`` (the field
+made inside the kernel from the DNA head's logits and the masks).
+``s2d_tail`` is accepted and changes nothing: the JAX package's option runs
+the step in a block layout chosen for the TPU's lanes, and here every step
+takes the full-resolution tail kernel.
 Everything else in the step is stock PyTorch.
 
 Carries are tuples ``(lstm_states, prev_img, prev_distrib, prev_state,
@@ -42,9 +43,8 @@ from visual_foresight_torch.models.layers import (ConvLSTMCell,
                                                   ConvTranspose, LayerNorm,
                                                   conv_nhwc)
 from visual_foresight_torch.ops.cdna_tail import (fused_warp_composite,
-                                                  fused_warp_composite_eff)
-from visual_foresight_torch.ops.cdna_warp import (RELU_SHIFT,
-                                                  normalize_kernels)
+                                                  fused_warp_composite_dna)
+from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 
@@ -296,7 +296,7 @@ class CDNAStep(nn.Module):
               masks, mask_block, dna_logits):
         """Warp + composite at full resolution through a tail kernel; the
         distributions come back unnormalized."""
-        dt, offset = self.dtype, 2 if self.sna else 1
+        dt = self.dtype
         prev_c = prev_img.to(dt).contiguous()
         first_c = first_image.to(dt).contiguous()
         if self.num_distribs:
@@ -310,16 +310,13 @@ class CDNAStep(nn.Module):
                 prev_c, first_c, pd, fd, kernels.to(dt).contiguous(),
                 masks.to(dt).contiguous(), sna=self.sna,
                 mask_block=mask_block)
-        # DNA: the normalized per-pixel kernels, weighed by the total
-        # transform mask, make the effective-kernel field
+        # DNA: the kernel makes the effective-kernel field from the logits
+        # and the masks at full resolution
         if mask_block:
             masks = depth_to_space(masks, mask_block)
-        pk = torch.relu(dna_logits.float() - RELU_SHIFT) + RELU_SHIFT
-        pk = pk / pk.sum(dim=-1, keepdim=True)
-        eff = pk * masks[..., offset:].sum(dim=-1, keepdim=True)
-        return fused_warp_composite_eff(
-            prev_c, first_c, pd, fd, eff.to(dt).contiguous(),
-            masks[..., :offset].to(dt).contiguous(), sna=self.sna)
+        return fused_warp_composite_dna(
+            prev_c, first_c, pd, fd, dna_logits.contiguous(),
+            masks.contiguous(), sna=self.sna)
 
 
 class CDNAPredictor(nn.Module):

@@ -19,9 +19,11 @@ not serve.
 
 :func:`fused_warp_composite_eff` serves the Pallas function's own contract:
 the per-pixel kernel field (B, H, W, K*K) and the background masks come
-from the caller (DNA predicts the field outright).  It launches the same
-source's effective-kernel mode (one pixel a thread) on the card and takes
-:func:`fused_warp_composite_eff_reference` on the CPU, by the same rules.
+from the caller.  :func:`fused_warp_composite_dna` is DNA's tail: it takes
+the DNA head's logits and the softmax masks and makes the field itself, as
+the JAX step does before its tail.  Both launch the same source's second
+kernel (tiled like the first; its DNA mode for the latter) on the card and
+take their plain versions on the CPU, by the same rules.
 """
 
 import ctypes
@@ -30,7 +32,7 @@ import functools
 import torch
 
 from visual_foresight_torch.ops import _build
-from visual_foresight_torch.ops.cdna_warp import (dna_warp,
+from visual_foresight_torch.ops.cdna_warp import (RELU_SHIFT, dna_warp,
                                                   effective_pixel_kernels)
 from visual_foresight_torch.ops.layout import depth_to_space
 
@@ -216,7 +218,7 @@ def fused_warp_composite_eff_reference(prev, first, prev_distrib,
 
 @functools.lru_cache(maxsize=None)
 def _eff_kernel():
-    """The effective-kernel mode's C entry point, with its signature."""
+    """The effective-kernel entry's C entry point, with its signature."""
     fn = _build.load(SOURCE).cdna_tail_eff_forward
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
@@ -251,8 +253,8 @@ def fused_warp_composite_eff(prev, first, prev_distrib, first_distrib,
     unnormalized), as :func:`fused_warp_composite_eff_reference` computes
     it.  All six tensors share one device and one dtype (float32 or
     bfloat16) and are contiguous.  On a CUDA device it launches the
-    effective-kernel mode of ``csrc/cdna_tail.cu`` and counts the launch in
-    ``fused_warp_composite_eff.launches``.
+    effective-kernel entry of ``csrc/cdna_tail.cu`` and counts the launch
+    in ``fused_warp_composite_eff.launches``.
     """
     if prev.device.type == 'cpu':
         return fused_warp_composite_eff_reference(
@@ -284,3 +286,106 @@ def fused_warp_composite_eff(prev, first, prev_distrib, first_distrib,
 
 
 fused_warp_composite_eff.launches = 0
+
+
+def fused_warp_composite_dna_reference(prev, first, prev_distrib,
+                                       first_distrib, dna_logits, masks,
+                                       sna=True):
+    """Plain version of DNA's tail: the field made from the DNA head's
+    logits as the JAX step makes it (``models/cdna.py`` :461-466 of the JAX
+    package), then :func:`fused_warp_composite_eff_reference`.
+
+    :param dna_logits: (B, H, W, K*K) per-pixel kernel logits
+    :param masks: (B, H, W, nc) softmax masks, nc = transform masks + (2 if
+        sna else 1): the background masks first, then the transform masks
+        whose total weighs the field
+    :return: (gen_image (B,H,W,C), gen_distrib_unnormalized (B,H,W,P))
+    """
+    offset = 2 if sna else 1
+    dt = prev.dtype
+    pk = torch.relu(dna_logits.float() - RELU_SHIFT) + RELU_SHIFT
+    pk = pk / pk.sum(dim=-1, keepdim=True)
+    eff = pk * masks[..., offset:].sum(dim=-1, keepdim=True)
+    return fused_warp_composite_eff_reference(
+        prev, first, prev_distrib, first_distrib, eff.to(dt),
+        masks[..., :offset].to(dt), sna)
+
+
+@functools.lru_cache(maxsize=None)
+def _dna_kernel():
+    """The DNA mode's C entry point, with its signature."""
+    fn = _build.load(SOURCE).cdna_tail_dna_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_dna(prev, first, prev_distrib, first_distrib, dna_logits, masks,
+               sna):
+    b, h, w, c = prev.shape
+    p, kk, nc = prev_distrib.shape[-1], dna_logits.shape[-1], masks.shape[-1]
+    _check_tensors(
+        {'prev': prev, 'first': first, 'prev_distrib': prev_distrib,
+         'first_distrib': first_distrib, 'dna_logits': dna_logits},
+        {'first': (b, h, w, c), 'prev_distrib': (b, h, w, p),
+         'first_distrib': (b, h, w, p), 'dna_logits': (b, h, w, kk)})
+    if masks.device != prev.device or not masks.is_contiguous():
+        raise ValueError('masks must be contiguous and on {}'.format(
+            prev.device))
+    if masks.dtype not in (torch.float32, prev.dtype):
+        raise ValueError('masks are {}; the kernel takes float32 or {}'
+                         .format(masks.dtype, prev.dtype))
+    if masks.dim() != 4 or tuple(masks.shape[:3]) != (b, h, w):
+        raise ValueError('masks has shape {}, expected ({}, {}, {}, nc)'
+                         .format(tuple(masks.shape), b, h, w))
+    offset = 2 if sna else 1
+    if kk not in (9, 25, 49) or not offset < nc <= _MAX_MASKS + offset or \
+            b > 65535:
+        raise ValueError('kernel takes K*K in (9, 25, 49), {} to {} masks '
+                         '({} background), B <= 65535; got K*K={}, {} '
+                         'masks, B={}'.format(offset + 1, _MAX_MASKS + offset,
+                                              offset, kk, nc, b))
+
+
+def fused_warp_composite_dna(prev, first, prev_distrib, first_distrib,
+                             dna_logits, masks, sna=True):
+    """DNA's warp + composite of the frame and the pixel distributions, the
+    field made inside the kernel from the DNA head's logits and the masks,
+    as :func:`fused_warp_composite_dna_reference` computes it.  ``prev``,
+    ``first``, the distributions and ``dna_logits`` share one device and one
+    dtype (float32 or bfloat16); ``masks`` are in that dtype or float32 (the
+    classic backbone's softmax).  All are contiguous.  On a CUDA device it
+    launches the DNA mode of ``csrc/cdna_tail.cu`` and counts the launch in
+    ``fused_warp_composite_dna.launches``.
+    """
+    if prev.device.type == 'cpu':
+        return fused_warp_composite_dna_reference(
+            prev, first, prev_distrib, first_distrib, dna_logits, masks, sna)
+    if prev.device.type != 'cuda':
+        raise ValueError('no CDNA tail kernel for device {}'.format(
+            prev.device))
+    _check_dna(prev, first, prev_distrib, first_distrib, dna_logits, masks,
+               sna)
+    fn = _dna_kernel()
+    b, h, w, c = prev.shape
+    p = prev_distrib.shape[-1]
+    ksize = int(round(dna_logits.shape[-1] ** 0.5))
+    out_img = torch.empty_like(prev)
+    out_distrib = torch.empty_like(prev_distrib)
+    with torch.cuda.device(prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
+                 first_distrib.data_ptr(), dna_logits.data_ptr(),
+                 masks.data_ptr(), out_img.data_ptr(),
+                 out_distrib.data_ptr(), b, h, w, c, p, ksize,
+                 masks.shape[-1], int(sna), _DTYPES[prev.dtype],
+                 _DTYPES[masks.dtype], stream)
+    if err != 0:
+        raise RuntimeError('cdna_tail DNA kernel launch failed: cudaError {}'
+                           .format(err))
+    fused_warp_composite_dna.launches += 1
+    return out_img, out_distrib
+
+
+fused_warp_composite_dna.launches = 0

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. prints the torch/CUDA versions and the card's name and power limit, and
-   starts one nvcc per kernel source (``csrc/*.cu``, sm_90a), all at once;
+   starts one nvcc per kernel source (``csrc/*.cu``, sm_90a: the probe, the
+   tail and the tail's backward), all at once;
 2. toolchain probe: ``add_one`` (``csrc/probe_add_one.cu``) on an (8, 128)
    f32 array must give exactly ``x + 1``, before anything larger is tried;
    then exactly ``x + 1`` at an odd length, on a tensor sliced one element
@@ -20,7 +21,11 @@
    B=768 and 200, P 0-3, SNA on and off, K 3, 5 and 7, and at odd sizes:
    through its effective-kernel entry (the per-pixel field given) and
    through its DNA mode (the field made from the DNA head's logits and the
-   masks, the masks in f32 and in the compute type);
+   masks, the masks in f32 and in the compute type); and the tail's
+   backward kernel (``csrc/cdna_tail_bwd.cu``) against its plain version,
+   all four gradients, at the training shape (B=16, 48x64, C=3, M=10) in
+   both mask layouts and at sizes that cut its blocks, K 3 and 7, M 16 with
+   C 1, SNA on and off, bf16 and f32, each launch twice and bitwise equal;
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
@@ -81,12 +86,23 @@
      ``fuse_decode``, 136;
    every path's launches are read from the counters and must match the
    entry and mask layout its predictor's architecture gives;
+   - training (``training/train_predictor.py``): the JAX package's three
+     f32 train steps of the flagship (``golden_train_f32.npz``: B=4, 6
+     frames, masks injected) replayed through the tail's forward and
+     backward kernels (losses, gradient norms, every leaf's change); then
+     ``train()`` at the flagship's full width (bf16, batch 16, 60 steps on
+     synthetic batches): the loss must fall, every metric stay finite, 14
+     forward and 14 backward tail launches a step and no plain version,
+     ten more steps timed and one profiled; ``--stochastic`` at ag_r5f_v2's
+     configuration for 10 steps, the KL printed; the flagship run's
+     checkpoint restored by ``TorchPredictor`` and one 200 x 15 x 3 replan;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
    ``depth_to_space`` copy that the blocked layout saves; the second
    kernel's effective-kernel entry and DNA mode at B=768 and 200, each
    beside the bound of its own inputs; ``add_one`` also at 2^26 floats,
-   beside ``torch.add``), the 200-sample replan,
+   beside ``torch.add``; the tail's backward at B=16 and 256), the
+   200-sample replan,
    and the replans of the xz_bench20 (also with ``fuse_decode``, in turns
    with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
    (fused and host loop), folding, classic CDNA and classic DNA controllers
@@ -102,6 +118,7 @@ non-zero before printing a result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -558,9 +575,10 @@ def tail_bound(args, outs, sna):
                                        else 'operations'), t_bytes * 1e3
 
 
-def profile_replan(run):
-    """Device time by kernel over one replan (``torch.profiler``) and the
-    device's busy share of that replan's wall time, printed."""
+def profile_replan(run, what='replan'):
+    """Device time by kernel over one replan (or the ``what`` that ``run``
+    does; ``torch.profiler``) and the device's busy share of its wall time,
+    printed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -585,9 +603,9 @@ def profile_replan(run):
             busy, end = busy + (b - a), b
         elif b > end:
             busy, end = busy + (b - end), b
-    print('profile of one replan (profiler on): wall {:.3f} ms, {} device '
+    print('profile of one {} (profiler on): wall {:.3f} ms, {} device '
           'kernels, device busy {:.3f} ms = {:.1%} of wall'.format(
-              wall_us / 1e3, len(spans), busy / 1e3, busy / wall_us))
+              what, wall_us / 1e3, len(spans), busy / 1e3, busy / wall_us))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     for name, (n, us) in top:
         print('  {:9.3f} ms {:5d}x  {}'.format(us / 1e3, n, name[:90]))
@@ -795,35 +813,43 @@ def check_probe(gen):
     return launches, err
 
 
-def drive_replan_200():
-    """The 200-sample replan, on the restored weights in bf16: returns
-    (launches, host latencies, replan function, contexts, generator)."""
+def replan_200(predictor):
+    """``replan(images, states, **noise)``: one 200 x 15 x 3 replan of
+    ``FusedCEMPlanner`` on ``predictor`` (the flagship's action spec, a goal
+    pixel and a point distribution)."""
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import (initial_mean,
                                                           initial_sigma,
                                                           make_action_spec)
-    predictor = restored_predictor('bfloat16')
     spec = make_action_spec(dict(SPEC_HP['xz_flagship'], nactions=NACT,
                                  repeat=REPEAT), 3)
     planner = FusedCEMPlanner(spec, M, iterations=ITERS, k_elite=10,
                               finalweight=10.0, action_bound=True,
                               n_vis=10, device='cuda')
-    rng = np.random.RandomState(0)
     distribs = np.zeros((1, N_CTX, H, W, P), np.float32)
     distribs[:, :, 24, 32, 0] = 1.0
     ctx_actions = np.zeros((N_CTX - 1, 3), np.float32)
     grids = distance_grid([[[10.0, 50.0]]], H, W, device='cuda')
     mean0 = initial_mean(spec, device='cuda')
     sigma0 = initial_sigma(spec, device='cuda')
-    contexts = [(rng.rand(1, N_CTX, H, W, 3).astype(np.float32),
-                 (rng.randn(N_CTX, 3) * 0.05).astype(np.float32))
-                for _ in range(N_WARM + N_TIMED)]
-    plan_gen = torch.Generator(device='cuda').manual_seed(1)
 
     def replan(images, states, **noise):
         return planner.replan(predictor.models, images, states, distribs,
                               ctx_actions, grids, mean0, sigma0, **noise)
+    return replan
+
+
+def drive_replan_200():
+    """The 200-sample replan, on the restored weights in bf16: returns
+    (launches, host latencies, replan function, contexts, generator)."""
+    predictor = restored_predictor('bfloat16')
+    replan = replan_200(predictor)
+    rng = np.random.RandomState(0)
+    contexts = [(rng.rand(1, N_CTX, H, W, 3).astype(np.float32),
+                 (rng.randn(N_CTX, 3) * 0.05).astype(np.float32))
+                for _ in range(N_WARM + N_TIMED)]
+    plan_gen = torch.Generator(device='cuda').manual_seed(1)
 
     reset_tail_counts()
     latencies, outs = [], []
@@ -1150,6 +1176,441 @@ def time_add_one(gen, card, shape):
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
 
 
+# -- training (the tail's backward kernel, the trainer, the train golden) ----
+
+# the backward kernel's cases: (label, shape, mask layouts), each in both
+# types, SNA on and off; the training shape first
+BWD_CASES = [
+    ('training shape', dict(b=16, h=H, w=W), (MASK_BLOCK, 0)),
+    ('odd sizes', dict(b=3, h=13, w=10), (0,)),
+    ('sizes that cut the 128-pixel blocks', dict(b=2, h=12, w=20), (0, 2, 4)),
+    ('K=3', dict(b=2, h=20, w=36, k=3), (0, 4)),
+    ('K=7', dict(b=2, h=20, w=36, k=7), (0, 4)),
+    ('M=16, C=1', dict(b=2, h=20, w=36, m=16, c=1), (0, 4)),
+]
+BWD_TIMED_BATCHES = (16, 256)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_TIMED = 16, 60, 10
+# the mean loss of the last five steps under this share of the first five's
+# (tests/test_torch_train.py: 0.66 after 30 steps at narrow widths on the
+# CPU).  60 steps, not 30: at full width 30 steps took the loss down by 12 %
+# (0.875 measured on an H100), within the noise of fresh batches; 60 by 55 %
+LOSS_FALL = 0.8
+STOCHASTIC_STEPS = 10
+TRAIN_DIR = os.path.join(REPO, 'build', 'chip_smoke_train')
+# the JAX train golden replayed on the card (f32, TF32 off): the same sums
+# as on the CPU in another order through cuDNN's f32 convolutions
+GOLDEN_TRAIN = os.path.join(WEIGHTS, 'golden_train_f32.npz')
+GOLDEN_LOSS_RTOL, GOLDEN_NORM_RTOL, GOLDEN_CHANGE_RTOL = 5e-5, 5e-4, 5e-3
+
+
+def bwd_inputs(gen, dtype, b, h, w, c=C, k=K, m=NUM_MASKS, sna=True,
+               mask_block=0):
+    """(grad_img, prev, first, kernels, masks) for the backward, P = 0."""
+    args = tail_inputs(gen, b, dtype, sna=sna, p=0, h=h, w=w, c=c, k=k, m=m,
+                       mask_block=mask_block)
+    grad = torch.randn((b, h, w, c), generator=gen, device='cuda')
+    return (grad.to(dtype).contiguous(),) + args[:2] + args[4:]
+
+
+def check_bwd_cases(gen):
+    """The backward kernel against its plain version on the same inputs, all
+    four gradients, each within its tolerance of the gradient's largest
+    magnitude (``TAIL_TOL``); two launches bitwise equal.  Returns the
+    largest absolute and relative bf16 errors at the training shape."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_backward,
+        fused_warp_composite_backward_reference)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    train_abs = train_rel = 0.0
+    n = 0
+    for label, shape, blocks in BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for sna in (True, False):
+                for r in blocks:
+                    args = bwd_inputs(gen, dtype, sna=sna, mask_block=r,
+                                      **shape)
+                    got = fused_warp_composite_backward(*args, sna=sna,
+                                                        mask_block=r)
+                    want = fused_warp_composite_backward_reference(
+                        *args, sna=sna, mask_block=r)
+                    again = fused_warp_composite_backward(*args, sna=sna,
+                                                          mask_block=r)
+                    torch.cuda.synchronize()
+                    n += 1
+                    for g, w, a in zip(got, want, again):
+                        if not torch.equal(g, a):
+                            raise AssertionError(
+                                'the backward kernel is not deterministic '
+                                '({}, {}, r={})'.format(label, dtype, r))
+                        err = float((g.float() - w.float()).abs().max())
+                        rel = err / max(float(w.float().abs().max()), 1e-30)
+                        worst[dtype] = max(worst[dtype], rel)
+                        if not rel <= TAIL_TOL[dtype]:
+                            raise AssertionError(
+                                'the backward kernel disagrees with its '
+                                'plain version ({}, {}, SNA {}, r={}: {:.3e})'
+                                .format(label, dtype, sna, r, rel))
+                        if label == 'training shape' and \
+                                dtype == torch.bfloat16:
+                            train_abs = max(train_abs, err)
+                            train_rel = max(train_rel, rel)
+    print('tail backward kernel vs plain: {} cases (B=16 48x64 C=3 M=10 '
+          'blocked and full-resolution masks; odd sizes, K 3 and 7, M 16 '
+          'C 1; SNA on/off; bf16 and f32), all four gradients, each launch '
+          'twice bitwise equal; largest error over the gradient\'s largest '
+          'magnitude bf16 {:.3e} (tol {:.0e}), f32 {:.3e} (tol {:.0e}); '
+          'training shape bf16 max_abs_err {:.3e}'.format(
+              n, worst[torch.bfloat16], TAIL_TOL[torch.bfloat16],
+              worst[torch.float32], TAIL_TOL[torch.float32], train_abs))
+    return train_abs, train_rel
+
+
+def bwd_bound(args, outs, sna):
+    """Least time for the tail's backward on an H100 SXM: inputs read once
+    and gradients written once, against the f32 arithmetic of the in-bounds
+    taps: g_eff (C a tap), g_masks and g_kern (M each), the field made again
+    and g_prev (M + C), the background and SNA terms."""
+    b, h, w, c = args[1].shape
+    k, m = args[3].shape[1], args[3].shape[3]
+    nbytes = sum(t.numel() * t.element_size() for t in args + outs)
+    pad = k // 2
+    rows = k * h - 2 * sum(range(1, pad + 1))
+    cols = k * w - 2 * sum(range(1, pad + 1))
+    taps = b * rows * cols
+    fma = taps * (c + m + m + m + c) + b * h * w * c * (3 if sna else 2)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * fma / PEAK_F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def time_bwd(gen, b, card):
+    """The backward kernel at batch ``b`` (bf16, blocked masks, SNA, all
+    four gradients) against its plain version and its bound."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_backward,
+        fused_warp_composite_backward_reference)
+    sets = [bwd_inputs(gen, torch.bfloat16, b, H, W, mask_block=MASK_BLOCK)
+            for _ in range(4)]
+    res = {'ms': graph_ms(lambda *a: fused_warp_composite_backward(
+        *a, mask_block=MASK_BLOCK), sets, reps=50)}
+    res['plain_ms'] = graph_ms(
+        lambda *a: fused_warp_composite_backward_reference(
+            *a, mask_block=MASK_BLOCK), sets, reps=5)
+    outs = fused_warp_composite_backward_reference(*sets[0],
+                                                   mask_block=MASK_BLOCK)
+    res['bound_ms'], res['bound_by'] = bwd_bound(sets[0], outs, True)
+    del sets
+    print('cdna_tail_bwd_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
+          '(by {}; {:.1f}x the bound) (B={} bf16 blocked masks, all four '
+          'gradients, CUDA graph, CUDA events) [{}]'.format(
+              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
+              res['ms'] / res['bound_ms'], b, card))
+    if res['ms'] < res['bound_ms']:
+        raise AssertionError('the backward kernel ran under its bound: the '
+                             'timing is wrong')
+    return res
+
+
+def train_args(config, **flags):
+    """The trainer's arguments for the architecture in ``config`` (a
+    ``model_config.json``), on the card."""
+    from visual_foresight_torch.training.train_predictor import (
+        build_argparser)
+    with open(config) as f:
+        cfg = json.load(f)
+    argv = ['--device', 'cuda', '--std_factor', str(cfg['std_factor']),
+            '--lstm_kernel', str(cfg['lstm_kernel']),
+            '--num_masks', str(cfg['num_masks']),
+            '--cdna_kernel_size', str(cfg['kernel_size']),
+            '--latent_dim', str(cfg['latent_dim']),
+            '--adim', str(cfg['adim']), '--sdim', str(cfg['sdim']),
+            '--sequence_length', str(cfg['sequence_length']),
+            '--context_frames', str(cfg['context_frames']),
+            '--image_height', str(cfg['img_dims'][0]),
+            '--image_width', str(cfg['img_dims'][1]),
+            '--enc_features', *map(str, cfg['enc_features'])]
+    argv += [] if cfg['separable_lstm'] else ['--dense_lstm']
+    argv += [] if cfg['sna'] else ['--no_sna']
+    argv += ['--bf16'] if cfg['dtype'] == 'bfloat16' else []
+    for key, value in flags.items():
+        argv += ['--' + key] + ([] if value is True else [str(value)])
+    return build_argparser().parse_args(argv)
+
+
+class PlainCalls:
+    """Counts calls of the tail's plain versions (forward and backward)
+    while it is entered; the kernels' wrappers look them up in the module,
+    so a call from anywhere is counted."""
+
+    NAMES = ('fused_warp_composite_reference',
+             'fused_warp_composite_backward_reference')
+
+    def __enter__(self):
+        from visual_foresight_torch.ops import cdna_tail
+        self.module, self.calls = cdna_tail, 0
+        self.saved = {n: getattr(cdna_tail, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(cdna_tail, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def reset_train_counts():
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite_backward)
+    reset_tail_counts()
+    fused_warp_composite_backward.launches = 0
+
+
+def read_train_counts(path, steps, model_steps):
+    """The tail's launches since ``reset_train_counts`` on a training path:
+    ``model_steps`` forward launches a train step (tiled, blocked masks) and
+    as many backward launches, no other entry."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_backward,
+        fused_warp_composite_dna, fused_warp_composite_eff)
+    fwd, bwd = fused_warp_composite.launches, \
+        fused_warp_composite_backward.launches
+    want = steps * model_steps
+    print('{}: {} train steps, {} forward tail launches ({} a step, by '
+          'variant {}, {} on blocked masks) and {} backward kernel launches '
+          '({} a step); expected {} each'.format(
+              path, steps, fwd, fwd / max(steps, 1),
+              dict(fused_warp_composite.launches_by_variant),
+              fused_warp_composite.blocked_launches, bwd,
+              bwd / max(steps, 1), want))
+    if fwd != want or bwd != want or fused_warp_composite_eff.launches or \
+            fused_warp_composite_dna.launches:
+        raise AssertionError('the {} path did not run {} forward and {} '
+                             'backward tail launches'.format(path, want,
+                                                             want))
+    if fused_warp_composite.launches_by_variant['tiled'] != want or \
+            fused_warp_composite.blocked_launches != want:
+        raise AssertionError('the {} path left the tiled variant or the '
+                             'blocked masks'.format(path))
+    return {'cdna_tail': fwd, 'cdna_tail_bwd': bwd, 'cdna_tail_eff': 0,
+            'cdna_tail_dna': 0}
+
+
+def drive_training(card):
+    """``train()`` at the flagship's full width (its ``model_config.json``:
+    space-to-depth 4, (128, 256, 256), separable 3x3 gates, SNA, 10 masks,
+    15 frames, 48x64, bf16) on synthetic batches of 16 for 60 steps, saving
+    to ``TRAIN_DIR``: the loss must fall and every metric stay finite, with
+    14 forward and 14 backward tail launches a step and no plain version;
+    then ten more steps timed (host clock and CUDA events) and one
+    profiled.  Returns (launches, trainer, per-step device ms)."""
+    from visual_foresight_torch.training.train_predictor import (
+        synthetic_batches, to_device, train)
+    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                      batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, log_every=1,
+                      model_dir=TRAIN_DIR)
+    model_steps = args.sequence_length - 1
+    reset_train_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        history, trainer = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_train_counts('flagship training', TRAIN_STEPS,
+                                 model_steps)
+    losses = [h['loss'] for h in history]
+    print('flagship training: {} steps in {:.1f} s (first steps build the '
+          'kernels\' caches), loss {}; plain-version calls {}'.format(
+              len(history), wall, ' '.join(
+                  '{:.5f}'.format(x) for x in losses[::5] + losses[-1:]),
+              plain.calls))
+    if plain.calls:
+        raise AssertionError('the training path called a plain version')
+    if len(history) != TRAIN_STEPS or not all(
+            np.isfinite([h[k] for k in h]).all() for h in history):
+        raise AssertionError('a training metric is not finite')
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    print('loss fell: mean of the first five steps {:.6f}, of the last five '
+          '{:.6f}, ratio {:.3f} (must be under {})'.format(
+              first, last, last / first, LOSS_FALL))
+    if not last < LOSS_FALL * first:
+        raise AssertionError('the flagship loss did not fall')
+
+    batches = synthetic_batches(args, seed=1)
+    step = [TRAIN_STEPS]
+
+    def one_step():
+        batch = to_device(next(batches), trainer.device)
+        trainer.train_step(batch, step[0], trainer.generator)
+        step[0] += 1
+
+    host, device = [], []
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        one_step()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    where = ('(xz_flagship full width, batch {}, 15 frames = 14 model steps, '
+             '48x64, bf16, forward + backward + clipped AdamW, {} steps) '
+             '[{}]'.format(TRAIN_BATCH, TRAIN_TIMED, card))
+    print('train_step_p50_ms={:.3f} host clock {}'.format(
+        float(np.percentile(host, 50)), where))
+    print('train_step_device_ms={:.3f} CUDA events around a step, median '
+          '{}'.format(float(np.percentile(device, 50)), where))
+    print('profile: one flagship train step')
+    profile_replan(one_step, what='train step')
+    return launches, trainer, device
+
+
+def drive_stochastic_training():
+    """``train()`` with ``--stochastic`` at ag_r5f_v2's configuration
+    (latent 8, adim 4, sdim 5; its ``model_config.json``) for ten steps at
+    batch 16: the KL printed, everything finite, the tail's launches as on
+    the flagship.  Returns the launches."""
+    from visual_foresight_torch.training.train_predictor import train
+    args = train_args(os.path.join(AG_WEIGHTS, 'model_config.json'),
+                      batch_size=TRAIN_BATCH, steps=STOCHASTIC_STEPS,
+                      log_every=1, stochastic=True, kl_anneal_start=0,
+                      kl_anneal_end=STOCHASTIC_STEPS // 2)
+    reset_train_counts()
+    with PlainCalls() as plain:
+        history, _ = train(args)
+        torch.cuda.synchronize()
+    launches = read_train_counts('stochastic ag_r5f_v2 training',
+                                 STOCHASTIC_STEPS, args.sequence_length - 1)
+    print('stochastic training (ag_r5f_v2 config, latent 8, posterior '
+          'encoder): kl {} beta {} loss {}'.format(
+              ' '.join('{:.4f}'.format(h['kl']) for h in history),
+              ' '.join('{:.2e}'.format(h['kl_beta']) for h in history),
+              ' '.join('{:.5f}'.format(h['loss']) for h in history)))
+    if plain.calls or not all(np.isfinite([h[k] for k in h]).all()
+                              for h in history):
+        raise AssertionError('stochastic training: a plain version ran or a '
+                             'metric is not finite')
+    return launches
+
+
+def serve_trained():
+    """The flagship run's checkpoint in ``TRAIN_DIR`` served:
+    ``TorchPredictor`` restores it (``restored=True``, adopting its
+    ``model_config.json``) and drives one 200 x 15 x 3 replan with finite
+    scores.  Returns its launches."""
+    predictor = restored_predictor('bfloat16', weights=TRAIN_DIR)
+    replan = replan_200(predictor)
+    rng = np.random.RandomState(3)
+    reset_tail_counts()
+    with torch.no_grad():
+        out = replan(rng.rand(1, N_CTX, H, W, 3).astype(np.float32),
+                     (rng.randn(N_CTX, 3) * 0.05).astype(np.float32),
+                     generator=torch.Generator(device='cuda').manual_seed(4))
+        torch.cuda.synchronize()
+    launches = read_tail_counts('trained checkpoint, one 200-sample replan',
+                                LAUNCHES_PER_REPLAN, predictor)
+    scores = out['scores_per_itr']
+    if tuple(scores.shape) != (ITERS, M) or \
+            not bool(torch.isfinite(scores).all()):
+        raise AssertionError('the trained checkpoint replanned to scores '
+                             'that are not finite')
+    print('trained checkpoint served: restored={}, one replan of {} x {} x '
+          '{}, best score {:.4f}'.format(predictor.restored, M, T, ITERS,
+                                         float(out['best_scores'][0])))
+    return launches
+
+
+def replay_train_golden():
+    """Replay the JAX package's three f32 train steps of the flagship
+    (``golden_train_f32.npz``, written by ``tests/test_torch_train_golden.py
+    --write``) on the card through the tail's forward and backward kernels:
+    losses, gradient norms, each leaf's change (sum and L2 norm) and two
+    leaves in full.  Returns the launches."""
+    from visual_foresight_torch.models.convert import (flatten_flax,
+                                                       load_flax_params,
+                                                       params_to_flax,
+                                                       unflatten_flax)
+    from visual_foresight_torch.training import train_predictor as ttrain
+    with np.load(GOLDEN_TRAIN) as f:
+        golden = {k: f[k] for k in f.files}
+    cfg = {k[len('config/'):]: golden[k].item() for k in golden
+           if k.startswith('config/')}
+    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                      batch_size=cfg['batch_size'], lr=cfg['lr'],
+                      sequence_length=cfg['sequence_length'],
+                      steps=cfg['steps'], ss_k=cfg['ss_k'])
+    args.bf16 = False
+    with np.load(os.path.join(WEIGHTS, 'view0', 'params.npz')) as f:
+        before = {k: f[k] for k in f.files}
+    model = ttrain.build_model(args)
+    load_flax_params(model, unflatten_flax(before))
+    model.to('cuda')
+    tx = ttrain.ClippedAdamW(ttrain._named_params(model),
+                             ttrain.training_schedule(args))
+    step_fn = ttrain.make_train_step(model, tx, args.context_frames,
+                                     ss_k=args.ss_k)
+    batch = ttrain.to_device(next(ttrain.synthetic_batches(
+        args, seed=cfg['seed'])), 'cuda')
+    reset_train_counts()
+    got = {k: [] for k in ('loss', 'img_l2', 'state_l2', 'grad_norm')}
+    with PlainCalls() as plain:
+        for step in range(cfg['steps']):
+            metrics = step_fn(batch, step, gt_mask=torch.as_tensor(
+                golden['gt_mask'][step], device='cuda'))
+            for k in got:
+                got[k].append(float(metrics[k]))
+    launches = read_train_counts('JAX train golden replay (f32)',
+                                 cfg['steps'], args.sequence_length - 1)
+    if plain.calls:
+        raise AssertionError('the golden replay called a plain version')
+    after = flatten_flax(params_to_flax(model.state_dict()))
+    worst = dict.fromkeys(('loss', 'grad_norm', 'change_norm', 'change_sum',
+                           'full'), 0.0)
+    for k, values in got.items():
+        kind = 'grad_norm' if k == 'grad_norm' else 'loss'
+        for g, w in zip(values, golden[k]):
+            worst[kind] = max(worst[kind], abs(g - float(w)) / abs(float(w)))
+    for leaf, (wsum, wnorm), size in zip(golden['digest_leaves'],
+                                         golden['digest'],
+                                         golden['digest_sizes']):
+        change = after[str(leaf)] - before[str(leaf)]
+        gsum = float(np.sum(change, dtype=np.float64))
+        gnorm = float(np.linalg.norm(change.ravel()))
+        worst['change_norm'] = max(worst['change_norm'],
+                                   abs(gnorm - wnorm) / wnorm)
+        worst['change_sum'] = max(worst['change_sum'], abs(gsum - wsum) /
+                                  (np.sqrt(size) * wnorm))
+    for key in golden:
+        if key.startswith('full/'):
+            leaf = key[len('full/'):]
+            scale = float(np.abs(golden[key] - before[leaf]).max())
+            worst['full'] = max(worst['full'], float(
+                np.abs(after[leaf] - golden[key]).max()) / scale)
+    print('JAX train golden (xz_flagship f32, B={}, {} frames, {} steps, '
+          'masks injected): loss {} (JAX {}), grad_norm {} (JAX {}); largest '
+          'relative errors {} (tolerances: losses {:.0e}, grad norms {:.0e}, '
+          'changes and full leaves {:.0e})'.format(
+              cfg['batch_size'], cfg['sequence_length'], cfg['steps'],
+              ' '.join('{:.7g}'.format(x) for x in got['loss']),
+              ' '.join('{:.7g}'.format(x) for x in golden['loss']),
+              ' '.join('{:.7g}'.format(x) for x in got['grad_norm']),
+              ' '.join('{:.7g}'.format(x) for x in golden['grad_norm']),
+              {k: float('{:.3e}'.format(v)) for k, v in worst.items()},
+              GOLDEN_LOSS_RTOL, GOLDEN_NORM_RTOL, GOLDEN_CHANGE_RTOL))
+    if not (worst['loss'] <= GOLDEN_LOSS_RTOL and
+            worst['grad_norm'] <= GOLDEN_NORM_RTOL and
+            max(worst['change_norm'], worst['change_sum'],
+                worst['full']) <= GOLDEN_CHANGE_RTOL):
+        raise AssertionError('the card left the JAX train golden')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1168,7 +1629,8 @@ def main():
 
     # -- builds: one nvcc per kernel, all started together -------------------
     t0 = time.time()
-    builds = _build.build_concurrently([probe.SOURCE, cdna_tail.SOURCE])
+    builds = _build.build_concurrently([probe.SOURCE, cdna_tail.SOURCE,
+                                        cdna_tail.BWD_SOURCE])
 
     # -- 1. toolchain probe ----------------------------------------------------
     print_report(probe.SOURCE, builds[probe.SOURCE].result()[1],
@@ -1181,6 +1643,9 @@ def main():
                  time.time() - t0)
     err_bf16 = check_tail_cases(gen)
     eff_err = check_eff_cases(gen)
+    print_report(cdna_tail.BWD_SOURCE,
+                 builds[cdna_tail.BWD_SOURCE].result()[1], time.time() - t0)
+    bwd_abs, bwd_rel = check_bwd_cases(gen)
 
     # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
     # launches by kernel, for each driven path
@@ -1262,6 +1727,15 @@ def main():
     if built != [(0, False, False), (0, True, False), (4, False, True)]:
         raise AssertionError('a predictor has the wrong architecture')
 
+    # -- 5h. training: the JAX train golden in f32, the flagship at full
+    # width, the stochastic configuration, then the trained checkpoint served
+    paths['train_golden_f32'] = replay_train_golden()
+    paths['train_xz_flagship'], trainer, _ = drive_training(card)
+    del trainer
+    paths['train_stochastic_ag_r5f_v2'] = drive_stochastic_training()
+    paths['serve_trained_checkpoint'] = serve_trained()
+    shutil.rmtree(TRAIN_DIR)
+
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
           'bf16, restored flagship, host clock, {} replans) [{}]'.format(
@@ -1329,11 +1803,12 @@ def main():
     print('profile: one xz_bench20 replan with fuse_decode')
     profile_replan(lambda: fuse_ctrl.perform_CEM(fuse_states))
 
+    bwd = {b: time_bwd(gen, b, card) for b in BWD_TIMED_BATCHES}
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
 
     def by_path(name):
-        return {p: n[name] for p, n in paths.items() if n[name]}
+        return {p: n[name] for p, n in paths.items() if n.get(name)}
 
     print(json.dumps({'kernels': [{
         'name': 'cdna_tail', 'route': 'cuda',
@@ -1365,6 +1840,20 @@ def main():
             'cdna_tail_eff_forward': dict(
                 eff['eff'], launches=dna_path['cdna_tail_eff'],
                 max_abs_err=eff_err['eff'])}}, {
+        # the tail's backward: no TPU kernel of its own (JAX differentiates
+        # its XLA tail); the top-level numbers at the trainer's batch
+        'name': 'cdna_tail_bwd', 'route': 'cuda',
+        'source': 'visual_foresight_torch/csrc/cdna_tail_bwd.cu',
+        'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
+        'gradient_of': 'visual_foresight_tpu/ops/cdna_warp.py:86 and :123, '
+                       'differentiated by XLA in the JAX trainer',
+        'launches': paths['train_xz_flagship']['cdna_tail_bwd'],
+        'launches_by_path': by_path('cdna_tail_bwd'),
+        'max_abs_err': bwd_abs, 'max_rel_err': bwd_rel,
+        'ms': bwd[TRAIN_BATCH]['ms'], 'plain_ms': bwd[TRAIN_BATCH]['plain_ms'],
+        'bound_ms': bwd[TRAIN_BATCH]['bound_ms'],
+        'bound_by': bwd[TRAIN_BATCH]['bound_by'], 'library_ms': None,
+        'by_batch': {str(b): r for b, r in bwd.items()}}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

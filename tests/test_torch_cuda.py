@@ -14,15 +14,25 @@ shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off; the DNA mode
 at the same shapes with f32 masks and masks in the compute type, and inside
 a small classic-DNA rollout.
 
+The backward kernel of the folded tail (``csrc/cdna_tail_bwd.cu``) is held
+against its plain version at the training shapes (B=16, 48x64, C=3, M=10)
+and at sizes that cut its 128-pixel blocks, in both mask layouts, SNA on
+and off, K 3 to 7, both types, all four gradients; two launches must give
+the same bits, and the autograd node on the card must give what autograd of
+the plain version gives.
+
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
-``add_one`` exact (one correctly rounded add on both sides)."""
+the backward's gradients relative to each gradient's largest magnitude (a
+kernel gradient sums thousands of products); ``add_one`` exact (one
+correctly rounded add on both sides)."""
 
 import pytest
 import torch
 
 from visual_foresight_torch.ops.cdna_tail import (
-    fused_warp_composite, fused_warp_composite_dna,
+    fused_warp_composite, fused_warp_composite_backward,
+    fused_warp_composite_backward_reference, fused_warp_composite_dna,
     fused_warp_composite_dna_reference, fused_warp_composite_eff,
     fused_warp_composite_eff_reference, fused_warp_composite_reference)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
@@ -379,3 +389,127 @@ def test_classic_dna_rollout_kernel_matches_plain_on_card(monkeypatch):
         want = model.rollout_from(carry, acts)
     for key in ('gen_images', 'gen_distribs'):
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-5)
+
+
+# (id, shape, mask layouts); every case runs in both types, SNA on and off
+BWD_CASES = [
+    ('train-16', dict(b=16, h=48, w=64), (0, 4)),
+    ('odd-sizes', dict(b=3, h=13, w=10), (0,)),
+    ('cuts-the-blocks', dict(b=2, h=12, w=20), (0, 2, 4)),
+    ('k3', dict(b=2, h=20, w=36, k=3), (0, 4)),
+    ('k7', dict(b=2, h=20, w=36, k=7), (0, 4)),
+    ('m16-c1', dict(b=2, h=20, w=36, m=16, c=1), (0, 4)),
+]
+
+
+def _bwd_args(gen, dtype, b, h, w, c=3, k=5, m=10, sna=True, mask_block=0):
+    """(grad_img, prev, first, kernels, masks) for the backward, P = 0."""
+    args = _tail_args(gen, dtype, b, h, w, c=c, p=0, k=k, m=m, sna=sna,
+                      mask_block=mask_block)
+    grad = torch.randn((b, h, w, c), generator=gen, device='cuda')
+    return (grad.to(dtype),) + args[:2] + args[4:]
+
+
+def _rel_err(got, want):
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale,
+                                                                   1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sna', [True, False], ids=['sna', 'no-sna'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_tail_backward_kernel_matches_plain_on_card(case, dtype, sna):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    _, shape, blocks = case
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    for mask_block in blocks:
+        args = _bwd_args(gen, dtype, sna=sna, mask_block=mask_block, **shape)
+        before = fused_warp_composite_backward.launches
+        got = fused_warp_composite_backward(*args, sna=sna,
+                                            mask_block=mask_block)
+        want = fused_warp_composite_backward_reference(
+            *args, sna=sna, mask_block=mask_block)
+        torch.cuda.synchronize()
+        assert fused_warp_composite_backward.launches == before + 1
+        for name, g, r in zip(('prev', 'first', 'kernels', 'masks'), got,
+                              want):
+            assert g.dtype == dtype and g.shape == r.shape
+            err = _rel_err(g, r)
+            assert err <= TOL[dtype], (mask_block, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_tail_backward_kernel_is_deterministic_on_card(dtype):
+    """Two launches on the same inputs give the same bits (the kernels'
+    gradient is summed in a fixed order, no atomics); an output not asked
+    for comes back as None."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    args = _bwd_args(gen, dtype, 16, 48, 64, mask_block=4)
+    one = fused_warp_composite_backward(*args, mask_block=4)
+    two = fused_warp_composite_backward(*args, mask_block=4)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+    some = fused_warp_composite_backward(
+        *args, mask_block=4, needs=(True, False, True, False))
+    assert some[1] is None and some[3] is None
+    assert torch.equal(some[0], one[0]) and torch.equal(some[2], one[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mask_block', [0, 4], ids=['full', 'blocked'])
+def test_tail_autograd_on_card_matches_plain_autograd(mask_block):
+    """Gradients through the folded entry on the card (the forward kernel,
+    then the backward kernel) against autograd of the plain version on the
+    CPU, f32, 1e-5 of each gradient's largest magnitude; ``first`` needs no
+    gradient and gets none."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    grad, prev, first, kernels, masks = _bwd_args(
+        gen, torch.float32, 4, 48, 64, mask_block=mask_block)
+    empty = prev[..., :0]
+    grads = []
+    for dev in ('cuda', 'cpu'):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (prev, kernels, masks)]
+        before = fused_warp_composite_backward.launches
+        out, _ = fused_warp_composite(leaves[0], first.to(dev),
+                                      empty.to(dev), empty.to(dev),
+                                      *leaves[1:], mask_block=mask_block)
+        out.backward(grad.to(dev))
+        assert fused_warp_composite_backward.launches == \
+            before + (dev == 'cuda')
+        grads.append([t.grad.cpu() for t in leaves])
+    for g, r in zip(*grads):
+        assert _rel_err(g, r) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_entries_without_a_backward_raise_under_grad_on_card():
+    """The field-given entry, the DNA mode, and the folded entry with
+    distribution channels, asked for a gradient on the card, raise instead
+    of returning a result cut off from the graph; under ``no_grad`` they
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    eff = _eff_args(gen, torch.float32, 2, 16, 16)
+    dna = _dna_args(gen, torch.float32, torch.float32, 2, 16, 16)
+    tail = _tail_args(gen, torch.float32, 2, 16, 16)
+    for fn, args in ((fused_warp_composite_eff, eff),
+                     (fused_warp_composite_dna, dna),
+                     (fused_warp_composite, tail)):
+        leaf = args[4].clone().requires_grad_()
+        call = args[:4] + (leaf,) + args[5:]
+        with pytest.raises(RuntimeError, match='backward'):
+            fn(*call)
+        with torch.no_grad():
+            fn(*call)

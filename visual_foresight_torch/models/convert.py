@@ -13,7 +13,9 @@ for :class:`models.cdna.CDNAPredictor` or any module built from
 - a LayerNorm's ``ln/scale`` and ``ln/bias`` become ``weight`` and ``bias``.
 
 Any leaf it cannot place raises.  ``load_flax_params`` also raises on a
-port parameter that the tree leaves unfilled.
+port parameter that the tree leaves unfilled.  ``params_to_flax`` is the
+inverse: it turns a ``state_dict`` back into the flax tree that a
+``params.npz`` holds.
 """
 
 import numpy as np
@@ -58,6 +60,63 @@ def params_from_flax(tree):
         state[key] = torch.tensor(
             np.ascontiguousarray(value, dtype=np.float32))
     return state
+
+
+# the flax ``nn.Dense`` layers among the port's ``nn.Linear`` modules; every
+# other 2-D weight is a flax 1x1 ``nn.Conv`` kernel
+DENSE_LAYERS = frozenset({'cdna_head', 'cond_proj', 'state_head', 'mu',
+                          'log_var'})
+
+
+def params_to_flax(state):
+    """Torch ``state_dict`` -> flax tree ``{'params': ...}`` of f32 numpy
+    arrays, the inverse of :func:`params_from_flax`: a 1-D ``weight`` and
+    its ``bias`` are a LayerNorm's ``ln/scale`` and ``ln/bias``; a 2-D
+    weight is a Dense kernel ``(in, out)`` for the layers in
+    ``DENSE_LAYERS`` and a 1x1 conv kernel ``(1, 1, in, out)`` otherwise; a
+    4-D weight ``(out, in/groups, kh, kw)`` is an HWIO kernel."""
+    tree = {}
+    for key, tensor in state.items():
+        path = key.split('.')
+        module, name = path[:-1], path[-1]
+        value = tensor.detach().cpu().float().numpy()
+        weight = state.get('.'.join(module + ['weight']))
+        if weight is not None and weight.dim() == 1:        # LayerNorm
+            leaf = module + ['ln', 'scale' if name == 'weight' else 'bias']
+        elif name == 'bias':
+            leaf = module + ['bias']
+        elif name == 'weight' and value.ndim == 2:
+            leaf = module + ['kernel']
+            value = value.T if module[-1] in DENSE_LAYERS else \
+                value.T[None, None]
+        elif name == 'weight' and value.ndim == 4:
+            leaf, value = module + ['kernel'], value.transpose(2, 3, 1, 0)
+        else:
+            raise ValueError('cannot place {} of shape {} in a flax tree'
+                             .format(key, tuple(tensor.shape)))
+        node = tree
+        for part in leaf[:-1]:
+            node = node.setdefault(part, {})
+        node[leaf[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+    return {'params': tree}
+
+
+def flatten_flax(tree):
+    """Flax tree -> {'a/b/c': array}, the keys of a ``params.npz``."""
+    return {'/'.join(path): leaf for path, leaf in _flatten(tree)}
+
+
+def unflatten_flax(flat):
+    """{'a/b/c': array} -> nested dicts, the inverse of
+    :func:`flatten_flax`."""
+    tree = {}
+    for key, value in flat.items():
+        node = tree
+        parts = key.split('/')
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
 
 
 def load_flax_params(module, tree):

@@ -24,6 +24,16 @@ the DNA head's logits and the softmax masks and makes the field itself, as
 the JAX step does before its tail.  Both launch the same source's second
 kernel (tiled like the first; its DNA mode for the latter) on the card and
 take their plain versions on the CPU, by the same rules.
+
+Gradients (P = 0, the trainer's contract): on the CPU autograd
+differentiates the plain version.  On the card the folded entry runs as a
+``torch.autograd.Function`` whose forward launches the forward kernel and
+whose backward launches ``csrc/cdna_tail_bwd.cu``
+(:func:`fused_warp_composite_backward`; its plain version is
+:func:`fused_warp_composite_backward_reference`).  The field-given entry and
+the DNA mode have no backward kernel yet: on the card they raise when asked
+for a gradient, as the folded entry does with P > 0, rather than return a
+result cut off from the graph.
 """
 
 import ctypes
@@ -33,10 +43,13 @@ import torch
 
 from visual_foresight_torch.ops import _build
 from visual_foresight_torch.ops.cdna_warp import (RELU_SHIFT, dna_warp,
-                                                  effective_pixel_kernels)
-from visual_foresight_torch.ops.layout import depth_to_space
+                                                  effective_pixel_kernels,
+                                                  extract_patches)
+from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 SOURCE = 'cdna_tail.cu'
+BWD_SOURCE = 'cdna_tail_bwd.cu'
+_BWD_PIXELS = 128                     # pixels a block of the backward kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHANNELS = 4
 _MAX_MASKS = 16
@@ -145,6 +158,27 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
                                                        b))
 
 
+def _uses_kernel(t):
+    """Whether a call on ``t``'s device launches a kernel: False on the CPU
+    (the plain version), True on a CUDA device; any other device raises."""
+    if t.device.type == 'cpu':
+        return False
+    if t.device.type != 'cuda':
+        raise ValueError('no CDNA tail kernel for device {}'.format(t.device))
+    return True
+
+
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(entry):
+    raise RuntimeError(
+        '{} has no backward kernel: on the card it serves inference only '
+        '(ROADMAP.md queue 1, item 9); call it under '
+        'torch.no_grad() or with inputs that need no gradient'.format(entry))
+
+
 def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
                          masks, sna=True, mask_block=0):
     """Fused warp + composite of the frame and the pixel distributions.
@@ -155,15 +189,30 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
     it launches ``csrc/cdna_tail.cu`` and counts the launch in
     ``fused_warp_composite.launches``, by variant in
     ``fused_warp_composite.launches_by_variant`` and, where the masks came
-    blocked, in ``fused_warp_composite.blocked_launches``.
+    blocked, in ``fused_warp_composite.blocked_launches``.  Where an input
+    needs a gradient (grad mode on), the launch records an autograd node
+    whose backward is :func:`fused_warp_composite_backward`; that needs
+    P = 0 and raises otherwise.
     """
-    if prev.device.type == 'cpu':
+    if not _uses_kernel(prev):
         return fused_warp_composite_reference(
             prev, first, prev_distrib, first_distrib, kernels, masks, sna,
             mask_block)
-    if prev.device.type != 'cuda':
-        raise ValueError('no CDNA tail kernel for device {}'.format(
-            prev.device))
+    if _wants_grad(prev, first, prev_distrib, first_distrib, kernels, masks):
+        if prev_distrib.shape[-1]:
+            raise RuntimeError(
+                'the CDNA tail backward kernel takes no distribution '
+                'channels (P = {}; ROADMAP.md queue 1, item 9): call it under '
+                'torch.no_grad()'.format(prev_distrib.shape[-1]))
+        return _FoldedTail.apply(prev, first, prev_distrib, first_distrib,
+                                 kernels, masks, sna, mask_block)
+    return _launch(prev, first, prev_distrib, first_distrib, kernels, masks,
+                   sna, mask_block)
+
+
+def _launch(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+            mask_block):
+    """One launch of the folded entry on the card (no autograd node)."""
     _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
            mask_block)
     fn = _kernel()
@@ -192,6 +241,135 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
 fused_warp_composite.launches = 0
 fused_warp_composite.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 fused_warp_composite.blocked_launches = 0
+
+
+class _FoldedTail(torch.autograd.Function):
+    """The folded entry on the card with its backward kernel.  It saves its
+    four inputs, not the effective field: the backward makes the field
+    again where it needs it."""
+
+    @staticmethod
+    def forward(ctx, prev, first, prev_distrib, first_distrib, kernels,
+                masks, sna, mask_block):
+        out_img, out_distrib = _launch(prev, first, prev_distrib,
+                                       first_distrib, kernels, masks, sna,
+                                       mask_block)
+        ctx.save_for_backward(prev, first, kernels, masks)
+        ctx.sna, ctx.mask_block = sna, mask_block
+        ctx.mark_non_differentiable(out_distrib)
+        return out_img, out_distrib
+
+    @staticmethod
+    def backward(ctx, grad_img, grad_distrib):
+        prev, first, kernels, masks = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g_prev, g_first, g_kernels, g_masks = fused_warp_composite_backward(
+            grad_img, prev, first, kernels, masks, ctx.sna, ctx.mask_block,
+            needs=(need[0], need[1], need[4], need[5]))
+        return g_prev, g_first, None, None, g_kernels, g_masks, None, None
+
+
+def fused_warp_composite_backward_reference(grad_img, prev, first, kernels,
+                                            masks, sna=True, mask_block=0):
+    """Plain backward of :func:`fused_warp_composite_reference` for P = 0,
+    in explicit formulas, computed in f32.  With ``eff[p, t] = sum_k
+    masks[p, off+k] * kern[t, k]`` and ``d(t)`` tap t's offset:
+
+    - ``g_eff[p, t] = sum_c g[p, c] * prev[p + d(t), c]`` (zero outside);
+    - ``g_masks[p, 0] = sum_c g * prev``, ``g_masks[p, 1] = sum_c g *
+      first`` (SNA), ``g_masks[p, off+k] = sum_t g_eff[p, t] * kern[t, k]``;
+    - ``g_first = m1 * g`` (zero without SNA);
+    - ``g_kernels[t, k] = sum_p masks[p, off+k] * g_eff[p, t]``;
+    - ``g_prev[q] = m0 * g[q] + sum_t eff[q - d(t), t] * g[q - d(t)]``.
+
+    :param grad_img: (B, H, W, C) gradient of the loss by ``gen_image``
+    :return: (g_prev, g_first, g_kernels, g_masks), each in its input's
+        dtype and layout (``g_masks`` blocked where the masks are)
+    """
+    offset = 2 if sna else 1
+    b, h, w, c = prev.shape
+    ksize, m = kernels.shape[1], kernels.shape[3]
+    pad = ksize // 2
+    g = grad_img.float()
+    x = prev.float()
+    mk = (depth_to_space(masks, mask_block) if mask_block > 1
+          else masks).float()
+    kflat = kernels.float().reshape(b, ksize * ksize, m)
+    g_eff = torch.einsum('bhwc,bhwct->bhwt', g, extract_patches(x, ksize))
+    g_m = torch.cat([
+        (g * x).sum(-1, keepdim=True),
+        (g * first.float()).sum(-1, keepdim=True) if sna else g[..., :0],
+        torch.einsum('bhwt,btm->bhwm', g_eff, kflat)], dim=-1)
+    g_kernels = torch.einsum('bhwm,bhwt->btm', mk[..., offset:], g_eff)
+    g_first = g * mk[..., 1:2] if sna else torch.zeros_like(g)
+    eff = effective_pixel_kernels(kernels.float(), mk, offset)
+    spread = g.new_zeros((b, h + 2 * pad, w + 2 * pad, c))
+    for i in range(ksize):
+        for j in range(ksize):
+            spread[:, i:i + h, j:j + w] += eff[..., i * ksize + j, None] * g
+    g_prev = g * mk[..., 0:1] + spread[:, pad:pad + h, pad:pad + w]
+    if mask_block > 1:
+        g_m = space_to_depth(g_m, mask_block)
+    return (g_prev.to(prev.dtype), g_first.to(first.dtype),
+            g_kernels.reshape(kernels.shape).to(kernels.dtype),
+            g_m.to(masks.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    """The backward kernel's C entry point, with its ctypes signature."""
+    fn = _build.load(BWD_SOURCE).cdna_tail_backward
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
+                                  sna=True, mask_block=0,
+                                  needs=(True, True, True, True)):
+    """Gradients of the folded tail (P = 0) by ``prev``, ``first``,
+    ``kernels`` and ``masks``, as
+    :func:`fused_warp_composite_backward_reference` computes them; ``needs``
+    names the ones wanted, and the others come back as None.  On a CUDA
+    device it launches ``csrc/cdna_tail_bwd.cu`` (a pixel pass and, where
+    the kernels' gradient is wanted, a fixed-order sum of its per-block
+    partials, so two runs give the same bits) and counts the call in
+    ``fused_warp_composite_backward.launches``.
+    """
+    if not _uses_kernel(prev):
+        grads = fused_warp_composite_backward_reference(
+            grad_img, prev, first, kernels, masks, sna, mask_block)
+        return tuple(gr if n else None for gr, n in zip(grads, needs))
+    grad_img = grad_img.contiguous()
+    empty = prev.new_zeros(prev.shape[:3] + (0,))
+    _check(prev, first, empty, empty, kernels, masks, sna, mask_block)
+    _check_tensors({'prev': prev, 'grad_img': grad_img,
+                    'prev_distrib': empty}, {'grad_img': tuple(prev.shape)})
+    b, h, w, c = prev.shape
+    ksize, m = kernels.shape[1], kernels.shape[3]
+    n_blocks = -(-h * w // _BWD_PIXELS)
+    outs = [torch.empty_like(t) if n else None
+            for t, n in zip((prev, first, kernels, masks), needs)]
+    partials = torch.empty((b, n_blocks, ksize * ksize * m),
+                           dtype=torch.float32, device=prev.device) \
+        if needs[2] else None
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    fn = _bwd_kernel()
+    with torch.cuda.device(prev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(grad_img.data_ptr(), prev.data_ptr(), first.data_ptr(),
+                 kernels.data_ptr(), masks.data_ptr(), *map(ptr, outs),
+                 ptr(partials), b, h, w, c, ksize, m, int(sna),
+                 _DTYPES[prev.dtype], mask_block, stream)
+    if err != 0:
+        raise RuntimeError('cdna_tail backward kernel launch failed: '
+                           'cudaError {}'.format(err))
+    fused_warp_composite_backward.launches += 1
+    return tuple(outs)
+
+
+fused_warp_composite_backward.launches = 0
 
 
 def fused_warp_composite_eff_reference(prev, first, prev_distrib,
@@ -254,15 +432,16 @@ def fused_warp_composite_eff(prev, first, prev_distrib, first_distrib,
     it.  All six tensors share one device and one dtype (float32 or
     bfloat16) and are contiguous.  On a CUDA device it launches the
     effective-kernel entry of ``csrc/cdna_tail.cu`` and counts the launch
-    in ``fused_warp_composite_eff.launches``.
+    in ``fused_warp_composite_eff.launches``.  It has no backward kernel:
+    on the card, asked for a gradient, it raises.
     """
-    if prev.device.type == 'cpu':
+    if not _uses_kernel(prev):
         return fused_warp_composite_eff_reference(
             prev, first, prev_distrib, first_distrib, eff_kernels, bg_masks,
             sna)
-    if prev.device.type != 'cuda':
-        raise ValueError('no CDNA tail kernel for device {}'.format(
-            prev.device))
+    if _wants_grad(prev, first, prev_distrib, first_distrib, eff_kernels,
+                   bg_masks):
+        _no_backward('fused_warp_composite_eff')
     _check_eff(prev, first, prev_distrib, first_distrib, eff_kernels,
                bg_masks, sna)
     fn = _eff_kernel()
@@ -357,14 +536,15 @@ def fused_warp_composite_dna(prev, first, prev_distrib, first_distrib,
     dtype (float32 or bfloat16); ``masks`` are in that dtype or float32 (the
     classic backbone's softmax).  All are contiguous.  On a CUDA device it
     launches the DNA mode of ``csrc/cdna_tail.cu`` and counts the launch in
-    ``fused_warp_composite_dna.launches``.
+    ``fused_warp_composite_dna.launches``.  It has no backward kernel: on
+    the card, asked for a gradient, it raises.
     """
-    if prev.device.type == 'cpu':
+    if not _uses_kernel(prev):
         return fused_warp_composite_dna_reference(
             prev, first, prev_distrib, first_distrib, dna_logits, masks, sna)
-    if prev.device.type != 'cuda':
-        raise ValueError('no CDNA tail kernel for device {}'.format(
-            prev.device))
+    if _wants_grad(prev, first, prev_distrib, first_distrib, dna_logits,
+                   masks):
+        _no_backward('fused_warp_composite_dna')
     _check_dna(prev, first, prev_distrib, first_distrib, dna_logits, masks,
                sna)
     fn = _dna_kernel()

@@ -30,7 +30,8 @@ import torch
 
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import CDNAPredictor
-from visual_foresight_torch.models.convert import load_flax_params
+from visual_foresight_torch.models.convert import (load_flax_params,
+                                                   unflatten_flax)
 
 PARAMS_FILE = 'params.npz'
 # seed of the latent draw when ``__call__`` is given neither a generator nor
@@ -185,7 +186,7 @@ class TorchPredictor:
                                 PARAMS_FILE)
             if os.path.isfile(path):
                 with np.load(path) as f:
-                    tree = _unflatten({k: f[k] for k in f.files})
+                    tree = unflatten_flax({k: f[k] for k in f.files})
                 load_flax_params(self.model, tree)
                 states.append({k: v.clone() for k, v in
                                self.model.state_dict().items()})
@@ -277,15 +278,3 @@ def _to_host(t):
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t)
     return host.numpy()
-
-
-def _unflatten(flat):
-    """{'a/b/c': array} -> nested dicts."""
-    tree = {}
-    for key, value in flat.items():
-        node = tree
-        parts = key.split('/')
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = value
-    return tree

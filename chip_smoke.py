@@ -16,7 +16,8 @@
    paths, at 48x64, C=3, P=1, K=5, M=10, SNA) and at
    shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
-   off, P=0, and C=1, P=4, which the general variant serves); and the
+   off, P=0, and C=1, P=4, which the general variant serves, and the
+   general variant at the registration path's B=768, C=3, P=2); and the
    source's second kernel against its plain versions in bf16 and f32 at
    B=768 and 200, P 0-3, SNA on and off, K 3, 5 and 7, and at odd sizes:
    through its effective-kernel entry (the per-pixel field given) and
@@ -96,6 +97,21 @@
      ten more steps timed and one profiled; ``--stochastic`` at ag_r5f_v2's
      configuration for 10 steps, the KL printed; the flagship run's
      checkpoint restored by ``TorchPredictor`` and one 200 x 15 x 3 replan;
+   - the other planning costs, each controller restoring its weights (the
+     seeded exports of the GDN, classifier, NCE and inverse nets; the
+     ensemble's members 2 and 3 and the registration predictor's view 1
+     are seeded copies of xz_flagship written to a temporary directory):
+     first each JAX golden replayed in f32 (act() at t=1, 24 samples x 15
+     steps x 3 iterations, the JAX draws injected: scores, elites, plans,
+     the registration's tradeoffs and pixels; the inverse net's plans),
+     then each again with the plain tail (the same elites, f32), then
+     act() at the campaign points in bf16: xz_bench20_ensemble (3
+     members x 3 iterations x one 46-step teacher-forced forward of 768
+     samples = 414 launches a replan), xz2c_bench20_registration (2
+     cameras x (1 + 3 x 30) = 182 launches, all of the general variant: 2
+     designated pixels a camera), ag_bench20_classifier on ag_r5f_v2 (91)
+     and xz_bench20_nce (136), one replan each; xz_bench20_inverse (10
+     steps, no tail launch);
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
    ``depth_to_space`` copy that the blocked layout saves; the second
@@ -107,7 +123,10 @@
    with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
    (fused and host loop), folding, classic CDNA and classic DNA controllers
    (host clock and CUDA events), with a profiler breakdown of one replan of
-   each but the one-batch 800-sample and the folding ones.
+   each but the one-batch 800-sample and the folding ones; then the
+   ensemble, registration, classifier, NCE and inverse replans the same
+   way, and the general variant at the registration path's shape (B=768,
+   C=3, P=2, blocked masks) beside its bound and the tiled variant.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -121,6 +140,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -226,6 +246,52 @@ DNA_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
 CLASSIC_POLICY = dict(CTRL_POLICY, model_path=CLASSIC_WEIGHTS)
 DNA_POLICY = dict(CTRL_POLICY, model_path=DNA_WEIGHTS)
 FUSE_POLICY = dict(CTRL_POLICY, predictor_hparams={'fuse_decode': True})
+# the other planning costs at their campaigns' points
+# (benchmarks/{xz_bench20_ensemble,xz2c_bench20_registration,
+# ag_bench20_classifier,xz_bench20_nce,xz_bench20_inverse}/hparams.py; the
+# files import the JAX package, so their values are written here).  No
+# trained weights of theirs are vendored: the ensemble's members 2 and 3 and
+# the registration predictor's view 1 are seeded copies of xz_flagship (the
+# seeds in their goldens), the classifier runs ag_r5f_v2 in place of
+# ag_r5f_v1, and the GDN, classifier, NCE and inverse nets are seeded
+# exports (tests/test_torch_weights_aux.py)
+SEEDED = {n: os.path.join(os.path.dirname(WEIGHTS), 'seeded_' + n)
+          for n in ('gdn', 'classifier', 'nce', 'inverse')}
+GOLDEN_PATHS = {
+    'ensemble': os.path.join(WEIGHTS, 'golden_ensemble_f32.npz'),
+    'registration': os.path.join(SEEDED['gdn'],
+                                 'golden_registration_f32.npz'),
+    'classifier': os.path.join(SEEDED['classifier'],
+                               'golden_classifier_f32.npz'),
+    'nce': os.path.join(SEEDED['nce'], 'golden_nce_f32.npz'),
+}
+# the act() inputs of each controller (the ensemble's: the pixels alone)
+GOLDEN_ACT_KEYS = {'ensemble': ('desig_pix', 'goal_pix'),
+                   'registration': ('desig_pix', 'goal_pix', 'goal_image'),
+                   'classifier': ('goal_image',), 'nce': ('goal_image',)}
+COPY_SCALE = 0.1
+N_MEMBERS = 3
+ENSEMBLE_POLICY = dict(CTRL_POLICY)           # model_path set by main()
+REG_AGENT = dict(AG_PARAMS, T=30, ncam=2, ntask=1)
+REG_POLICY = {'action_order': ['x', 'z', 'grasp'],
+              'rejection_sampling': False, 'replan_interval': 10,
+              'num_samples': 768, 'nactions': 10, 'T': 30,
+              'predictor_hparams': {'ncam': 2}, 'gdn_path': SEEDED['gdn']}
+CLF_POLICY = {'initial_std': 0.04, 'initial_std_rot': np.pi / 32,
+              'initial_std_lift': 0.6, 'rejection_sampling': False,
+              'replan_interval': 10, 'num_samples': 768, 'nactions': 10,
+              'T': 30, 'model_path': AG_WEIGHTS, 'final_frames': 3,
+              'classifier_path': SEEDED['classifier']}
+NCE_POLICY = dict(CTRL_POLICY, embedding_path=SEEDED['nce'])
+INV_AGENT = {'adim': 3, 'sdim': 3, 'image_height': H, 'image_width': W}
+INV_POLICY = {'T': 45, 'model_params_path': SEEDED['inverse'],
+              'context_action_weight': [1, 1, 1],
+              'initial_action_low': [-0.025, -0.025, 0.],
+              'initial_action_high': [0.025, 0.025, 0.]}
+INV_STEPS = 10                # warm-ups at t < 2, replans at t = 2, 4, 6, 8
+INVERSE_ATOL = 1e-5
+# the general variant at the registration path's tail shape
+GENERAL_P = 2
 # the effective-kernel entry: B, P, SNA and K swept at 48x64, C=3
 EFF_BATCHES, EFF_PS, EFF_KS = (768, 200), (0, 1, 2, 3), (3, 5, 7)
 EFF_ODD = [dict(b=3, h=13, w=10), dict(b=2, h=9, w=300, c=1, p=4)]
@@ -454,9 +520,10 @@ def check_eff_cases(gen):
 
 def check_tail_cases(gen):
     """The serving shapes and ``TAIL_CASES``, in both types and in each
-    case's mask layouts.  Returns the largest bf16 error at the serving
-    shapes."""
-    err_bf16 = 0.0
+    case's mask layouts.  Returns the largest bf16 errors at the serving
+    shapes: of the tiled variant, and of the general variant at the
+    registration path's shape (B=768, C=3, P=2)."""
+    err_bf16 = general_bf16 = 0.0
     # the batches of the driven paths: a chunk or the 200-sample replan,
     # the campaigns' 768, 800 in one batch, the hard set's 768 x 2 copies,
     # the chunked replan's re-roll of the visualised elites, the RoboNet
@@ -477,7 +544,16 @@ def check_tail_cases(gen):
                 for ones in (False, True):
                     check_tail(gen, b, dtype, variant, label, mask_block,
                                ones=ones, **shape)
-    return err_bf16
+    # the registration path: two designated pixels a camera, C + P = 5
+    for mask_block in (MASK_BLOCK, 0):
+        for dtype in (torch.bfloat16, torch.float32):
+            for ones in (False, True):
+                err = check_tail(gen, REG_POLICY['num_samples'], dtype,
+                                 'general', 'registration shape', mask_block,
+                                 ones=ones, p=GENERAL_P)
+                if dtype == torch.bfloat16 and not ones:
+                    general_bf16 = max(general_bf16, err)
+    return err_bf16, general_bf16
 
 
 def reset_tail_counts():
@@ -492,17 +568,19 @@ def reset_tail_counts():
         fused_warp_composite.launches_by_variant[v] = 0
 
 
-def read_tail_counts(path, want, predictor):
+def read_tail_counts(path, want, predictor, variant='tiled'):
     """The launches since ``reset_tail_counts``: ``want`` in all, each
     through the entry and on the mask layout that ``predictor``'s
     architecture gives.  DNA runs the DNA mode (the field made inside the
-    kernel), never the field-given entry; CDNA the folded entry's tiled
-    variant, on blocked masks where the space-to-depth backbone keeps its
-    low-resolution softmax (the serving predictor), else on full-resolution
-    masks (the classic backbone).  Returns the counters as read, by kernel
-    entry: ``{'cdna_tail': n, 'cdna_tail_eff': n, 'cdna_tail_dna': n}``."""
+    kernel), never the field-given entry; CDNA the folded entry's
+    ``variant`` (tiled, or general where frame and distribution channels
+    pass four), on blocked masks where the space-to-depth backbone keeps
+    its low-resolution softmax (the serving predictor), else on
+    full-resolution masks (the classic backbone).  Returns the counters as
+    read, by kernel entry: ``{'cdna_tail': n, 'cdna_tail_eff': n,
+    'cdna_tail_dna': n}``."""
     from visual_foresight_torch.ops.cdna_tail import (
-        fused_warp_composite, fused_warp_composite_dna,
+        VARIANTS, fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
     hp = predictor._hp
     dna = bool(hp['dna'])
@@ -513,23 +591,37 @@ def read_tail_counts(path, want, predictor):
     by_variant = dict(fused_warp_composite.launches_by_variant)
     eff = fused_warp_composite_eff.launches
     dna_launches = fused_warp_composite_dna.launches
-    print('{} path: {} tail kernel launches (expected {}), by variant {}, '
-          '{} on blocked masks; {} DNA-mode launches (expected {}), {} of the '
-          'field-given entry (expected 0)'.format(
-              path, launches, want_folded, by_variant, on_blocks,
+    print('{} path: {} tail kernel launches (expected {}, all {}), by '
+          'variant {}, {} on blocked masks; {} DNA-mode launches (expected '
+          '{}), {} of the field-given entry (expected 0)'.format(
+              path, launches, want_folded, variant, by_variant, on_blocks,
               dna_launches, want_dna, eff))
     if launches != want_folded or dna_launches != want_dna or eff:
         raise AssertionError('the {} path did not run the tail kernels {}, '
                              '{} and 0 times'.format(path, want_folded,
                                                      want_dna))
-    if by_variant != {'general': 0, 'tiled': want_folded}:
-        raise AssertionError('the {} path left the tiled variant'.format(
-            path))
+    if by_variant != {v: want_folded * (v == variant) for v in VARIANTS}:
+        raise AssertionError('the {} path left the {} variant'.format(
+            path, variant))
     if on_blocks != (want_folded if blocked else 0):
         raise AssertionError('the {} path did not keep its masks {}'.format(
             path, 'blocked' if blocked else 'at full resolution'))
     return {'cdna_tail': launches, 'cdna_tail_eff': eff,
             'cdna_tail_dna': dna_launches}
+
+
+def read_no_tail(path):
+    """No tail launch since ``reset_tail_counts``, through any entry."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_dna,
+        fused_warp_composite_eff)
+    launches = {'cdna_tail': fused_warp_composite.launches,
+                'cdna_tail_eff': fused_warp_composite_eff.launches,
+                'cdna_tail_dna': fused_warp_composite_dna.launches}
+    print('{} path: tail launches {} (expected none)'.format(path, launches))
+    if any(launches.values()):
+        raise AssertionError('the {} path launched the tail'.format(path))
+    return launches
 
 
 def graph_ms(fn, arg_sets, reps):
@@ -913,42 +1005,60 @@ def with_sampler(policy, name):
     return dict(policy, sampler=cls)
 
 
-def drive_controller(label, agent, policy, steps):
-    """``PixelCostController.act()`` under ``policy`` for ``steps`` control
-    steps on seeded synthetic frames; a replan falls on the first planning
-    step (``start_planning``, at least 1) and then every
-    ``replan_interval`` steps, earlier steps take warm-up actions.  Checks
-    that the weights restored, the tail's launches (``read_tail_counts``),
-    and that the actions and the last replan's scores are finite and of the
+def check_restored(label, ctrl):
+    """Every network of ``ctrl`` restored its numpy weights: the predictor,
+    and the ensemble's members, the GDN, the classifier or the embedding
+    where the controller has one."""
+    flags = {'predictor': ctrl.predictor.restored}
+    for attr in ('members_restored', 'gdn_restored', 'classifier_restored',
+                 'embedding_restored'):
+        if hasattr(ctrl, attr):
+            flags[attr] = getattr(ctrl, attr)
+    print('{} controller: restored {}'.format(label, flags))
+    if not all(all(v) if isinstance(v, list) else v
+               for v in flags.values()):
+        raise AssertionError('the {} controller did not restore its '
+                             'weights'.format(label))
+
+
+def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
+                     want=None, variant='tiled'):
+    """``act()`` of a ``cls`` controller (``PixelCostController`` by
+    default) under ``policy`` for ``steps`` control steps on seeded
+    synthetic frames of every camera, with ``act_kw`` (the designated and
+    goal pixels by default); a replan falls on the first planning step
+    (``start_planning``, at least 1) and then every ``replan_interval``
+    steps, earlier steps take warm-up actions.  Checks that the weights
+    restored, the tail's launches (``read_tail_counts``: ``want`` a replan,
+    ``replan_launches(policy)`` by default, all of ``variant``), and that
+    the actions and the last replan's scores are finite and of the
     expected shapes.  Returns (launches by kernel, controller, states)."""
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
-    ctrl = PixelCostController(agent, dict(policy))
-    print('{} controller predictor: restored={}'.format(
-        label, ctrl.predictor.restored))
-    if not ctrl.predictor.restored:
-        raise AssertionError('the {} controller did not restore {}'.format(
-            label, policy['model_path']))
-    adim = agent['adim']
+    ctrl = (cls or PixelCostController)(agent, dict(policy))
+    check_restored(label, ctrl)
+    adim, ncam = agent['adim'], agent.get('ncam', 1)
     rng = np.random.RandomState(2)
-    frames = (rng.rand(steps, 1, H, W, 3) * 255).astype(np.uint8)
+    frames = (rng.rand(steps, ncam, H, W, 3) * 255).astype(np.uint8)
     states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
-    desig, goal = np.array([[[24, 32]]]), np.array([[[10, 50]]])
+    if act_kw is None:
+        act_kw = {'desig_pix': np.array([[[24, 32]]]),
+                  'goal_pix': np.array([[[10, 50]]])}
     start = max(policy.get('start_planning', 0), N_CTX - 1)
     replans = 1 + (steps - 1 - start) // policy['replan_interval']
+    per_replan = want or replan_launches(policy)
     ctrl.reset()
     reset_tail_counts()
     actions, n_samples = [], []
     for t in range(steps):
-        out = ctrl.act(t=t, i_tr=0, desig_pix=desig, goal_pix=goal,
-                       images=frames[:t + 1], state=states[:t + 1])
+        out = ctrl.act(t=t, i_tr=0, images=frames[:t + 1],
+                       state=states[:t + 1], **act_kw)
         actions.append(np.asarray(out['actions'], np.float32))
     torch.cuda.synchronize()
-    want = replans * replan_launches(policy)
     launches = read_tail_counts(
         '{} controller ({} act() steps, {} replans x {})'.format(
-            label, steps, replans, replan_launches(policy)),
-        want, ctrl.predictor)
+            label, steps, replans, per_replan),
+        replans * per_replan, ctrl.predictor, variant)
     for a in actions:
         if a.shape != (adim,) or not np.isfinite(a).all():
             raise AssertionError('{} controller action {} is malformed'
@@ -1013,6 +1123,222 @@ def check_grip(label, ctrl, policy, ag_epsilon=False):
     if not values <= cmds or not (len(rows) or ag_epsilon):
         raise AssertionError('{}: the derived grip holds {}'.format(
             label, sorted(values)))
+
+
+# -- the other planning costs ---------------------------------------------------
+
+def predictor_dirs(kind, root, seeds):
+    """The predictors of the ensemble and registration paths under
+    ``root``: the ensemble's member list (the flagship, then its seeded
+    copies) or the two-camera registration predictor (view 1 a seeded copy
+    of the flagship), as ``tests/test_torch_weights_aux.py`` makes them."""
+    from visual_foresight_torch.models.convert import (perturbed_flat,
+                                                       read_npz)
+    flagship = read_npz(os.path.join(WEIGHTS, 'view0', 'params.npz'))
+    copies = [perturbed_flat(flagship, int(s), COPY_SCALE) for s in seeds]
+
+    def write(path, views):
+        for v, flat in enumerate(views):
+            os.makedirs(os.path.join(path, 'view{}'.format(v)))
+            np.savez(os.path.join(path, 'view{}'.format(v), 'params.npz'),
+                     **flat)
+        shutil.copyfile(os.path.join(WEIGHTS, 'model_config.json'),
+                        os.path.join(path, 'model_config.json'))
+        return path
+    if kind == 'ensemble':
+        return [WEIGHTS] + [write(os.path.join(root, 'member{}'.format(i)),
+                                  [c]) for i, c in enumerate(copies)]
+    return write(os.path.join(root, 'xz2c'), [flagship] + copies)
+
+
+def controller_class(kind):
+    from visual_foresight_torch.policy.cem_controllers import (
+        registration_controller, variants)
+    return {'ensemble': variants.CEMControllerEnsembleVidPred,
+            'registration': registration_controller.RegisterGtruthController,
+            'classifier': variants.ClassifierController,
+            'nce': variants.NCECostController}[kind]
+
+
+def cost_launches(kind, ctrl, ncam):
+    """Tail launches of one replan of a planning-cost controller: each
+    ensemble member runs one teacher-forced forward over the context action
+    and the plan an iteration; the others one rollout a camera."""
+    hp = ctrl._hp
+    if kind == 'ensemble':
+        return N_MEMBERS * hp.iterations * (N_CTX - 1 + hp.T)
+    return ncam * (1 + hp.iterations * hp.T)
+
+
+def check_controller_golden(kind, dirs):
+    """Replay the JAX package's f32 replan of a planning-cost controller
+    (``GOLDEN_PATHS``: act() at t=1, 24 samples x 15 steps x 3 iterations,
+    the JAX draws injected) through the port's controller on the card:
+    scores, elites, the action (and the tradeoffs and the registered
+    pixels); then the same replan with the plain tail, which must choose
+    the same elites with the scores within the golden's tolerance.
+    Returns the launches."""
+    from visual_foresight_torch.models.convert import read_npz
+    g = read_npz(GOLDEN_PATHS[kind])
+    agent, policy = json.loads(str(g['agent'])), json.loads(str(g['policy']))
+    weights = {'ensemble': {'model_path': dirs},
+               'registration': {'model_path': dirs,
+                                'gdn_path': SEEDED['gdn']},
+               'classifier': {'model_path': AG_WEIGHTS,
+                              'classifier_path': SEEDED['classifier']},
+               'nce': {'model_path': WEIGHTS,
+                       'embedding_path': SEEDED['nce']}}[kind]
+    ctrl = controller_class(kind)(agent, dict(policy, **weights))
+    check_restored('golden ' + kind, ctrl)
+    # the JAX draws: through the ensemble's _draw_normals, one iteration a
+    # call, or given to every replan of the fused planner
+    noise = torch.as_tensor(g['noise'], device=ctrl.device)
+    latents = g.get('latents')
+    if latents is not None:
+        latents = torch.as_tensor(latents, device=ctrl.device)
+    draws = [None]
+    if kind == 'ensemble':
+        ctrl._draw_normals = lambda m, dim: next(draws[0])
+    else:
+        replan = ctrl._fused.replan
+        ctrl._fused.replan = lambda *a, generator, **kw: replan(
+            *a, noise=noise, latents=latents, **kw)
+
+    def replay():
+        draws[0] = iter(noise)
+        ctrl.reset()
+        out = ctrl.act(t=1, i_tr=0, images=g['images'], state=g['states'],
+                       **{k: g[k] for k in GOLDEN_ACT_KEYS[kind]})
+        torch.cuda.synchronize()
+        return out, [out['plan_stat']['scores_itr{}'.format(i)]
+                     for i in range(g['scores_per_itr'].shape[0])]
+
+    reset_tail_counts()
+    out, scores = replay()
+    launches = read_tail_counts(
+        'golden {} (f32)'.format(kind),
+        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor,
+        'general' if kind == 'registration' else 'tiled')
+    best, best_actions = ctrl._best_indices.copy(), ctrl._best_actions.copy()
+    registered = getattr(ctrl, 'reg_tradeoff', None), \
+        getattr(ctrl, '_desig_pix', None)
+    # the same replan with the plain tail: f32 on both sides, so the same
+    # elites and the scores within the golden's tolerance
+    from visual_foresight_torch.models import cdna as cdna_model
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_reference)
+    cdna_model.fused_warp_composite = fused_warp_composite_reference
+    try:
+        _, plain_scores = replay()
+    finally:
+        cdna_model.fused_warp_composite = fused_warp_composite
+    same, _ = compare_scores(
+        '{} replan (golden inputs, f32), kernel vs plain tail'.format(kind),
+        scores, plain_scores, ctrl.elite_count, GOLDEN_SCORE_RTOL,
+        per_element=True)
+    if not same or not np.array_equal(ctrl._best_indices, best):
+        raise AssertionError('{}: the plain tail chose other elites'.format(
+            kind))
+    same, score_err = compare_scores(
+        'golden f32 replay of the {} controller vs JAX'.format(kind), scores,
+        g['scores_per_itr'], ctrl.elite_count, GOLDEN_SCORE_RTOL,
+        per_element=True)
+    if not same or not np.array_equal(best, g['best_indices']):
+        raise AssertionError('golden {}: the elites differ'.format(kind))
+    close = lambda a, b: np.allclose(a, b, rtol=GOLDEN_SCORE_RTOL,
+                                     atol=GOLDEN_FRAME_ATOL)
+    act_err = float(np.abs(best_actions - g['best_actions']).max())
+    ok = close(best_actions, g['best_actions']) and \
+        close(out['actions'], g['action'])
+    extra = ''
+    if kind == 'registration':
+        tradeoff, desig = registered
+        extra = '; tradeoffs {} (JAX {}), registered pixels equal: {}'.format(
+            np.round(tradeoff, 6).tolist(),
+            np.round(g['tradeoff'], 6).tolist(),
+            np.array_equal(desig, g['desig_registered']))
+        ok = ok and np.allclose(tradeoff, g['tradeoff'],
+                                rtol=GOLDEN_SCORE_RTOL) and \
+            np.array_equal(desig, g['desig_registered'])
+    print('golden {}: elites equal, elites\' plans max abs err {:.3e} (rtol '
+          '{:.0e}, atol {:.0e}){}'.format(kind, act_err, GOLDEN_SCORE_RTOL,
+                                          GOLDEN_FRAME_ATOL, extra))
+    if not ok:
+        raise AssertionError('golden {}: the plans disagree with JAX'.format(
+            kind))
+    return launches
+
+
+def check_inverse_golden():
+    """The seeded inverse net on the card in f32 against the JAX package's
+    plans (``golden_inverse_f32.npz``), atol 1e-5."""
+    from visual_foresight_torch.models.convert import read_npz
+    from visual_foresight_torch.policy.inverse_models. \
+        inverse_model_base_controller import TorchInverseModel
+    g = read_npz(os.path.join(SEEDED['inverse'], 'golden_inverse_f32.npz'))
+    model = TorchInverseModel(SEEDED['inverse'], {
+        'adim': 3, 'plan_T': 7, 'num_context': 2}).restore()
+    if not model.restored:
+        raise AssertionError('the inverse net did not restore')
+    err = max(float(np.abs(model(g['current'][i], g['goal'][i], None,
+                                 g['context'][i:i + 1]) -
+                           g['plans'][i:i + 1]).max()) for i in range(4))
+    print('golden inverse net (f32, 4 inputs): plans max abs err {:.3e} '
+          '(tol {:.0e})'.format(err, INVERSE_ATOL))
+    if not err <= INVERSE_ATOL:
+        raise AssertionError('the inverse net disagrees with JAX')
+
+
+def drive_inverse(card):
+    """``InvModelBaseController.act()`` at xz_bench20_inverse's point on the
+    seeded export for ``INV_STEPS`` steps (warm-up draws, then a plan from
+    the net every two steps): finite actions, no tail launch; the host p50
+    and CUDA-event span of a replan (one forward of the net) and a profiled
+    one.  Returns the launches (all 0)."""
+    from visual_foresight_torch.policy.inverse_models. \
+        inverse_model_base_controller import InvModelBaseController
+    ctrl = InvModelBaseController(INV_AGENT, dict(INV_POLICY))
+    print('inverse controller: restored={}'.format(ctrl.predictor.restored))
+    if not ctrl.predictor.restored:
+        raise AssertionError('the inverse controller did not restore')
+    rng = np.random.RandomState(2)
+    frames = (rng.rand(INV_STEPS, 1, 1, H, W, 3) * 255).astype(np.uint8)
+    goal = (rng.rand(1, 1, H, W, 3) * 255).astype(np.uint8)
+    np.random.seed(0)
+    ctrl.reset()
+    reset_tail_counts()
+    actions = [ctrl.act(t=t, i_tr=0, images=frames[t],
+                        goal_image=goal)['actions'] for t in range(INV_STEPS)]
+    torch.cuda.synchronize()
+    launches = read_no_tail('inverse controller ({} act() steps)'.format(
+        INV_STEPS))
+    if any(a.shape != (3,) or not np.isfinite(a).all() for a in actions):
+        raise AssertionError('inverse controller actions malformed')
+    print('inverse controller actions finite; last {}'.format(actions[-1]))
+    ctx = np.stack(ctrl.context_frames)[None]
+    cur, g0 = frames[-1, -1, 0] / 255.0, goal[-1, 0] / 255.0
+    replan = lambda: ctrl.predictor(cur, g0, None, ctx)
+    host, device = [], []
+    for _ in range(CTRL_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        replan()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    point = 'xz_bench20_inverse: one forward of the inverse net, 48x64, f32'
+    print('inverse_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
+          '[{}]'.format(float(np.percentile(host, 50)), point, CTRL_TIMED,
+                        ' '.join('{:.3f}'.format(x) for x in host), card))
+    print('inverse_replan_device_ms={:.3f} ({}, CUDA events, median) [{}]'
+          .format(float(np.percentile(device, 50)), point, card))
+    print('profile: one inverse-model replan')
+    profile_replan(replan)
+    return launches
 
 
 def time_controller(name, point, ctrl, states, card):
@@ -1083,6 +1409,40 @@ def time_tail(gen, b, card):
     print('cdna_tail_bound_ms={:.5f} (B={}, by {}; H100 SXM 3.35 TB/s, 67 '
           'TFLOP/s f32) [{}]'.format(res['bound_ms'], b, res['bound_by'],
                                      card))
+    return res
+
+
+def time_general(gen, b, tiled_ms, card):
+    """The general variant at the registration path's tail shape (batch
+    ``b``, 48x64, C=3, P=2, blocked masks r=4, bf16): kernel and plain
+    version (CUDA graph, CUDA events) beside its bound and the tiled
+    variant's time at P=1 (``tiled_ms``)."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_reference, kernel_variant)
+    if kernel_variant(C, GENERAL_P, MASK_BLOCK) != 'general':
+        raise AssertionError('the registration shape is not the general '
+                             'variant\'s')
+    sets = [tail_inputs(gen, b, torch.bfloat16, p=GENERAL_P,
+                        mask_block=MASK_BLOCK) for _ in range(4)]
+    res = {'ms': graph_ms(lambda *a: fused_warp_composite(
+        *a, sna=True, mask_block=MASK_BLOCK), sets, reps=100),
+           'plain_ms': graph_ms(lambda *a: fused_warp_composite_reference(
+               *a, sna=True, mask_block=MASK_BLOCK), sets, reps=10)}
+    outs = fused_warp_composite_reference(*sets[0], sna=True,
+                                          mask_block=MASK_BLOCK)
+    res['bound_ms'], res['bound_by'], bytes_ms = tail_bound(sets[0], outs,
+                                                            sna=True)
+    del sets, outs
+    share = bytes_ms / res['ms']
+    print('cdna_tail_general_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
+          '(by {}), {:.1%} of 3.35 TB/s, {:.2f}x the tiled variant at P=1 '
+          '({:.5f} ms) (B={} bf16, 48x64, C=3, P=2, blocked masks r=4, CUDA '
+          'graph, CUDA events) [{}]'.format(
+              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
+              share, res['ms'] / tiled_ms, tiled_ms, b, card))
+    if share > 1.0:
+        raise AssertionError('the general variant moved its bytes faster '
+                             'than the card can: the timing is wrong')
     return res
 
 
@@ -1620,11 +1980,12 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     card = card_line()
     print('python {} torch {} cuda {}'.format(
         sys.version.split()[0], torch.__version__, torch.version.cuda))
-    print('device: {} (count {})'.format(kind, torch.cuda.device_count()))
+    print('device: {} (count {})'.format(device_kind,
+                                         torch.cuda.device_count()))
     print(card)
 
     # -- builds: one nvcc per kernel, all started together -------------------
@@ -1641,7 +2002,7 @@ def main():
     # -- 2. tail kernel against its plain version ------------------------------
     print_report(cdna_tail.SOURCE, builds[cdna_tail.SOURCE].result()[1],
                  time.time() - t0)
-    err_bf16 = check_tail_cases(gen)
+    err_bf16, general_err = check_tail_cases(gen)
     eff_err = check_eff_cases(gen)
     print_report(cdna_tail.BWD_SOURCE,
                  builds[cdna_tail.BWD_SOURCE].result()[1], time.time() - t0)
@@ -1736,6 +2097,53 @@ def main():
     paths['serve_trained_checkpoint'] = serve_trained()
     shutil.rmtree(TRAIN_DIR)
 
+    # -- 5i. the other planning costs at their campaigns' points: JAX goldens
+    # in f32, then act() in bf16 at full width, then the plain tail
+    from visual_foresight_torch.models.convert import read_npz
+    cost_root = tempfile.mkdtemp(prefix='chip_smoke_costs_')
+    try:
+        dirs = {k: predictor_dirs(k, cost_root,
+                                  read_npz(GOLDEN_PATHS[k])['copy_seeds'])
+                for k in ('ensemble', 'registration')}
+        for cost in ('ensemble', 'registration', 'classifier', 'nce'):
+            paths['golden_' + cost] = check_controller_golden(
+                cost, dirs.get(cost))
+        check_inverse_golden()
+        rng = np.random.RandomState(4)
+        goal_image = lambda ncam: rng.rand(1, ncam, H, W, 3).astype(
+            np.float32)
+        paths['controller_ensemble'], ens_ctrl, ens_states = \
+            drive_controller(
+                'xz_bench20_ensemble (3 members)', AG_PARAMS,
+                dict(ENSEMBLE_POLICY, model_path=dirs['ensemble']), 2,
+                cls=controller_class('ensemble'),
+                want=N_MEMBERS * ITERS * (N_CTX - 1 + CTRL_POLICY['T']))
+        paths['controller_registration'], reg_ctrl, reg_states = \
+            drive_controller(
+                'xz2c_bench20_registration (2 cameras, P=2)', REG_AGENT,
+                dict(REG_POLICY, model_path=dirs['registration']), 2,
+                cls=controller_class('registration'),
+                act_kw={'desig_pix': np.array([[[24, 32]], [[30, 20]]]),
+                        'goal_pix': np.array([[[10, 50]], [[15, 40]]]),
+                        'goal_image': goal_image(2)},
+                want=REG_AGENT['ncam'] * replan_launches(REG_POLICY),
+                variant='general')
+        print('registration tradeoffs {} and registered pixels {}'.format(
+            np.round(reg_ctrl.reg_tradeoff, 4).tolist(),
+            reg_ctrl._desig_pix.tolist()))
+        paths['controller_classifier'], clf_ctrl, clf_states = \
+            drive_controller(
+                'ag_bench20_classifier (ag_r5f_v2, 3 final frames)',
+                AG_AGENT, CLF_POLICY, 2,
+                cls=controller_class('classifier'),
+                act_kw={'goal_image': goal_image(1)})
+        paths['controller_nce'], nce_ctrl, nce_states = drive_controller(
+            'xz_bench20_nce', AG_PARAMS, NCE_POLICY, 2,
+            cls=controller_class('nce'), act_kw={'goal_image': goal_image(1)})
+        paths['controller_inverse'] = drive_inverse(card)
+    finally:
+        shutil.rmtree(cost_root)
+
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
           'bf16, restored flagship, host clock, {} replans) [{}]'.format(
@@ -1786,6 +2194,24 @@ def main():
     time_controller('folding_replan',
                     'folding 600 samples x 15 steps x 48x64 x 3 iters, bf16, '
                     'ag_r5f_v2', fold_ctrl, fold_states, card)
+    time_controller('ensemble_replan',
+                    '3 members x one 46-step teacher-forced forward of 768 '
+                    'samples x 3 iters, bf16, xz_flagship and 2 seeded '
+                    'copies', ens_ctrl, ens_states, card)
+    time_controller('registration_replan',
+                    '2 cameras x 768 samples x 30 steps x 3 iters, P=2 '
+                    '(general variant), 4 GDN passes, bf16, xz_flagship and '
+                    'a seeded copy', reg_ctrl, reg_states, card)
+    time_controller('classifier_replan',
+                    '768 samples x 30 steps x 3 iters + classifier on 2304 '
+                    'frames an iteration, bf16, ag_r5f_v2', clf_ctrl,
+                    clf_states, card)
+    time_controller('nce_replan',
+                    '768 samples x 45 steps x 3 iters + embedding of 768 '
+                    'frames an iteration, bf16, xz_flagship', nce_ctrl,
+                    nce_states, card)
+    general = time_general(gen, REG_POLICY['num_samples'], tail['blocked_ms'],
+                           card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
     print('profile: one ag_bench20 replan')
@@ -1803,6 +2229,13 @@ def main():
     print('profile: one xz_bench20 replan with fuse_decode')
     profile_replan(lambda: fuse_ctrl.perform_CEM(fuse_states))
 
+    for label, c, st in (('ensemble', ens_ctrl, ens_states),
+                         ('registration', reg_ctrl, reg_states),
+                         ('classifier', clf_ctrl, clf_states),
+                         ('NCE', nce_ctrl, nce_states)):
+        print('profile: one {} replan'.format(label))
+        profile_replan(lambda: c.perform_CEM(st))
+
     bwd = {b: time_bwd(gen, b, card) for b in BWD_TIMED_BATCHES}
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
@@ -1819,7 +2252,12 @@ def main():
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
-        'bound_by': tail['bound_by'], 'library_ms': None}, {
+        'bound_by': tail['bound_by'], 'library_ms': None,
+        # the general variant, on the registration path (C=3, P=2)
+        'general_variant': dict(
+            general, launches=paths['controller_registration']['cdna_tail'],
+            max_abs_err=general_err, library_ms=None,
+            shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16')}, {
         # the source's second kernel, cdna_tail_eff_kernel: its DNA mode
         # on the DNA paths (the top-level numbers), its field-given entry
         # (the Pallas function's own contract) on none
@@ -1861,7 +2299,7 @@ def main():
         'plain_ms': a_plain, 'bound_ms': a_bound, 'bound_by': a_by,
         'library_ms': a_lib}]}))
     print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': kind,
+        'platform': 'gpu', 'kind': device_kind,
         'count': torch.cuda.device_count()}}))
     return 0
 

@@ -6,7 +6,8 @@ Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 The tail is held against its plain version in both mask layouts (full
-resolution and blocked) at the serving shapes and at shapes that stress the
+resolution and blocked) at the serving shapes (the general variant at the
+registration controller's, C=3 and P=2) and at shapes that stress the
 tiled variant's 8 x 64 tiles and four pixels per thread; the frames are
 random or all ones, so that a wrong halo shows at the border.  The
 effective-kernel entry is held against its plain version at DNA's serving
@@ -106,6 +107,10 @@ TAIL_CASES = [
      dict(b=6, h=20, w=36, sna=False, p=0, blocks=(0, 2))),
     ('c1-p4', 'general', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
     ('block-factor-3', 'general', dict(b=6, h=18, w=36, blocks=(3,))),
+    # the registration controller's shape: two designated pixels a camera
+    # (a task's start and goal registrations), C + P = 5
+    ('registration-768-c3-p2', 'general',
+     dict(b=768, h=48, w=64, p=2, blocks=(4, 0))),
 ]
 
 

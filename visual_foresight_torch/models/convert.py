@@ -16,10 +16,21 @@ Any leaf it cannot place raises.  ``load_flax_params`` also raises on a
 port parameter that the tree leaves unfilled.  ``params_to_flax`` is the
 inverse: it turns a ``state_dict`` back into the flax tree that a
 ``params.npz`` holds.
+
+A standalone network (the success classifier, the NCE embedding, the GDN,
+the inverse model) is kept as one ``params.npz`` in its directory:
+``restore_network`` loads it, or seeded weights (``seeded_state``) with a
+warning where the file is missing.  ``perturbed_flat`` makes a seeded copy
+of a ``params.npz``'s arrays.
 """
+
+import os
+import warnings
 
 import numpy as np
 import torch
+
+PARAMS_FILE = 'params.npz'
 
 
 def _flatten(tree, prefix=()):
@@ -62,10 +73,11 @@ def params_from_flax(tree):
     return state
 
 
-# the flax ``nn.Dense`` layers among the port's ``nn.Linear`` modules; every
+# the flax ``nn.Dense`` layers among the port's ``nn.Linear`` modules (the
+# predictor's, then the scoring, registration and inverse networks'); every
 # other 2-D weight is a flax 1x1 ``nn.Conv`` kernel
 DENSE_LAYERS = frozenset({'cdna_head', 'cond_proj', 'state_head', 'mu',
-                          'log_var'})
+                          'log_var', 'fc1', 'logit', 'proj', 'head'})
 
 
 def params_to_flax(state):
@@ -136,3 +148,60 @@ def load_flax_params(module, tree):
                 key, tuple(value.shape), tuple(own[key].shape)))
     module.load_state_dict(state)
     return module
+
+
+def seeded_state(module, seed=0):
+    """Seeded weights for ``module``: lecun-normal-like fan-in scaling (std
+    = 1/sqrt(fan_in)), zero biases, unit LayerNorm scales."""
+    gen = torch.Generator().manual_seed(int(seed))
+    state = {}
+    for name, p in module.state_dict().items():
+        if name.endswith('bias'):
+            state[name] = torch.zeros(p.shape)
+        elif p.dim() == 1:      # LayerNorm scale
+            state[name] = torch.ones(p.shape)
+        else:
+            fan_in = int(np.prod(p.shape[1:]))
+            state[name] = torch.randn(p.shape, generator=gen) / \
+                np.sqrt(fan_in)
+    return state
+
+
+def read_npz(path):
+    """{key: array} of an ``.npz`` file."""
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def restore_network(module, model_dir, seed=0):
+    """Load ``model_dir/params.npz`` (a flax tree flattened with '/'-joined
+    keys) into ``module``.  Where ``model_dir`` is empty or holds no such
+    file, warn (unless ``model_dir`` is empty) and load
+    ``seeded_state(module, seed)``.  Returns whether the file was
+    restored."""
+    path = os.path.join(str(model_dir), PARAMS_FILE) if model_dir else None
+    if path and os.path.isfile(path):
+        load_flax_params(module, unflatten_flax(read_npz(path)))
+        print('restored {} params from {}'.format(type(module).__name__,
+                                                  path))
+        return True
+    if path:
+        warnings.warn('no numpy params at {}; {} on seeded random weights'
+                      .format(path, type(module).__name__))
+    module.load_state_dict(seeded_state(module, seed))
+    return False
+
+
+def perturbed_flat(flat, seed, scale, floor=0.0):
+    """A copy of ``flat`` ({key: f32 array}) with seeded normal noise added
+    to every array, keys taken in sorted order: its std is ``scale`` times
+    the array's own std, or times ``floor`` where that is larger (so that a
+    constant array such as a zero bias moves too)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for k in sorted(flat):
+        x = np.asarray(flat[k], np.float32)
+        std = np.float32(scale * max(float(x.std()), floor))
+        out[k] = (x + rng.randn(*x.shape).astype(np.float32) * std).astype(
+            np.float32)
+    return out

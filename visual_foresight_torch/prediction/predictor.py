@@ -30,10 +30,10 @@ import torch
 
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import CDNAPredictor
-from visual_foresight_torch.models.convert import (load_flax_params,
+from visual_foresight_torch.models.convert import (PARAMS_FILE,
+                                                   load_flax_params, read_npz,
+                                                   seeded_state,
                                                    unflatten_flax)
-
-PARAMS_FILE = 'params.npz'
 # seed of the latent draw when ``__call__`` is given neither a generator nor
 # a latent (the JAX package then uses ``PRNGKey(0)``; the two streams differ)
 DEFAULT_LATENT_SEED = 0
@@ -149,20 +149,8 @@ class TorchPredictor:
         self._hp.update(changed)
 
     def init_params(self, seed=0):
-        """Seeded full-width weights: lecun-normal-like fan-in scaling
-        (std = 1/sqrt(fan_in)), zero biases, unit LayerNorm scales."""
-        gen = torch.Generator().manual_seed(int(seed))
-        state = {}
-        for name, p in self.model.state_dict().items():
-            if name.endswith('bias'):
-                state[name] = torch.zeros(p.shape)
-            elif p.dim() == 1:      # LayerNorm scale
-                state[name] = torch.ones(p.shape)
-            else:
-                fan_in = int(np.prod(p.shape[1:]))
-                state[name] = torch.randn(p.shape, generator=gen) / \
-                    np.sqrt(fan_in)
-        return state
+        """Seeded full-width weights (``models/convert.py::seeded_state``)."""
+        return seeded_state(self.model, seed)
 
     def set_params(self, params_per_cam):
         """One ``state_dict`` per camera."""
@@ -185,9 +173,7 @@ class TorchPredictor:
             path = os.path.join(str(self._model_path), 'view{}'.format(c),
                                 PARAMS_FILE)
             if os.path.isfile(path):
-                with np.load(path) as f:
-                    tree = unflatten_flax({k: f[k] for k in f.files})
-                load_flax_params(self.model, tree)
+                load_flax_params(self.model, unflatten_flax(read_npz(path)))
                 states.append({k: v.clone() for k, v in
                                self.model.state_dict().items()})
                 print('restored predictor params from {}'.format(path))

@@ -16,8 +16,10 @@
    paths, at 48x64, C=3, P=1, K=5, M=10, SNA) and at
    shapes that stress the tiling (``TAIL_CASES``: images smaller than a tile
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
-   off, P=0, and C=1, P=4, which the general variant serves, and the
-   general variant at the registration path's B=768, C=3, P=2); and the
+   off, P=0, two packed planes (4 < C + P <= 8: C=1, P=4; C=3, P=3; C=4,
+   P=4; K=7, M=16; odd sizes; several tiles; B=1) in every layout, the
+   registration path's B=768, C=3, P=2, and block factor 3, which only the
+   general variant serves); and the
    source's second kernel against its plain versions in bf16 and f32 at
    B=768 and 200, P 0-3, SNA on and off, K 3, 5 and 7, and at odd sizes:
    through its effective-kernel entry (the per-pixel field given) and
@@ -25,8 +27,9 @@
    masks, the masks in f32 and in the compute type); and the tail's
    backward kernel (``csrc/cdna_tail_bwd.cu``) against its plain version,
    all four gradients, at the training shape (B=16, 48x64, C=3, M=10) in
-   both mask layouts and at sizes that cut its blocks, K 3 and 7, M 16 with
-   C 1, SNA on and off, bf16 and f32, each launch twice and bitwise equal;
+   both mask layouts, at B=256 and at sizes that cut its 8 x 32 tiles,
+   several tiles across, B=1, blocked r=2, K 3 and 7, M 16 with C 1, SNA on
+   and off, bf16 and f32, each launch twice and bitwise equal;
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
@@ -108,8 +111,9 @@
      act() at the campaign points in bf16: xz_bench20_ensemble (3
      members x 3 iterations x one 46-step teacher-forced forward of 768
      samples = 414 launches a replan), xz2c_bench20_registration (2
-     cameras x (1 + 3 x 30) = 182 launches, all of the general variant: 2
-     designated pixels a camera), ag_bench20_classifier on ag_r5f_v2 (91)
+     cameras x (1 + 3 x 30) = 182 launches of the tiled variant on two
+     packed planes: 2 designated pixels a camera), ag_bench20_classifier
+     on ag_r5f_v2 (91)
      and xz_bench20_nce (136), one replan each; xz_bench20_inverse (10
      steps, no tail launch);
 7. times the kernels and their plain versions beside their bounds (the tail
@@ -125,8 +129,9 @@
    (host clock and CUDA events), with a profiler breakdown of one replan of
    each but the one-batch 800-sample and the folding ones; then the
    ensemble, registration, classifier, NCE and inverse replans the same
-   way, and the general variant at the registration path's shape (B=768,
-   C=3, P=2, blocked masks) beside its bound and the tiled variant.
+   way, and the tiled variant on two planes at the registration path's
+   shape (B=768, C=3, P=2, blocked masks) beside its bound, the tiled
+   variant at P=1 and the general variant forced at the same shape.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -174,8 +179,18 @@ TAIL_CASES = [
     ('SNA off', 'tiled', dict(sna=False, blocks=(0, 4))),
     ('P=0', 'tiled', dict(p=0, blocks=(0, 4))),
     ('SNA off, P=0', 'tiled', dict(sna=False, p=0, blocks=(0, 2))),
-    ('C=1, P=4', 'general', dict(c=1, p=4, blocks=(0, 2))),
+    ('C=1, P=4', 'tiled', dict(c=1, p=4, blocks=(0, 2))),
     ('block factor 3', 'general', dict(h=18, w=36, blocks=(3,))),
+    ('two planes, C=3, P=3, SNA off', 'tiled',
+     dict(p=3, sna=False, blocks=(0, 2, 4))),
+    ('two planes, C=4, P=4', 'tiled', dict(c=4, p=4, blocks=(0, 2, 4))),
+    ('two planes, C=4, P=1, K=7, M=16', 'tiled',
+     dict(c=4, p=1, k=7, m=16, blocks=(0, 2, 4))),
+    ('two planes, odd sizes', 'tiled',
+     dict(b=3, h=13, w=10, p=2, blocks=(0,))),
+    ('two planes, several tiles across', 'tiled',
+     dict(b=2, h=16, w=136, p=2, blocks=(0, 2, 4))),
+    ('two planes, B=1', 'tiled', dict(b=1, h=48, w=64, p=2, blocks=(0, 2, 4))),
 ]
 # bf16: one ulp near 1.0 is 7.8e-3; both sides accumulate in f32 and round
 # once, so they differ by at most one ulp of outputs below 2
@@ -290,8 +305,8 @@ INV_POLICY = {'T': 45, 'model_params_path': SEEDED['inverse'],
               'initial_action_high': [0.025, 0.025, 0.]}
 INV_STEPS = 10                # warm-ups at t < 2, replans at t = 2, 4, 6, 8
 INVERSE_ATOL = 1e-5
-# the general variant at the registration path's tail shape
-GENERAL_P = 2
+# the registration path's distributions a camera: C + P = 5, two planes
+REG_P = 2
 # the effective-kernel entry: B, P, SNA and K swept at 48x64, C=3
 EFF_BATCHES, EFF_PS, EFF_KS = (768, 200), (0, 1, 2, 3), (3, 5, 7)
 EFF_ODD = [dict(b=3, h=13, w=10), dict(b=2, h=9, w=300, c=1, p=4)]
@@ -521,9 +536,9 @@ def check_eff_cases(gen):
 def check_tail_cases(gen):
     """The serving shapes and ``TAIL_CASES``, in both types and in each
     case's mask layouts.  Returns the largest bf16 errors at the serving
-    shapes: of the tiled variant, and of the general variant at the
-    registration path's shape (B=768, C=3, P=2)."""
-    err_bf16 = general_bf16 = 0.0
+    shapes: of one packed plane (C=3, P=1), and of two at the registration
+    path's shape (B=768, C=3, P=2)."""
+    err_bf16 = reg_bf16 = 0.0
     # the batches of the driven paths: a chunk or the 200-sample replan,
     # the campaigns' 768, 800 in one batch, the hard set's 768 x 2 copies,
     # the chunked replan's re-roll of the visualised elites, the RoboNet
@@ -549,11 +564,11 @@ def check_tail_cases(gen):
         for dtype in (torch.bfloat16, torch.float32):
             for ones in (False, True):
                 err = check_tail(gen, REG_POLICY['num_samples'], dtype,
-                                 'general', 'registration shape', mask_block,
-                                 ones=ones, p=GENERAL_P)
+                                 'tiled', 'registration shape', mask_block,
+                                 ones=ones, p=REG_P)
                 if dtype == torch.bfloat16 and not ones:
-                    general_bf16 = max(general_bf16, err)
-    return err_bf16, general_bf16
+                    reg_bf16 = max(reg_bf16, err)
+    return err_bf16, reg_bf16
 
 
 def reset_tail_counts():
@@ -568,13 +583,13 @@ def reset_tail_counts():
         fused_warp_composite.launches_by_variant[v] = 0
 
 
-def read_tail_counts(path, want, predictor, variant='tiled'):
+def read_tail_counts(path, want, predictor):
     """The launches since ``reset_tail_counts``: ``want`` in all, each
     through the entry and on the mask layout that ``predictor``'s
     architecture gives.  DNA runs the DNA mode (the field made inside the
-    kernel), never the field-given entry; CDNA the folded entry's
-    ``variant`` (tiled, or general where frame and distribution channels
-    pass four), on blocked masks where the space-to-depth backbone keeps
+    kernel), never the field-given entry; CDNA the folded entry's tiled
+    variant (never the general one), on blocked masks where the
+    space-to-depth backbone keeps
     its low-resolution softmax (the serving predictor), else on
     full-resolution masks (the classic backbone).  Returns the counters as
     read, by kernel entry: ``{'cdna_tail': n, 'cdna_tail_eff': n,
@@ -591,23 +606,24 @@ def read_tail_counts(path, want, predictor, variant='tiled'):
     by_variant = dict(fused_warp_composite.launches_by_variant)
     eff = fused_warp_composite_eff.launches
     dna_launches = fused_warp_composite_dna.launches
-    print('{} path: {} tail kernel launches (expected {}, all {}), by '
+    print('{} path: {} tail kernel launches (expected {}, all tiled), by '
           'variant {}, {} on blocked masks; {} DNA-mode launches (expected '
           '{}), {} of the field-given entry (expected 0)'.format(
-              path, launches, want_folded, variant, by_variant, on_blocks,
+              path, launches, want_folded, by_variant, on_blocks,
               dna_launches, want_dna, eff))
     if launches != want_folded or dna_launches != want_dna or eff:
         raise AssertionError('the {} path did not run the tail kernels {}, '
                              '{} and 0 times'.format(path, want_folded,
                                                      want_dna))
-    if by_variant != {v: want_folded * (v == variant) for v in VARIANTS}:
-        raise AssertionError('the {} path left the {} variant'.format(
-            path, variant))
+    if by_variant != {v: want_folded * (v == 'tiled') for v in VARIANTS}:
+        raise AssertionError('the {} path left the tiled variant'.format(
+            path))
     if on_blocks != (want_folded if blocked else 0):
         raise AssertionError('the {} path did not keep its masks {}'.format(
             path, 'blocked' if blocked else 'at full resolution'))
     return {'cdna_tail': launches, 'cdna_tail_eff': eff,
-            'cdna_tail_dna': dna_launches}
+            'cdna_tail_dna': dna_launches,
+            'cdna_tail_general': by_variant['general']}
 
 
 def read_no_tail(path):
@@ -1022,7 +1038,7 @@ def check_restored(label, ctrl):
 
 
 def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
-                     want=None, variant='tiled'):
+                     want=None):
     """``act()`` of a ``cls`` controller (``PixelCostController`` by
     default) under ``policy`` for ``steps`` control steps on seeded
     synthetic frames of every camera, with ``act_kw`` (the designated and
@@ -1030,7 +1046,7 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
     (``start_planning``, at least 1) and then every ``replan_interval``
     steps, earlier steps take warm-up actions.  Checks that the weights
     restored, the tail's launches (``read_tail_counts``: ``want`` a replan,
-    ``replan_launches(policy)`` by default, all of ``variant``), and that
+    ``replan_launches(policy)`` by default), and that
     the actions and the last replan's scores are finite and of the
     expected shapes.  Returns (launches by kernel, controller, states)."""
     from visual_foresight_torch.policy.cem_controllers import (
@@ -1058,7 +1074,7 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
     launches = read_tail_counts(
         '{} controller ({} act() steps, {} replans x {})'.format(
             label, steps, replans, per_replan),
-        replans * per_replan, ctrl.predictor, variant)
+        replans * per_replan, ctrl.predictor)
     for a in actions:
         if a.shape != (adim,) or not np.isfinite(a).all():
             raise AssertionError('{} controller action {} is malformed'
@@ -1217,8 +1233,7 @@ def check_controller_golden(kind, dirs):
     out, scores = replay()
     launches = read_tail_counts(
         'golden {} (f32)'.format(kind),
-        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor,
-        'general' if kind == 'registration' else 'tiled')
+        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor)
     best, best_actions = ctrl._best_indices.copy(), ctrl._best_actions.copy()
     registered = getattr(ctrl, 'reg_tradeoff', None), \
         getattr(ctrl, '_desig_pix', None)
@@ -1412,37 +1427,78 @@ def time_tail(gen, b, card):
     return res
 
 
-def time_general(gen, b, tiled_ms, card):
-    """The general variant at the registration path's tail shape (batch
-    ``b``, 48x64, C=3, P=2, blocked masks r=4, bf16): kernel and plain
-    version (CUDA graph, CUDA events) beside its bound and the tiled
-    variant's time at P=1 (``tiled_ms``)."""
+def launch_general(prev, first, prev_distrib, first_distrib, kernels, masks,
+                   mask_block):
+    """One launch of the tail's general variant (SNA) through the C entry
+    point, whatever the shape: the wrapper chooses it only for block
+    factors that no model builds, so this is how it is timed at a served
+    shape.  Not counted among the wrapper's launches."""
+    from visual_foresight_torch.ops import cdna_tail
+    b, h, w, c = prev.shape
+    out_img, out_distrib = torch.empty_like(prev), torch.empty_like(
+        prev_distrib)
+    err = cdna_tail._kernel()(
+        prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
+        first_distrib.data_ptr(), kernels.data_ptr(), masks.data_ptr(),
+        out_img.data_ptr(), out_distrib.data_ptr(), b, h, w, c,
+        prev_distrib.shape[-1], kernels.shape[1], kernels.shape[3], 1,
+        cdna_tail._DTYPES[prev.dtype], mask_block,
+        cdna_tail.VARIANTS.index('general'),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError('general variant launch failed: cudaError {}'
+                           .format(err))
+    return out_img, out_distrib
+
+
+def time_two_planes(gen, b, tiled_ms, card):
+    """The tiled variant on two packed planes at the registration path's
+    tail shape (batch ``b``, 48x64, C=3, P=2, blocked masks r=4, bf16):
+    kernel and plain version (CUDA graph, CUDA events) beside its bound and
+    the tiled variant's time at P=1 (``tiled_ms``); then the general
+    variant, which no served path launches, forced at the same shape and
+    held against the plain version.  Returns the numbers, the general
+    variant's under ``'general'``."""
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_reference, kernel_variant)
-    if kernel_variant(C, GENERAL_P, MASK_BLOCK) != 'general':
-        raise AssertionError('the registration shape is not the general '
+    if kernel_variant(C, REG_P, MASK_BLOCK) != 'tiled':
+        raise AssertionError('the registration shape is not the tiled '
                              'variant\'s')
-    sets = [tail_inputs(gen, b, torch.bfloat16, p=GENERAL_P,
+    sets = [tail_inputs(gen, b, torch.bfloat16, p=REG_P,
                         mask_block=MASK_BLOCK) for _ in range(4)]
     res = {'ms': graph_ms(lambda *a: fused_warp_composite(
         *a, sna=True, mask_block=MASK_BLOCK), sets, reps=100),
            'plain_ms': graph_ms(lambda *a: fused_warp_composite_reference(
                *a, sna=True, mask_block=MASK_BLOCK), sets, reps=10)}
+    general_ms = graph_ms(lambda *a: launch_general(*a, MASK_BLOCK), sets,
+                          reps=100)
     outs = fused_warp_composite_reference(*sets[0], sna=True,
                                           mask_block=MASK_BLOCK)
     res['bound_ms'], res['bound_by'], bytes_ms = tail_bound(sets[0], outs,
                                                             sna=True)
+    general_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(launch_general(*sets[0], MASK_BLOCK),
+                                      outs))
     del sets, outs
-    share = bytes_ms / res['ms']
-    print('cdna_tail_general_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
-          '(by {}), {:.1%} of 3.35 TB/s, {:.2f}x the tiled variant at P=1 '
-          '({:.5f} ms) (B={} bf16, 48x64, C=3, P=2, blocked masks r=4, CUDA '
-          'graph, CUDA events) [{}]'.format(
-              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
-              share, res['ms'] / tiled_ms, tiled_ms, b, card))
-    if share > 1.0:
-        raise AssertionError('the general variant moved its bytes faster '
-                             'than the card can: the timing is wrong')
+    res['general'] = dict(res, ms=general_ms, max_abs_err=general_err)
+    for name, ms in (('tiled_two_planes', res['ms']), ('general', general_ms)):
+        share = bytes_ms / ms
+        print('cdna_tail_{}_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
+              '(by {}), {:.1%} of 3.35 TB/s, {:.2f}x the tiled variant at '
+              'P=1 ({:.5f} ms) (B={} bf16, 48x64, C=3, P=2, blocked masks '
+              'r=4, CUDA graph, CUDA events) [{}]'.format(
+                  name, ms, res['plain_ms'], res['bound_ms'], res['bound_by'],
+                  share, ms / tiled_ms, tiled_ms, b, card))
+        if share > 1.0:
+            raise AssertionError('the {} variant moved its bytes faster than '
+                                 'the card can: the timing is wrong'.format(
+                                     name))
+    print('general variant forced at the registration shape vs plain: '
+          'max_abs_err={:.3e} (tol {:.0e})'.format(
+              general_err, TAIL_TOL[torch.bfloat16]))
+    if not general_err <= TAIL_TOL[torch.bfloat16]:
+        raise AssertionError('the general variant disagrees with its plain '
+                             'version')
     return res
 
 
@@ -1542,8 +1598,13 @@ def time_add_one(gen, card, shape):
 # types, SNA on and off; the training shape first
 BWD_CASES = [
     ('training shape', dict(b=16, h=H, w=W), (MASK_BLOCK, 0)),
+    ('training shape at B=256', dict(b=256, h=H, w=W), (MASK_BLOCK,)),
     ('odd sizes', dict(b=3, h=13, w=10), (0,)),
-    ('sizes that cut the 128-pixel blocks', dict(b=2, h=12, w=20), (0, 2, 4)),
+    ('odd sizes that cut the 8 x 32 tiles', dict(b=2, h=13, w=37), (0,)),
+    ('sizes that cut the tiles', dict(b=2, h=12, w=20), (0, 2, 4)),
+    ('several tiles across', dict(b=2, h=16, w=136), (0, 2, 4)),
+    ('B=1', dict(b=1, h=H, w=W), (0, MASK_BLOCK)),
+    ('blocked r=2', dict(b=4, h=24, w=40), (2,)),
     ('K=3', dict(b=2, h=20, w=36, k=3), (0, 4)),
     ('K=7', dict(b=2, h=20, w=36, k=7), (0, 4)),
     ('M=16, C=1', dict(b=2, h=20, w=36, m=16, c=1), (0, 4)),
@@ -1615,8 +1676,9 @@ def check_bwd_cases(gen):
                             train_abs = max(train_abs, err)
                             train_rel = max(train_rel, rel)
     print('tail backward kernel vs plain: {} cases (B=16 48x64 C=3 M=10 '
-          'blocked and full-resolution masks; odd sizes, K 3 and 7, M 16 '
-          'C 1; SNA on/off; bf16 and f32), all four gradients, each launch '
+          'blocked and full-resolution masks; B=256; odd sizes, several '
+          'tiles, B=1, r=2, K 3 and 7, M 16 C 1; SNA on/off; bf16 and f32), '
+          'all four gradients, each launch '
           'twice bitwise equal; largest error over the gradient\'s largest '
           'magnitude bf16 {:.3e} (tol {:.0e}), f32 {:.3e} (tol {:.0e}); '
           'training shape bf16 max_abs_err {:.3e}'.format(
@@ -2002,7 +2064,7 @@ def main():
     # -- 2. tail kernel against its plain version ------------------------------
     print_report(cdna_tail.SOURCE, builds[cdna_tail.SOURCE].result()[1],
                  time.time() - t0)
-    err_bf16, general_err = check_tail_cases(gen)
+    err_bf16, reg_err = check_tail_cases(gen)
     eff_err = check_eff_cases(gen)
     print_report(cdna_tail.BWD_SOURCE,
                  builds[cdna_tail.BWD_SOURCE].result()[1], time.time() - t0)
@@ -2126,8 +2188,7 @@ def main():
                 act_kw={'desig_pix': np.array([[[24, 32]], [[30, 20]]]),
                         'goal_pix': np.array([[[10, 50]], [[15, 40]]]),
                         'goal_image': goal_image(2)},
-                want=REG_AGENT['ncam'] * replan_launches(REG_POLICY),
-                variant='general')
+                want=REG_AGENT['ncam'] * replan_launches(REG_POLICY))
         print('registration tradeoffs {} and registered pixels {}'.format(
             np.round(reg_ctrl.reg_tradeoff, 4).tolist(),
             reg_ctrl._desig_pix.tolist()))
@@ -2200,7 +2261,7 @@ def main():
                     'copies', ens_ctrl, ens_states, card)
     time_controller('registration_replan',
                     '2 cameras x 768 samples x 30 steps x 3 iters, P=2 '
-                    '(general variant), 4 GDN passes, bf16, xz_flagship and '
+                    '(two packed planes), 4 GDN passes, bf16, xz_flagship and '
                     'a seeded copy', reg_ctrl, reg_states, card)
     time_controller('classifier_replan',
                     '768 samples x 30 steps x 3 iters + classifier on 2304 '
@@ -2210,8 +2271,9 @@ def main():
                     '768 samples x 45 steps x 3 iters + embedding of 768 '
                     'frames an iteration, bf16, xz_flagship', nce_ctrl,
                     nce_states, card)
-    general = time_general(gen, REG_POLICY['num_samples'], tail['blocked_ms'],
-                           card)
+    two_planes = time_two_planes(gen, REG_POLICY['num_samples'],
+                                 tail['blocked_ms'], card)
+    general = two_planes.pop('general')
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
     print('profile: one ag_bench20 replan')
@@ -2253,10 +2315,18 @@ def main():
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
         'bound_by': tail['bound_by'], 'library_ms': None,
-        # the general variant, on the registration path (C=3, P=2)
+        # two packed planes: the registration path (C=3, P=2)
+        'tiled_two_planes': dict(
+            two_planes,
+            launches=paths['controller_registration']['cdna_tail'],
+            max_abs_err=reg_err, library_ms=None,
+            shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16'),
+        # the general variant: on no served path (read_tail_counts asserts
+        # 0 launches on each), timed forced at the registration shape
         'general_variant': dict(
-            general, launches=paths['controller_registration']['cdna_tail'],
-            max_abs_err=general_err, library_ms=None,
+            general, launches=sum(n.get('cdna_tail_general', 0)
+                                  for n in paths.values()),
+            library_ms=None,
             shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16')}, {
         # the source's second kernel, cdna_tail_eff_kernel: its DNA mode
         # on the DNA paths (the top-level numbers), its field-given entry

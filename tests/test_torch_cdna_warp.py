@@ -180,10 +180,23 @@ def test_plain_tail_blocked_masks_match_both_pallas_kernels(sna):
 
 @pytest.mark.parametrize('c,p,mask_block,want', [
     (3, 1, 0, 'tiled'), (3, 1, 4, 'tiled'), (3, 0, 2, 'tiled'),
-    (1, 3, 1, 'tiled'), (1, 4, 0, 'general'), (4, 4, 4, 'general'),
+    (1, 3, 1, 'tiled'), (1, 4, 0, 'tiled'), (4, 4, 4, 'tiled'),
+    (3, 2, 4, 'tiled'), (4, 4, 0, 'tiled'), (3, 2, 3, 'general'),
     (3, 1, 8, 'general'), (3, 1, 3, 'general')])
 def test_kernel_variant_is_chosen_by_shape(c, p, mask_block, want):
     assert cdna_tail.kernel_variant(c, p, mask_block) == want
+
+
+@pytest.mark.parametrize('h,w,mask_block,tiles', [
+    (48, 64, 0, 12), (48, 64, 4, 12), (13, 10, 0, 2), (13, 37, 0, 4),
+    (12, 20, 2, 2), (16, 136, 4, 10), (1, 1, 0, 1), (9, 33, 0, 4)])
+def test_backward_scratch_has_one_partial_a_tile(h, w, mask_block, tiles):
+    """The backward's g_kern scratch: one K*K*M partial for each 8 x 32
+    tile of each sample, in either mask layout, odd sizes rounded up."""
+    assert cdna_tail.backward_partials_shape(3, h, w, 5, 10, mask_block) == \
+        (3, tiles, 250)
+    with pytest.raises(ValueError, match='does not divide'):
+        cdna_tail.backward_partials_shape(3, 13, 10, 5, 10, 4)
 
 
 def test_tail_checks_the_blocked_mask_shape():

@@ -6,21 +6,22 @@ Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 The tail is held against its plain version in both mask layouts (full
-resolution and blocked) at the serving shapes (the general variant at the
-registration controller's, C=3 and P=2) and at shapes that stress the
-tiled variant's 8 x 64 tiles and four pixels per thread; the frames are
-random or all ones, so that a wrong halo shows at the border.  The
+resolution and blocked) at the serving shapes (the registration
+controller's too, C=3 and P=2: two packed planes) and at shapes that stress
+the tiled variant's 8 x 64 tiles, four pixels per thread and one or two
+planes of packed channels (the general variant at block factor 3); the
+frames are random or all ones, so that a wrong halo shows at the border.  The
 effective-kernel entry is held against its plain version at DNA's serving
 shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off; the DNA mode
 at the same shapes with f32 masks and masks in the compute type, and inside
 a small classic-DNA rollout.
 
 The backward kernel of the folded tail (``csrc/cdna_tail_bwd.cu``) is held
-against its plain version at the training shapes (B=16, 48x64, C=3, M=10)
-and at sizes that cut its 128-pixel blocks, in both mask layouts, SNA on
-and off, K 3 to 7, both types, all four gradients; two launches must give
-the same bits, and the autograd node on the card must give what autograd of
-the plain version gives.
+against its plain version at the training shapes (B=16 and 256, 48x64,
+C=3, M=10) and at sizes that cut its 8 x 32 tiles, in both mask layouts,
+SNA on and off, K 3 to 7, both types, all four gradients; two launches must
+give the same bits, and the autograd node on the card must give what
+autograd of the plain version gives.
 
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
@@ -105,12 +106,25 @@ TAIL_CASES = [
     ('p0', 'tiled', dict(b=6, h=20, w=36, p=0, blocks=(0, 4))),
     ('sna-off-p0', 'tiled',
      dict(b=6, h=20, w=36, sna=False, p=0, blocks=(0, 2))),
-    ('c1-p4', 'general', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
+    ('c1-p4', 'tiled', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
     ('block-factor-3', 'general', dict(b=6, h=18, w=36, blocks=(3,))),
     # the registration controller's shape: two designated pixels a camera
-    # (a task's start and goal registrations), C + P = 5
-    ('registration-768-c3-p2', 'general',
+    # (a task's start and goal registrations), C + P = 5: two packed planes
+    ('registration-768-c3-p2', 'tiled',
      dict(b=768, h=48, w=64, p=2, blocks=(4, 0))),
+    # two packed planes (4 < C + P <= 8) in all three layouts (13 x 10 takes
+    # no blocked layout)
+    ('two-planes-c3-p3-sna-off', 'tiled',
+     dict(b=6, h=20, w=36, p=3, sna=False, blocks=(0, 2, 4))),
+    ('two-planes-c4-p4', 'tiled',
+     dict(b=6, h=20, w=36, c=4, p=4, blocks=(0, 2, 4))),
+    ('two-planes-c4-p1-k7-m16', 'tiled',
+     dict(b=6, h=20, w=36, c=4, p=1, k=7, m=16, blocks=(0, 2, 4))),
+    ('two-planes-odd-sizes', 'tiled', dict(b=3, h=13, w=10, p=2, blocks=(0,))),
+    ('two-planes-several-tiles-across', 'tiled',
+     dict(b=2, h=16, w=136, p=2, blocks=(0, 2, 4))),
+    ('two-planes-batch-1', 'tiled',
+     dict(b=1, h=48, w=64, p=2, blocks=(0, 2, 4))),
 ]
 
 
@@ -404,6 +418,11 @@ BWD_CASES = [
     ('k3', dict(b=2, h=20, w=36, k=3), (0, 4)),
     ('k7', dict(b=2, h=20, w=36, k=7), (0, 4)),
     ('m16-c1', dict(b=2, h=20, w=36, m=16, c=1), (0, 4)),
+    ('odd-sizes-cut-tiles', dict(b=2, h=13, w=37), (0,)),
+    ('several-tiles-across', dict(b=2, h=16, w=136), (0, 2, 4)),
+    ('batch-1', dict(b=1, h=48, w=64), (0, 4)),
+    ('blocked-r2', dict(b=4, h=24, w=40), (2,)),
+    ('train-256', dict(b=256, h=48, w=64), (4,)),
 ]
 
 
@@ -448,16 +467,17 @@ def test_tail_backward_kernel_matches_plain_on_card(case, dtype, sna):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('batch', [16, 256])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-def test_tail_backward_kernel_is_deterministic_on_card(dtype):
+def test_tail_backward_kernel_is_deterministic_on_card(dtype, batch):
     """Two launches on the same inputs give the same bits (the kernels'
     gradient is summed in a fixed order, no atomics); an output not asked
     for comes back as None."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     gen = torch.Generator(device='cuda').manual_seed(4)
-    args = _bwd_args(gen, dtype, 16, 48, 64, mask_block=4)
+    args = _bwd_args(gen, dtype, batch, 48, 64, mask_block=4)
     one = fused_warp_composite_backward(*args, mask_block=4)
     two = fused_warp_composite_backward(*args, mask_block=4)
     for a, b in zip(one, two):

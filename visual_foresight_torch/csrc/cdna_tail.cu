@@ -35,7 +35,12 @@
 // 0.44 GFLOP (6.6 us at 67 TFLOP/s of f32) at B=200, 1.69 GFLOP (25 us) at
 // B=768.  So it is bound by bytes, the masks being half of them, but the
 // arithmetic is three quarters of the bound: it fits only if the FMA pipe
-// is kept busy while the bytes move.
+// is kept busy while the bytes move.  At the registration path's shape (two
+// distributions a camera, C=3, P=2, B=768) the distributions add 6,144
+// bytes in each of their three tensors: 166,388 bytes a sample, 127.8 MB and
+// 38.1 us at B=768.  Its five channels take two packed planes below, so the
+// taps cost 200 FMAs a pixel instead of 100 (460 in all, 2.2 GFLOP, 32 us):
+// bound by bytes still, with the FMAs nearer the bound.
 //
 // What held the first design back (the "general" variant below: one thread
 // per pixel, everything but the CDNA kernels read straight from global
@@ -57,10 +62,14 @@
 //     (cp.async) where a run's alignment allows, and scalar elements for the
 //     rest;
 //   * the input tile is then restaged as f32 with the C frame channels and
-//     the P distribution channels of a pixel packed side by side
-//     (C + P <= 4), so one 16-byte shared load brings all channels of a tap
-//     with no conversion in the inner loop; the halo outside the image is
-//     zero, so the inner loop has no bounds test;
+//     the P distribution channels of a pixel packed side by side, one plane
+//     of float4 where C + P <= 4 and two planes up to 8, so one 16-byte
+//     shared load a plane brings all channels of a tap with no conversion in
+//     the inner loop; the halo outside the image is zero, so the inner loop
+//     has no bounds test.  With two planes a thread holds 32 accumulators
+//     and a window of two float4 a row, and the staging is sized for the
+//     call's own C + P with the outputs written over the restaged window,
+//     so that C + P = 5 fits four blocks an SM;
 //   * a thread reads its pixels' masks from the staged bytes in 8-byte words
 //     (a pixel's 12 bf16 values are 24 contiguous bytes in both layouts);
 //   * each thread computes four vertically neighbouring pixels.  One 8-
@@ -79,15 +88,16 @@
 // bound at B=768.  The contraction over the masks stays on the FMA pipe in
 // both types: tensor-core fragments (mma.sync.m16n8k16) spread a pixel's
 // taps over the four lanes of a quad, which this sliding window cannot use.
-// It serves K in (3, 5, 7), M <= 16, C + P <= 4, r in (1, 2, 4), any H and W;
-// the general variant serves the remaining shapes (C + P > 4, other r).  The
-// caller names the variant; the choice depends on shapes alone.
+// It serves K in (3, 5, 7), M <= 16, C and P up to 4 each, r in (1, 2, 4),
+// any H and W; the general variant serves the other block factors, which no
+// model builds.  The caller names the variant; the choice depends on shapes
+// alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "tile_io.cuh"
 
 namespace {
 
@@ -213,167 +223,6 @@ constexpr int kTilePix = kTileW * kTileH;
 constexpr int kTiledThreads = kTilePix / kPx;            // 128
 constexpr int kPack = 4;                                 // packed channels per pixel
 
-// floor(x / d) for 0 <= x < 2^22 and 0 < d < 2^11, given inv = 1.f / d: the
-// quotient of x + 0.5 is at least 0.5 / d away from an integer, more than
-// the rounding of the two float operations.
-__device__ __forceinline__ int fast_div(int x, float inv) {
-  return (int)(((float)x + 0.5f) * inv);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(smem)),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
-}
-
-// One thread hands a whole span to the copy engine (TMA bulk copy); the
-// loads report to an mbarrier that every thread then waits on.
-__device__ __forceinline__ unsigned shared_address(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbarrier_init(unsigned long long* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               "fence.mbarrier_init.release.cluster;" ::"r"(shared_address(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbarrier_expect(unsigned long long* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   shared_address(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbarrier_wait(unsigned long long* bar) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
-      "@p bra DONE;\nbra WAIT;\nDONE:\n}" ::"r"(shared_address(bar))
-      : "memory");
-}
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, unsigned bytes,
-                                          unsigned long long* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(shared_address(smem)),
-      "l"(gmem), "r"(bytes), "r"(shared_address(bar))
-      : "memory");
-}
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gmem),
-               "r"(shared_address(smem)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-// Runs of elements in global memory and their place in shared memory.
-template <typename T>
-struct SpanT {
-  T* g;
-  std::remove_const_t<T>* s;
-  int rows, len;
-  // one run of whole 16-byte words (or nothing), as a bulk copy takes it
-  __device__ __forceinline__ bool whole_words() const {
-    return len == 0 ||
-           (rows == 1 && (uintptr_t)g % 16 == 0 && (len * sizeof(T)) % 16 == 0);
-  }
-};
-
-// Copies `rows` runs of `len` elements from global memory (run i at
-// g + i * g_stride) into shared memory (run i at s + i * s_pitch) as they
-// are: 16 bytes per thread with cp.async where the runs start on 16-byte
-// boundaries, the rest of each run (or all of it) element by element.  s and
-// s_pitch are multiples of 16 bytes.
-template <typename T>
-__device__ __forceinline__ void copy_in(const T* __restrict__ g, int rows, long g_stride,
-                                        int len, T* __restrict__ s, int s_pitch) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec_ok = (uintptr_t)g % 16 == 0 &&
-                      (rows == 1 || (g_stride * sizeof(T)) % 16 == 0);
-  const int nvec = vec_ok ? len / V : 0;
-  const float inv_nvec = 1.f / (float)max(nvec, 1);
-  for (int idx = threadIdx.x; idx < rows * nvec; idx += kTiledThreads) {
-    const int run = rows > 1 ? fast_div(idx, inv_nvec) : 0;
-    const int e = (idx - run * nvec) * V;
-    cp_async16(s + run * s_pitch + e, g + run * g_stride + e);
-  }
-  const int done = nvec * V, rest = len - done;
-  for (int idx = threadIdx.x; idx < rows * rest; idx += kTiledThreads) {
-    const int run = idx / rest;
-    const int e = done + idx - run * rest;
-    s[run * s_pitch + e] = g[run * g_stride + e];
-  }
-}
-
-// The reverse of copy_in: 16-byte stores where the runs start
-// on 16-byte boundaries.
-template <typename T>
-__device__ __forceinline__ void copy_out(T* __restrict__ g, int rows, long g_stride,
-                                         int len, const T* __restrict__ s, int s_pitch) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec_ok = (uintptr_t)g % 16 == 0 &&
-                      (rows == 1 || (g_stride * sizeof(T)) % 16 == 0);
-  const int nvec = vec_ok ? len / V : 0;
-  const float inv_nvec = 1.f / (float)max(nvec, 1);
-  for (int idx = threadIdx.x; idx < rows * nvec; idx += kTiledThreads) {
-    const int run = rows > 1 ? fast_div(idx, inv_nvec) : 0;
-    const int e = (idx - run * nvec) * V;
-    *reinterpret_cast<uint4*>(g + run * g_stride + e) =
-        *reinterpret_cast<const uint4*>(s + run * s_pitch + e);
-  }
-  const int done = nvec * V, rest = len - done;
-  for (int idx = threadIdx.x; idx < rows * rest; idx += kTiledThreads) {
-    const int run = idx / rest;
-    const int e = done + idx - run * rest;
-    g[run * g_stride + e] = s[run * s_pitch + e];
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ int round_up_vec(int n) {
-  constexpr int V = 16 / sizeof(T);
-  return (n + V - 1) / V * V;
-}
-
-// A window of an NHWC tensor of `nch` channels: rows [r_lo, r_hi), columns
-// [c_lo, c_hi) of sample b.  Of full width it is one contiguous run, else
-// one run per row.  In shared memory element (row, col, ch), counted from
-// the window's corner, sits at row * stride + col * nch + ch.
-struct Window {
-  long origin;      // first element in the tensor
-  int rows, len;    // runs and elements per run
-  long g_stride;    // between runs in the tensor
-  int stride;       // between rows in shared memory
-  int size;         // elements taken in shared memory
-};
-
-template <typename T>
-__device__ __forceinline__ Window make_window(int b, int H, int W, int nch, int r_lo,
-                                              int r_hi, int c_lo, int c_hi) {
-  Window win;
-  win.origin = (((long)b * H + r_lo) * W + c_lo) * nch;
-  if (c_lo == 0 && c_hi == W) {
-    win.rows = 1;
-    win.len = (r_hi - r_lo) * W * nch;
-    win.g_stride = 0;
-    win.stride = W * nch;
-    win.size = round_up_vec<T>(win.len);
-  } else {
-    win.rows = r_hi - r_lo;
-    win.len = (c_hi - c_lo) * nch;
-    win.g_stride = (long)W * nch;
-    win.stride = round_up_vec<T>(win.len);
-    win.size = win.rows * win.stride;
-  }
-  return win;
-}
-
 // Eight bytes of shared memory as floats.
 __device__ __forceinline__ void unpack(const float*, uint2 w, float* out) {
   out[0] = __uint_as_float(w.x);
@@ -386,7 +235,14 @@ __device__ __forceinline__ void unpack(const __nv_bfloat16*, uint2 w, float* out
   out[3] = __uint_as_float(w.y & 0xffff0000u);
 }
 
-template <typename T, int K, int MP>
+// Shared memory of one block: NP planes of packed f32 pixels (C + P <= 4 *
+// NP), kernel values padded to a multiple of four per tap, then the
+// tensors' own bytes: the input window, the tile's SNA background, the
+// outputs and the masks.  Two planes are sized for the call's own C + P and
+// write the outputs over the restaged window, so that C + P = 5 (the
+// registration path) fits four blocks an SM; one plane, held at four by
+// its registers, keeps them apart.
+template <typename T, int K, int MP, int NP>
 struct TiledShape {
   static constexpr int V = 16 / sizeof(T);
   static constexpr int kPad = K / 2;
@@ -394,14 +250,24 @@ struct TiledShape {
   static constexpr int kTileHP = kTileH + K - 1;
   static constexpr int kMPP = (MP + 3) / 4 * 4;          // kernel values per tap
   static constexpr int kKernelFloats = K * K * kMPP;
-  static constexpr int kTileFloats = kTileHP * kTileWP * kPack;
-  // copies of the tensors' own bytes, in elements of T
-  static constexpr int kRawIn = kTileHP * (kTileWP * kPack + 2 * V);
-  static constexpr int kRawIo = kTileH * (kTileW * kPack + 2 * V);
+  static constexpr int kTileFloats = kTileHP * kTileWP * kPack * NP;
   static constexpr int kRawMask = kTilePix * (MP + 2) + kTileH * V;
-  static constexpr size_t kBytes =
-      sizeof(float) * (kKernelFloats + kTileFloats) +
-      sizeof(T) * (kRawIn + 2 * kRawIo + kRawMask);
+  static constexpr int kOwnOut = NP == 1;                // the outputs' own region
+  __host__ __device__ static constexpr int channels(int c_plus_p) {
+    return NP == 1 ? kPack : c_plus_p;
+  }
+  // the window and the background (or the outputs), in elements of T,
+  // rounded to 16 bytes
+  __host__ __device__ static constexpr int raw_in(int ch) {
+    return (kTileHP * (kTileWP * ch + 2 * V) + V - 1) / V * V;
+  }
+  __host__ __device__ static constexpr int raw_io(int ch) {
+    return (kTileH * (kTileW * ch + 2 * V) + V - 1) / V * V;
+  }
+  static constexpr size_t bytes(int ch) {
+    return sizeof(float) * (kKernelFloats + kTileFloats) +
+           sizeof(T) * (raw_in(ch) + (1 + kOwnOut) * raw_io(ch) + kRawMask);
+  }
 };
 
 // Where one tile's data lies, in the tensors and in shared memory.
@@ -504,32 +370,36 @@ __device__ __forceinline__ void store_outputs(T* __restrict__ out_img,
       bulk_store_wait();
     }
   } else {
-    copy_out(out_img + g.io_c.origin, g.io_c.rows, g.io_c.g_stride, g.io_c.len, raw_out,
-             g.io_c.stride);
-    copy_out(out_distrib + g.io_p.origin, g.io_p.rows, g.io_p.g_stride, outs[1].len,
-             raw_od, g.io_p.stride);
+    copy_out<kTiledThreads>(out_img + g.io_c.origin, g.io_c.rows, g.io_c.g_stride,
+                            g.io_c.len, raw_out, g.io_c.stride);
+    copy_out<kTiledThreads>(out_distrib + g.io_p.origin, g.io_p.rows, g.io_p.g_stride,
+                            outs[1].len, raw_od, g.io_p.stride);
   }
 }
 
-template <typename T, int K, int MP>
-__global__ void __launch_bounds__(kTiledThreads)
+// Two planes at the serving shapes (K <= 5, M <= 10) run four blocks an SM
+// where C + P = 5: at most 128 registers a thread.
+template <typename T, int K, int MP, int NP>
+__global__ void __launch_bounds__(kTiledThreads, NP == 2 && K <= 5 && MP <= 10 ? 4 : 1)
 cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
                        const T* __restrict__ prev_distrib,
                        const T* __restrict__ first_distrib,
                        const T* __restrict__ kernels, const T* __restrict__ masks,
                        T* __restrict__ out_img, T* __restrict__ out_distrib, int H,
                        int W, int C, int P, int M, int sna, int lg) {
-  using S = TiledShape<T, K, MP>;
+  using S = TiledShape<T, K, MP, NP>;
   constexpr int kPad = S::kPad, kTileWP = S::kTileWP, kTileHP = S::kTileHP;
   constexpr int kMPP = S::kMPP;
+  constexpr int kN = kTileHP * kTileWP;                  // staged pixels a plane
   extern __shared__ float4 smem4[];
   __shared__ unsigned long long arrived;                 // mbarrier of the bulk loads
   float* s_k = reinterpret_cast<float*>(smem4);          // [K*K][kMPP]
-  float4* tile4 = reinterpret_cast<float4*>(s_k + S::kKernelFloats);
-  T* raw_prev = reinterpret_cast<T*>(tile4 + kTileHP * kTileWP);
-  T* raw_first = raw_prev + S::kRawIn;
-  T* raw_out = raw_first + S::kRawIo;
-  T* raw_m = raw_out + S::kRawIo;
+  float4* tile4 = reinterpret_cast<float4*>(s_k + S::kKernelFloats);   // [NP][kN]
+  T* raw_prev = reinterpret_cast<T*>(tile4 + NP * kN);
+  const int ch = S::channels(C + P);
+  T* raw_first = raw_prev + S::raw_in(ch);
+  T* raw_out = S::kOwnOut ? raw_first + S::raw_io(ch) : raw_prev;   // or the window
+  T* raw_m = raw_first + (1 + S::kOwnOut) * S::raw_io(ch);
 
   using Span = SpanT<const T>;
   const int tid = threadIdx.x;
@@ -565,15 +435,15 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
           bulk_load(spans[i].s, spans[i].g, spans[i].len * sizeof(T), &arrived);
     }
   } else {
-    copy_in(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev,
-            g.in_c.stride);
-    copy_in(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd,
-            g.in_p.stride);
-    copy_in(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
-            g.io_c.stride);
-    copy_in(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd,
-            g.io_p.stride);
-    copy_in(spans[4].g, g.m_rows, g.m_gstride, g.m_len, raw_m, g.m_stride);
+    copy_in<kTiledThreads>(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev,
+                           g.in_c.stride);
+    copy_in<kTiledThreads>(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd,
+                           g.in_p.stride);
+    copy_in<kTiledThreads>(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
+                           g.io_c.stride);
+    copy_in<kTiledThreads>(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd,
+                           g.io_p.stride);
+    copy_in<kTiledThreads>(spans[4].g, g.m_rows, g.m_gstride, g.m_len, raw_m, g.m_stride);
   }
   // this sample's CDNA kernels as f32, M values padded to kMPP per tap
   const T* kb = kernels + (long)g.b * K * K * M;
@@ -596,7 +466,7 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
   if (bulk) mbarrier_wait(&arrived);
 
   // 2. the input tile with its halo as packed f32 pixels
-  stage_tile<T, K, 1>(tile4, raw_prev, raw_pd, g, H, W, C, P);
+  stage_tile<T, K, NP>(tile4, raw_prev, raw_pd, g, H, W, C, P);
   __syncthreads();
 
   // 3. four pixels of one column per thread: rows r0..r0+3 of the tile
@@ -640,16 +510,21 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
           if (m >= M) mt[px][m] = 0.f;
       }
     }
-    float4 acc[kPx];
+    float4 acc[kPx][NP];
 #pragma unroll
-    for (int px = 0; px < kPx; ++px) acc[px] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int px = 0; px < kPx; ++px) {
+#pragma unroll
+      for (int q = 0; q < NP; ++q) acc[px][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 
 #pragma unroll 1   // rolled: the body of one tap column stays in the instruction cache
     for (int j = 0; j < K; ++j) {
-      float4 win[kPx + K - 1];
+      float4 win[kPx + K - 1][NP];
 #pragma unroll
-      for (int rr = 0; rr < kPx + K - 1; ++rr)
-        win[rr] = tile4[(r0 + rr) * kTileWP + col + j];
+      for (int rr = 0; rr < kPx + K - 1; ++rr) {
+#pragma unroll
+        for (int q = 0; q < NP; ++q) win[rr][q] = tile4[q * kN + (r0 + rr) * kTileWP + col + j];
+      }
 #pragma unroll
       for (int i = 0; i < K; ++i) {
         float kv[kMPP];
@@ -675,11 +550,14 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
           float e = 0.f;
 #pragma unroll
           for (int m = 0; m < MP; ++m) e = fmaf(mt[px][m], kv[m], e);
-          const float4 x = win[px + i];
-          acc[px].x = fmaf(e, x.x, acc[px].x);
-          acc[px].y = fmaf(e, x.y, acc[px].y);
-          acc[px].z = fmaf(e, x.z, acc[px].z);
-          acc[px].w = fmaf(e, x.w, acc[px].w);
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            const float4 x = win[px + i][q];
+            acc[px][q].x = fmaf(e, x.x, acc[px][q].x);
+            acc[px][q].y = fmaf(e, x.y, acc[px][q].y);
+            acc[px][q].z = fmaf(e, x.z, acc[px][q].z);
+            acc[px][q].w = fmaf(e, x.w, acc[px][q].w);
+          }
         }
       }
     }
@@ -689,13 +567,23 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
     for (int px = 0; px < kPx; ++px) {
       const int prow = r0 + px;
       if (g.h0 + prow < H) {
-        const float4 x = tile4[(prow + kPad) * kTileWP + col + kPad];
-        const float xs[kPack] = {x.x, x.y, x.z, x.w};
-        const float as[kPack] = {acc[px].x, acc[px].y, acc[px].z, acc[px].w};
+        float xs[kPack * NP], as[kPack * NP];
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const float4 x = tile4[q * kN + (prow + kPad) * kTileWP + col + kPad];
+          xs[4 * q] = x.x;
+          xs[4 * q + 1] = x.y;
+          xs[4 * q + 2] = x.z;
+          xs[4 * q + 3] = x.w;
+          as[4 * q] = acc[px][q].x;
+          as[4 * q + 1] = acc[px][q].y;
+          as[4 * q + 2] = acc[px][q].z;
+          as[4 * q + 3] = acc[px][q].w;
+        }
         const int at_c = prow * g.io_c.stride + col * C;
         const int at_p = prow * g.io_p.stride + col * P - C;
 #pragma unroll
-        for (int ch = 0; ch < kPack; ++ch) {
+        for (int ch = 0; ch < kPack * NP; ++ch) {
           float v = fmaf(xs[ch], m0[px], as[ch]);
           if (ch < C) {
             if (sna) v = fmaf(to_float(raw_first[at_c + ch]), m1[px], v);
@@ -856,13 +744,16 @@ cdna_tail_eff_kernel(const T* __restrict__ prev, const T* __restrict__ first,
       bulk_load(mspan.s, mspan.g, mspan.len * sizeof(TM), &arrived);
     }
   } else {
-    copy_in(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev, g.in_c.stride);
-    copy_in(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd, g.in_p.stride);
-    copy_in(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
-            g.io_c.stride);
-    copy_in(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd, g.io_p.stride);
-    copy_in(spans[4].g, fw.rows, fw.g_stride, fw.len, raw_field, fw.stride);
-    copy_in(mspan.g, mw.rows, mw.g_stride, mw.len, raw_m, mw.stride);
+    copy_in<kTiledThreads>(spans[0].g, g.in_c.rows, g.in_c.g_stride, g.in_c.len, raw_prev,
+                           g.in_c.stride);
+    copy_in<kTiledThreads>(spans[1].g, g.in_p.rows, g.in_p.g_stride, spans[1].len, raw_pd,
+                           g.in_p.stride);
+    copy_in<kTiledThreads>(spans[2].g, g.io_c.rows, g.io_c.g_stride, spans[2].len, raw_first,
+                           g.io_c.stride);
+    copy_in<kTiledThreads>(spans[3].g, g.io_p.rows, g.io_p.g_stride, spans[3].len, raw_fd,
+                           g.io_p.stride);
+    copy_in<kTiledThreads>(spans[4].g, fw.rows, fw.g_stride, fw.len, raw_field, fw.stride);
+    copy_in<kTiledThreads>(mspan.g, mw.rows, mw.g_stride, mw.len, raw_m, mw.stride);
     cp_async_wait_all();
   }
   __syncthreads();   // the mbarrier is set up, the copies are in
@@ -1003,21 +894,22 @@ cudaError_t launch_general(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int K, int MP>
+template <typename T, int K, int MP, int NP>
 cudaError_t launch_tiled(const Args& a, int lg) {
-  using S = TiledShape<T, K, MP>;
+  using S = TiledShape<T, K, MP, NP>;
   static bool attribute_set = false;   // above 48 KB shared memory is opt-in
   if (!attribute_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        cdna_tail_tiled_kernel<T, K, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)S::kBytes);
+        cdna_tail_tiled_kernel<T, K, MP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)S::bytes(kPack * NP));
     if (err != cudaSuccess) return err;
     attribute_set = true;
   }
   const int tiles_y = (a.H + kTileH - 1) / kTileH;
   if (tiles_y > 65535) return cudaErrorInvalidValue;
   const dim3 grid((a.W + kTileW - 1) / kTileW, tiles_y, a.B);
-  cdna_tail_tiled_kernel<T, K, MP><<<grid, kTiledThreads, S::kBytes, a.stream>>>(
+  const size_t smem = S::bytes(S::channels(a.C + a.P));
+  cdna_tail_tiled_kernel<T, K, MP, NP><<<grid, kTiledThreads, smem, a.stream>>>(
       static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
       static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
       static_cast<const T*>(a.kernels), static_cast<const T*>(a.masks),
@@ -1026,14 +918,21 @@ cudaError_t launch_tiled(const Args& a, int lg) {
   return cudaGetLastError();
 }
 
+template <typename T, int K, int NP>
+cudaError_t launch_tiled_masks(const Args& a, int lg) {
+  if (a.M <= 10) return launch_tiled<T, K, 10, NP>(a, lg);
+  return launch_tiled<T, K, kMaxMasks, NP>(a, lg);
+}
+
+// the tiled variant packs C + P <= 4 channels into one plane, up to 8 into two
 template <typename T, int K>
 cudaError_t launch(const Args& a, int variant) {
   if (variant == 0) return launch_general<T, K>(a);
   const int r = a.r > 1 ? a.r : 1;
-  if (a.C + a.P > kPack || (r != 1 && r != 2 && r != 4)) return cudaErrorInvalidValue;
+  if (a.C + a.P > 2 * kPack || (r != 1 && r != 2 && r != 4)) return cudaErrorInvalidValue;
   const int lg = r == 4 ? 2 : r - 1;
-  if (a.M <= 10) return launch_tiled<T, K, 10>(a, lg);
-  return launch_tiled<T, K, kMaxMasks>(a, lg);
+  if (a.C + a.P <= kPack) return launch_tiled_masks<T, K, 1>(a, lg);
+  return launch_tiled_masks<T, K, 2>(a, lg);
 }
 
 template <typename T>

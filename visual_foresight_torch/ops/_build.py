@@ -3,9 +3,10 @@
 Each source under ``visual_foresight_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``build/kernels/`` at
-the root of the checkout, named by a hash of their source, so an edited
-source is rebuilt and a stale library is never loaded.  A failed build
-raises.  ``build_concurrently`` starts one nvcc per source at once.
+the root of the checkout, named by a hash of their source and the shared
+headers (``csrc/*.cuh``), so an edited source is rebuilt and a stale library
+is never loaded.  A failed build raises.  ``build_concurrently`` starts one
+nvcc per source at once.
 """
 
 import ctypes
@@ -35,8 +36,11 @@ def _nvcc():
 
 
 def library_path(source):
-    """Where the library built from ``csrc/<source>`` lives."""
-    text = (CSRC / source).read_bytes() + ' '.join(NVCC_FLAGS).encode()
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, the headers beside it and the flags."""
+    headers = b''.join(p.read_bytes() for p in sorted(CSRC.glob('*.cuh')))
+    text = (CSRC / source).read_bytes() + headers + \
+        ' '.join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / '{}-{}.so'.format(Path(source).stem, digest)
 

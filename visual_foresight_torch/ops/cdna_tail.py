@@ -49,20 +49,21 @@ from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 SOURCE = 'cdna_tail.cu'
 BWD_SOURCE = 'cdna_tail_bwd.cu'
-_BWD_PIXELS = 128                     # pixels a block of the backward kernel
+_BWD_TILE = (8, 32)                   # rows, columns of a backward tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHANNELS = 4
 _MAX_MASKS = 16
 VARIANTS = ('general', 'tiled')       # the C entry point's variant numbers
-_TILED_PACK = 4                       # packed channels of a staged pixel
+_TILED_PLANES = 2                     # planes of four packed channels
 _TILED_BLOCKS = (1, 2, 4)
 
 
 def kernel_variant(c, p, mask_block):
     """Which variant of ``csrc/cdna_tail.cu`` serves a call: ``'tiled'``
-    where the frame and distribution channels pack into four and the mask
-    block factor is 1, 2 or 4; ``'general'`` otherwise."""
-    tiled = c + p <= _TILED_PACK and max(mask_block, 1) in _TILED_BLOCKS
+    where the frame and distribution channels pack into two planes of four
+    (C + P <= 8) and the mask block factor is 1, 2 or 4; ``'general'``
+    otherwise (no model builds another block factor)."""
+    tiled = c + p <= 4 * _TILED_PLANES and max(mask_block, 1) in _TILED_BLOCKS
     return 'tiled' if tiled else 'general'
 
 
@@ -315,6 +316,19 @@ def fused_warp_composite_backward_reference(grad_img, prev, first, kernels,
             g_m.to(masks.dtype))
 
 
+def backward_partials_shape(b, h, w, ksize, m, mask_block=0):
+    """Shape of the backward kernel's f32 scratch for the kernels' gradient:
+    one K*K*M partial sum for each tile of 8 x 32 pixels of each sample,
+    which its second launch sums over the tiles in a fixed order.  The
+    tiles are the same in both mask layouts (a blocked layout's cells of r =
+    2 or 4 fill them whole); ``mask_block`` must divide the image."""
+    if mask_block > 1 and (h % mask_block or w % mask_block):
+        raise ValueError('mask_block {} does not divide the image {}x{}'
+                         .format(mask_block, h, w))
+    tiles = -(-h // _BWD_TILE[0]) * -(-w // _BWD_TILE[1])
+    return (b, tiles, ksize * ksize * m)
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     """The backward kernel's C entry point, with its ctypes signature."""
@@ -332,9 +346,10 @@ def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
     ``kernels`` and ``masks``, as
     :func:`fused_warp_composite_backward_reference` computes them; ``needs``
     names the ones wanted, and the others come back as None.  On a CUDA
-    device it launches ``csrc/cdna_tail_bwd.cu`` (a pixel pass and, where
-    the kernels' gradient is wanted, a fixed-order sum of its per-block
-    partials, so two runs give the same bits) and counts the call in
+    device it launches ``csrc/cdna_tail_bwd.cu`` (a pass over tiles of 8 x
+    32 pixels and, where the kernels' gradient is wanted, a fixed-order sum
+    of its per-tile partials, :func:`backward_partials_shape`, so two runs
+    give the same bits) and counts the call in
     ``fused_warp_composite_backward.launches``.
     """
     if not _uses_kernel(prev):
@@ -348,12 +363,11 @@ def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
                     'prev_distrib': empty}, {'grad_img': tuple(prev.shape)})
     b, h, w, c = prev.shape
     ksize, m = kernels.shape[1], kernels.shape[3]
-    n_blocks = -(-h * w // _BWD_PIXELS)
     outs = [torch.empty_like(t) if n else None
             for t, n in zip((prev, first, kernels, masks), needs)]
-    partials = torch.empty((b, n_blocks, ksize * ksize * m),
-                           dtype=torch.float32, device=prev.device) \
-        if needs[2] else None
+    partials = torch.empty(
+        backward_partials_shape(b, h, w, ksize, m, mask_block),
+        dtype=torch.float32, device=prev.device) if needs[2] else None
     ptr = lambda t: 0 if t is None else t.data_ptr()
     fn = _bwd_kernel()
     with torch.cuda.device(prev.device):

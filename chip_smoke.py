@@ -116,6 +116,24 @@
      on ag_r5f_v2 (91)
      and xz_bench20_nce (136), one replan each; xz_bench20_inverse (10
      steps, no tail launch);
+   - training from collected records: one line probing the host side of
+     ingest (``g++``, ``jpeglib.h``, ``zlib.h``; whether ``google_crc32c``,
+     ``cv2``, ``h5py`` and ``imageio`` import); 48 trajectories of the
+     flagship's shapes (the trainer's synthetic batches, quantised to
+     uint8) written by the port's ``GeneralAgentSaver`` into 6 GZIP-TFRecord
+     shards in a temporary directory and read back exactly; ``train()`` of
+     the flagship from them (``--data_dir``, the Python reader; bf16, batch
+     16, 60 steps: 14 forward and 14 backward launches a step, no plain
+     version, the loss must fall) and ten more steps timed beside the
+     synthetic ones; where the probe found ``g++`` and ``zlib.h``, the
+     port's native engine (``native/ingest.cpp``; without ``jpeglib.h``
+     built without JPEG decoding) built, its batches equal to the Python
+     reader's, and 10 steps with ``--loader fused``, timed; the GDN,
+     classifier (goal labels), NCE and inverse trainers, 100 f32 steps each
+     from the records, their steps timed, each net then served by its
+     controller for one replan (``*_restored`` true; registration 182
+     launches, classifier 91, NCE 136, inverse none); and the JAX tests'
+     quality gates for those trainers, met on the card;
 7. times the kernels and their plain versions beside their bounds (the tail
    in both mask layouts, with its share of the card's memory rate and the
    ``depth_to_space`` copy that the blocked layout saves; the second
@@ -129,7 +147,8 @@
    (host clock and CUDA events), with a profiler breakdown of one replan of
    each but the one-batch 800-sample and the folding ones; then the
    ensemble, registration, classifier, NCE and inverse replans the same
-   way, and the tiled variant on two planes at the registration path's
+   way (and the replans on the nets trained from records), and the tiled
+   variant on two planes at the registration path's
    shape (B=768, C=3, P=2, blocked masks) beside its bound, the tiled
    variant at P=1 and the general variant forced at the same shape.
 
@@ -1304,18 +1323,20 @@ def check_inverse_golden():
         raise AssertionError('the inverse net disagrees with JAX')
 
 
-def drive_inverse(card):
-    """``InvModelBaseController.act()`` at xz_bench20_inverse's point on the
-    seeded export for ``INV_STEPS`` steps (warm-up draws, then a plan from
-    the net every two steps): finite actions, no tail launch; the host p50
-    and CUDA-event span of a replan (one forward of the net) and a profiled
+def drive_inverse(card, policy=INV_POLICY, name='inverse'):
+    """``InvModelBaseController.act()`` at xz_bench20_inverse's point
+    (``policy``: the seeded export by default) for ``INV_STEPS`` steps
+    (warm-up draws, then a plan from the net every two steps): finite
+    actions, no tail launch; the host p50 and CUDA-event span of a replan
+    (one forward of the net, printed as ``<name>_replan_*``) and a profiled
     one.  Returns the launches (all 0)."""
     from visual_foresight_torch.policy.inverse_models. \
         inverse_model_base_controller import InvModelBaseController
-    ctrl = InvModelBaseController(INV_AGENT, dict(INV_POLICY))
-    print('inverse controller: restored={}'.format(ctrl.predictor.restored))
+    ctrl = InvModelBaseController(INV_AGENT, dict(policy))
+    print('{} controller: restored={} ({})'.format(
+        name, ctrl.predictor.restored, policy['model_params_path']))
     if not ctrl.predictor.restored:
-        raise AssertionError('the inverse controller did not restore')
+        raise AssertionError('the {} controller did not restore'.format(name))
     rng = np.random.RandomState(2)
     frames = (rng.rand(INV_STEPS, 1, 1, H, W, 3) * 255).astype(np.uint8)
     goal = (rng.rand(1, 1, H, W, 3) * 255).astype(np.uint8)
@@ -1325,11 +1346,11 @@ def drive_inverse(card):
     actions = [ctrl.act(t=t, i_tr=0, images=frames[t],
                         goal_image=goal)['actions'] for t in range(INV_STEPS)]
     torch.cuda.synchronize()
-    launches = read_no_tail('inverse controller ({} act() steps)'.format(
-        INV_STEPS))
+    launches = read_no_tail('{} controller ({} act() steps)'.format(
+        name, INV_STEPS))
     if any(a.shape != (3,) or not np.isfinite(a).all() for a in actions):
-        raise AssertionError('inverse controller actions malformed')
-    print('inverse controller actions finite; last {}'.format(actions[-1]))
+        raise AssertionError('{} controller actions malformed'.format(name))
+    print('{} controller actions finite; last {}'.format(name, actions[-1]))
     ctx = np.stack(ctrl.context_frames)[None]
     cur, g0 = frames[-1, -1, 0] / 255.0, goal[-1, 0] / 255.0
     replan = lambda: ctrl.predictor(cur, g0, None, ctx)
@@ -1346,12 +1367,13 @@ def drive_inverse(card):
         host.append((time.perf_counter() - t0) * 1e3)
         device.append(start.elapsed_time(end))
     point = 'xz_bench20_inverse: one forward of the inverse net, 48x64, f32'
-    print('inverse_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
-          '[{}]'.format(float(np.percentile(host, 50)), point, CTRL_TIMED,
-                        ' '.join('{:.3f}'.format(x) for x in host), card))
-    print('inverse_replan_device_ms={:.3f} ({}, CUDA events, median) [{}]'
-          .format(float(np.percentile(device, 50)), point, card))
-    print('profile: one inverse-model replan')
+    print('{}_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
+          '[{}]'.format(name, float(np.percentile(host, 50)), point,
+                        CTRL_TIMED, ' '.join('{:.3f}'.format(x)
+                                             for x in host), card))
+    print('{}_replan_device_ms={:.3f} ({}, CUDA events, median) [{}]'
+          .format(name, float(np.percentile(device, 50)), point, card))
+    print('profile: one {} replan'.format(name))
     profile_replan(replan)
     return launches
 
@@ -1821,48 +1843,38 @@ def read_train_counts(path, steps, model_steps):
             'cdna_tail_dna': 0}
 
 
-def drive_training(card):
-    """``train()`` at the flagship's full width (its ``model_config.json``:
-    space-to-depth 4, (128, 256, 256), separable 3x3 gates, SNA, 10 masks,
-    15 frames, 48x64, bf16) on synthetic batches of 16 for 60 steps, saving
-    to ``TRAIN_DIR``: the loss must fall and every metric stay finite, with
-    14 forward and 14 backward tail launches a step and no plain version;
-    then ten more steps timed (host clock and CUDA events) and one
-    profiled.  Returns (launches, trainer, per-step device ms)."""
-    from visual_foresight_torch.training.train_predictor import (
-        synthetic_batches, to_device, train)
-    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
-                      batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, log_every=1,
-                      model_dir=TRAIN_DIR)
-    model_steps = args.sequence_length - 1
-    reset_train_counts()
-    with PlainCalls() as plain:
-        t0 = time.perf_counter()
-        history, trainer = train(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    launches = read_train_counts('flagship training', TRAIN_STEPS,
-                                 model_steps)
+def check_training(label, history, plain, wall, steps):
+    """A ``train()`` run's history: ``steps`` logged steps, every metric
+    finite, no plain version called, and the mean loss of the last five
+    steps under ``LOSS_FALL`` times that of the first five."""
     losses = [h['loss'] for h in history]
-    print('flagship training: {} steps in {:.1f} s (first steps build the '
-          'kernels\' caches), loss {}; plain-version calls {}'.format(
-              len(history), wall, ' '.join(
+    print('{}: {} steps in {:.1f} s (first steps build the kernels\' '
+          'caches), loss {}; plain-version calls {}'.format(
+              label, len(history), wall, ' '.join(
                   '{:.5f}'.format(x) for x in losses[::5] + losses[-1:]),
               plain.calls))
     if plain.calls:
-        raise AssertionError('the training path called a plain version')
-    if len(history) != TRAIN_STEPS or not all(
+        raise AssertionError('the {} path called a plain version'.format(
+            label))
+    if len(history) != steps or not all(
             np.isfinite([h[k] for k in h]).all() for h in history):
-        raise AssertionError('a training metric is not finite')
+        raise AssertionError('{}: a training metric is not finite'.format(
+            label))
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print('loss fell: mean of the first five steps {:.6f}, of the last five '
-          '{:.6f}, ratio {:.3f} (must be under {})'.format(
-              first, last, last / first, LOSS_FALL))
+    print('{}: loss fell: mean of the first five steps {:.6f}, of the last '
+          'five {:.6f}, ratio {:.3f} (must be under {})'.format(
+              label, first, last, last / first, LOSS_FALL))
     if not last < LOSS_FALL * first:
-        raise AssertionError('the flagship loss did not fall')
+        raise AssertionError('the {} loss did not fall'.format(label))
 
-    batches = synthetic_batches(args, seed=1)
-    step = [TRAIN_STEPS]
+
+def time_train_steps(trainer, batches, first_step, name, where):
+    """``TRAIN_TIMED`` more steps of ``trainer`` on ``next(batches)`` (numpy
+    batches, made and moved to the card inside the timed region), each timed
+    by the host clock and by CUDA events, printed as ``<name>_p50_ms`` and
+    ``<name>_device_ms``.  Returns the per-step device ms."""
+    from visual_foresight_torch.training.train_predictor import to_device
+    step = [first_step]
 
     def one_step():
         batch = to_device(next(batches), trainer.device)
@@ -1881,13 +1893,44 @@ def drive_training(card):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         device.append(start.elapsed_time(end))
+    print('{}_p50_ms={:.3f} host clock, {} steps: {} {}'.format(
+        name, float(np.percentile(host, 50)), TRAIN_TIMED,
+        ' '.join('{:.3f}'.format(x) for x in host), where))
+    print('{}_device_ms={:.3f} CUDA events around a step, median, span '
+          '{:.3f}-{:.3f} {}'.format(name, float(np.percentile(device, 50)),
+                                    min(device), max(device), where))
+    return device, one_step
+
+
+def drive_training(card):
+    """``train()`` at the flagship's full width (its ``model_config.json``:
+    space-to-depth 4, (128, 256, 256), separable 3x3 gates, SNA, 10 masks,
+    15 frames, 48x64, bf16) on synthetic batches of 16 for 60 steps, saving
+    to ``TRAIN_DIR``: the loss must fall and every metric stay finite, with
+    14 forward and 14 backward tail launches a step and no plain version;
+    then ten more steps timed (host clock and CUDA events) and one
+    profiled.  Returns (launches, trainer, per-step device ms)."""
+    from visual_foresight_torch.training.train_predictor import (
+        synthetic_batches, train)
+    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                      batch_size=TRAIN_BATCH, steps=TRAIN_STEPS, log_every=1,
+                      model_dir=TRAIN_DIR)
+    model_steps = args.sequence_length - 1
+    reset_train_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        history, trainer = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_train_counts('flagship training', TRAIN_STEPS,
+                                 model_steps)
+    check_training('flagship training', history, plain, wall, TRAIN_STEPS)
     where = ('(xz_flagship full width, batch {}, 15 frames = 14 model steps, '
-             '48x64, bf16, forward + backward + clipped AdamW, {} steps) '
-             '[{}]'.format(TRAIN_BATCH, TRAIN_TIMED, card))
-    print('train_step_p50_ms={:.3f} host clock {}'.format(
-        float(np.percentile(host, 50)), where))
-    print('train_step_device_ms={:.3f} CUDA events around a step, median '
-          '{}'.format(float(np.percentile(device, 50)), where))
+             '48x64, bf16, forward + backward + clipped AdamW, synthetic '
+             'batches) [{}]'.format(TRAIN_BATCH, card))
+    device, one_step = time_train_steps(
+        trainer, synthetic_batches(args, seed=1), TRAIN_STEPS, 'train_step',
+        where)
     print('profile: one flagship train step')
     profile_replan(one_step, what='train step')
     return launches, trainer, device
@@ -2033,6 +2076,347 @@ def replay_train_golden():
     return launches
 
 
+# -- training from collected records ------------------------------------------
+
+RECORD_TRAJS, RECORD_PER_FILE = 48, 8         # 6 shards, 3 batches of 16
+NATIVE_STEPS = 10
+SCORING_STEPS = 100
+# name: (trainer module, entry, batch size, flags) of the scoring nets.  The
+# records' square covers 16 of 3,072 pixels on a flat background, so two
+# frames differ by a mean absolute gap of at most 32 / 3072 x 0.9 < 0.01:
+# the default ambiguity threshold (0.01) would weigh every goal-conditioned
+# negative 0
+SCORING = {
+    'gdn': ('train_gdn', 'train', 16, []),
+    'classifier': ('train_classifier', 'train_classifier', 32,
+                   ['--label_mode', 'goal', '--ambiguous_pixel_diff',
+                    '0.001']),
+    'nce': ('train_classifier', 'train_nce', 32, ['--mode', 'nce']),
+    'inverse': ('train_inverse', 'train_inverse', 16,
+                ['--adim', '3', '--plan_T', '7']),
+}
+
+
+def probe_host():
+    """One line on what this machine offers the host side of ingest:
+    ``g++`` on the PATH, ``jpeglib.h`` and ``zlib.h`` found by it, and
+    whether ``google_crc32c``, ``cv2``, ``h5py`` and ``imageio`` (the
+    RoboNet reader's) import.  Returns what the native engine's build lacks
+    (empty where it can be built)."""
+    import importlib
+    from visual_foresight_torch.data import fused_ingest
+    from visual_foresight_torch.data.tfrecord_io import (crc32c_impl,
+                                                         crc32c_numpy)
+    missing = fused_ingest.missing_build_tools()
+    cxx = shutil.which(os.environ.get('CXX', 'g++'))
+    imports = {}
+    for name in ('google_crc32c', 'cv2', 'h5py', 'imageio'):
+        try:
+            importlib.import_module(name)
+            imports[name] = 'imports'
+        except Exception as e:           # noqa: BLE001 (a broken install)
+            imports[name] = 'does not import ({})'.format(
+                type(e).__name__)
+    headers = {h: 'not probed' if cxx is None else
+               ('missing' if h in missing else 'found')
+               for h in fused_ingest.HEADERS}
+    print('host ingest probe: g++ {}; {}; {}; CRC32C in use: {}'.format(
+        cxx or 'not on the PATH',
+        '; '.join('{} {}'.format(h, v) for h, v in headers.items()),
+        '; '.join('{} {}'.format(m, v) for m, v in imports.items()),
+        'the numpy fallback' if crc32c_impl() is crc32c_numpy
+        else 'google_crc32c'))
+    return missing
+
+
+def write_records(root):
+    """``RECORD_TRAJS`` trajectories of the flagship's shapes (15 frames of
+    48x64, one camera, raw ``Byte`` images, adim 3, sdim 3) made from the
+    trainer's synthetic batches (a moving square that follows the
+    actions), quantised to uint8 and written by the port's
+    ``GeneralAgentSaver`` (``RECORD_PER_FILE`` a shard, all train) into
+    ``root``; then read back by ``BaseVideoDataset`` with shuffle off: the
+    frames must equal the uint8 source exactly, the states and actions the
+    source bit for bit."""
+    from visual_foresight_torch.agent.utils.traj_saver import (
+        GeneralAgentSaver)
+    from visual_foresight_torch.data.dataset_reader import BaseVideoDataset
+    from visual_foresight_torch.training.train_predictor import (
+        synthetic_batches)
+    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                      batch_size=TRAIN_BATCH)
+    batches = synthetic_batches(args, seed=2)
+    src = [next(batches) for _ in range(RECORD_TRAJS // TRAIN_BATCH)]
+    images = np.concatenate([np.round(b['images'] * 255).astype(np.uint8)
+                             for b in src])
+    states = np.concatenate([b['states'] for b in src])
+    # one action a frame, as a collection run records them: the last is 0
+    actions = np.concatenate([b['actions'] for b in src])
+    actions = np.concatenate([actions, np.zeros_like(actions[:, :1])], 1)
+    seq = images.shape[1]
+    t0 = time.perf_counter()
+    saver = GeneralAgentSaver(root, seq, traj_per_file=RECORD_PER_FILE,
+                              split=(1.0, 0.0, 0.0))
+    for i in range(RECORD_TRAJS):
+        saver.save_traj({'traj_index': i},
+                        {'images': images[i][:, None], 'state': states[i]},
+                        [{'actions': a} for a in actions[i]])
+    saver.flush()
+    written = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = BaseVideoDataset(root, TRAIN_BATCH, hparams_dict={
+        'shuffle': False, 'num_epochs': 1})
+    got = list(ds.numpy_iterator(keys=('traj_index', 'images', 'state',
+                                       'actions')))
+    ds.close()
+    read = time.perf_counter() - t0
+    order = np.concatenate([b['traj_index'].reshape(-1) for b in got])
+    if sorted(order.tolist()) != list(range(RECORD_TRAJS)):
+        raise AssertionError('the records read back {} of the {} '
+                             'trajectories'.format(len(order), RECORD_TRAJS))
+    for key, want in (('images', images[:, :, None]), ('state', states),
+                      ('actions', actions)):
+        back = np.concatenate([b[key] for b in got])
+        if back.dtype != want.dtype or not np.array_equal(back,
+                                                          want[order]):
+            raise AssertionError('the records\' {} differ from the source '
+                                 '({} {} against {} {})'.format(
+                                     key, back.dtype, back.shape,
+                                     want.dtype, want.shape))
+    print('records: {} trajectories of {} frames (48x64, one camera, raw '
+          'bytes, adim 3, sdim 3) written by GeneralAgentSaver into {} '
+          'shards in {:.2f} s ({:.1f} kB), read back by BaseVideoDataset in '
+          '{:.2f} s: frames, states and actions equal to the source'.format(
+              RECORD_TRAJS, seq, RECORD_TRAJS // RECORD_PER_FILE, written,
+              sum(os.path.getsize(os.path.join(root, 'train', f))
+                  for f in os.listdir(os.path.join(root, 'train'))) / 1e3,
+              read))
+
+
+def train_from_records(root, loader, steps, card, name, loss_falls=True):
+    """``train()`` of the flagship (bf16, batch 16) on the records in
+    ``root`` through ``loader`` ('python' or 'fused') for ``steps`` steps:
+    14 forward and 14 backward tail launches a step on the tiled variant and
+    blocked masks, no plain version, every metric finite, and with
+    ``loss_falls`` the loss under ``LOSS_FALL`` of its start
+    (``check_training``); then ``TRAIN_TIMED`` more steps from the records
+    timed as ``<name>_*``.  Returns (launches, history, wall seconds,
+    per-step device ms)."""
+    from visual_foresight_torch.training.train_predictor import (
+        record_batches, train)
+    args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                      batch_size=TRAIN_BATCH, steps=steps, log_every=1,
+                      data_dir=root, loader=loader)
+    reset_train_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        history, trainer = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    label = 'flagship training from records ({} reader)'.format(loader)
+    launches = read_train_counts(label, steps, args.sequence_length - 1)
+    if loss_falls:
+        check_training(label, history, plain, wall, steps)
+    elif plain.calls or len(history) != steps or not all(
+            np.isfinite([h[k] for k in h]).all() for h in history):
+        raise AssertionError('{}: a plain version ran or a metric is not '
+                             'finite'.format(label))
+    where = ('(xz_flagship full width, batch {}, 15 frames = 14 model steps, '
+             '48x64, bf16, forward + backward + clipped AdamW, batches read '
+             'from {} shards by the {} reader) [{}]'.format(
+                 TRAIN_BATCH, RECORD_TRAJS // RECORD_PER_FILE, loader, card))
+    device, one_step = time_train_steps(trainer, record_batches(args), steps,
+                                        name, where)
+    print('profile: one flagship train step from records ({} reader)'
+          .format(loader))
+    profile_replan(one_step, what='train step')
+    return launches, history, wall, device
+
+
+def check_native_ingest(root, missing, card):
+    """The port's native engine (``native/ingest.cpp``), where the probe
+    found ``g++`` and ``zlib.h`` (without ``jpeglib.h`` it is built without
+    JPEG decoding; the records are raw): built, its batches at one thread
+    with shuffle off equal to the Python reader's bit for bit, then
+    ``NATIVE_STEPS`` flagship steps with ``--loader fused``, timed.  Where
+    the probe found them missing, prints why and returns None; with them
+    present a failed build raises.  Returns the launches."""
+    from visual_foresight_torch.data import fused_ingest
+    from visual_foresight_torch.data.dataset_reader import BaseVideoDataset
+    from visual_foresight_torch.ops import _build
+    blocking = [m for m in missing if m != 'jpeglib.h']
+    if blocking:
+        print('native ingest: not built ({} missing)'.format(
+            ', '.join(blocking)))
+        return None
+    flags, libs = fused_ingest.engine_build()
+    t0 = time.perf_counter()
+    fused_ingest._load_library()
+    print('native ingest: built {} ({}) in {:.1f} s'.format(
+        os.path.relpath(_build.host_library_path(fused_ingest.SOURCE, libs,
+                                                 flags), REPO),
+        'without JPEG decoding: jpeglib.h missing' if flags else
+        'with libjpeg', time.perf_counter() - t0))
+    loader = fused_ingest.FusedTrajLoader(root, TRAIN_BATCH, num_epochs=1,
+                                          shuffle=False, threads=1)
+    native = list(loader)
+    loader.close()
+    ds = BaseVideoDataset(root, TRAIN_BATCH, hparams_dict={
+        'shuffle': False, 'num_epochs': 1})
+    python = list(ds.numpy_iterator(keys=('images', 'state', 'actions')))
+    ds.close()
+    same = len(native) == len(python) == RECORD_TRAJS // TRAIN_BATCH and \
+        all(n[k].dtype == p[k].dtype and np.array_equal(n[k], p[k])
+            for n, p in zip(native, python) for k in p)
+    print('native ingest: {} batches at one thread, shuffle off, equal to '
+          'the Python reader\'s bit for bit: {}'.format(len(native), same))
+    if not same:
+        raise AssertionError('the native engine\'s batches differ from the '
+                             'Python reader\'s')
+    launches, history, wall, _ = train_from_records(
+        root, 'fused', NATIVE_STEPS, card, 'train_records_native_step',
+        loss_falls=False)
+    print('flagship training from records (native engine): {} steps in '
+          '{:.1f} s, loss {}'.format(NATIVE_STEPS, wall, ' '.join(
+              '{:.5f}'.format(h['loss']) for h in history)))
+    return launches
+
+
+class StepTimes:
+    """While entered, times every step of the scoring nets' trainers
+    (``training/net_trainer.py::make_step``: forward, backward and Adam on
+    a batch already on the card) by the host clock and CUDA events, and
+    keeps the last step and its batch (``step``, ``batch``)."""
+
+    def __enter__(self):
+        from visual_foresight_torch.training import net_trainer
+        self.module, self.make_step = net_trainer, net_trainer.make_step
+        self.host, self.device = [], []
+
+        def make_step(tx, loss_fn):
+            step = self.make_step(tx, loss_fn)
+
+            def timed(*batch):
+                self.step, self.batch = step, batch
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = step(*batch)
+                end.record()
+                torch.cuda.synchronize()
+                self.host.append((time.perf_counter() - t0) * 1e3)
+                self.device.append(start.elapsed_time(end))
+                return out
+            return timed
+        net_trainer.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        self.module.make_step = self.make_step
+
+
+def train_scoring_nets(records, root, card):
+    """Each scoring net (``SCORING``) trained on the card in f32 for
+    ``SCORING_STEPS`` steps from the records in ``records``, written to
+    ``root/<name>``: every logged metric finite, ``params.npz`` and
+    ``net_config.json`` written; the step times (host clock and CUDA
+    events, the steps after the first ten) printed, and one more step
+    profiled.  Returns {name: model dir}."""
+    import importlib
+    dirs = {}
+    for name, (module, entry, batch, flags) in SCORING.items():
+        mod = importlib.import_module('visual_foresight_torch.training.' +
+                                      module)
+        dirs[name] = os.path.join(root, name)
+        args = mod.build_argparser().parse_args(
+            ['--data_dir', records, '--model_dir', dirs[name], '--steps',
+             str(SCORING_STEPS), '--batch_size', str(batch), '--log_every',
+             '10', '--device', 'cuda'] + flags)
+        with StepTimes() as times:
+            t0 = time.perf_counter()
+            history, _ = getattr(mod, entry)(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        written = all(os.path.isfile(os.path.join(dirs[name], f))
+                      for f in ('params.npz', 'net_config.json'))
+        finite = all(np.isfinite([v for k, v in h.items()]).all()
+                     for h in history)
+        print('{} trained from records: {} steps at batch {} in {:.1f} s, '
+              'first {} last {}; params.npz and net_config.json written: '
+              '{}'.format(name, SCORING_STEPS, batch, wall, history[0],
+                          history[-1], written))
+        if not (written and finite and len(times.host) == SCORING_STEPS):
+            raise AssertionError('the {} trainer left a metric that is not '
+                                 'finite or no checkpoint'.format(name))
+        host, device = times.host[10:], times.device[10:]
+        where = '({}, batch {}, 48x64, f32, forward + backward + Adam, {} ' \
+            'steps after the first ten) [{}]'.format(
+                name, batch, len(host), card)
+        print('train_{}_step_p50_ms={:.3f} host clock {}'.format(
+            name, float(np.percentile(host, 50)), where))
+        print('train_{}_step_device_ms={:.3f} CUDA events, median, span '
+              '{:.3f}-{:.3f} {}'.format(name, float(np.percentile(device,
+                                                                    50)),
+                                        min(device), max(device), where))
+        print('profile: one more {} train step'.format(name))
+        profile_replan(lambda: times.step(*times.batch), what='train step')
+    return dirs
+
+
+def check_quality_gates(root):
+    """The JAX tests' quality gates for its trainers, held to the port's
+    trainers on the card, on the synthetic batches at the tests' sizes:
+    the GDN's photometric loss falls in 30 steps (16x24, batch 8;
+    ``tests/test_training.py:106-112``), the classifier's accuracy passes
+    0.8 after 60 steps (16x24, batch 16; ``:115-122``), the goal-conditioned
+    classifier's 0.85 after 250 (32x32, batch 32;
+    ``test_classifier_recipe.py:29-33``), the inverse net's loss falls
+    under half ``zero_mse`` in 120 steps (48x64, batch 16;
+    ``test_inverse_model.py:21-27``)."""
+    from visual_foresight_torch.training import (train_classifier,
+                                                 train_gdn, train_inverse)
+    cuda = ['--device', 'cuda']
+    gdn, _ = train_gdn.train(train_gdn.build_argparser().parse_args(
+        ['--steps', '30', '--batch_size', '8', '--image_height', '16',
+         '--image_width', '24', '--log_every', '29'] + cuda))
+    clf, _ = train_classifier.train_classifier(
+        train_classifier.build_argparser().parse_args(
+            ['--steps', '60', '--batch_size', '16', '--image_height', '16',
+             '--image_width', '24', '--log_every', '59'] + cuda))
+    goal, _ = train_classifier.train_classifier(
+        train_classifier.build_argparser().parse_args(
+            ['--steps', '250', '--batch_size', '32', '--image_height', '32',
+             '--image_width', '32', '--log_every', '100', '--label_mode',
+             'goal'] + cuda))
+    inv, _ = train_inverse.train_inverse(
+        train_inverse.build_argparser().parse_args(
+            ['--steps', '120', '--batch_size', '16', '--image_height', '48',
+             '--image_width', '64', '--log_every', '40', '--adim', '3',
+             '--plan_T', '7', '--model_dir', os.path.join(root, 'gate')] +
+            cuda))
+    gates = [
+        ('GDN photometric loss falls in 30 steps',
+         '{:.5f} -> {:.5f}'.format(gdn[0]['photometric'],
+                                   gdn[-1]['photometric']),
+         gdn[-1]['photometric'] < gdn[0]['photometric']),
+        ('classifier accuracy over 0.8 after 60 steps',
+         '{:.3f}'.format(clf[-1]['acc']), clf[-1]['acc'] > 0.8),
+        ('goal-conditioned classifier accuracy over 0.85 after 250 steps',
+         '{:.3f}'.format(goal[-1]['acc']), goal[-1]['acc'] > 0.85),
+        ('inverse loss under 0.5 x zero_mse after 120 steps',
+         '{:.5f} against zero_mse {:.5f}'.format(inv[-1]['loss'],
+                                                 inv[-1]['zero_mse']),
+         inv[-1]['loss'] < 0.5 * inv[-1]['zero_mse'] and
+         inv[0]['loss'] > inv[-1]['loss'])]
+    for what, value, ok in gates:
+        print('quality gate (JAX test, port trainer on the card): {}: {} '
+              '-> {}'.format(what, value, 'met' if ok else 'NOT met'))
+    if not all(ok for _, _, ok in gates):
+        raise AssertionError('a trainer missed its JAX quality gate')
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2153,13 +2537,35 @@ def main():
     # -- 5h. training: the JAX train golden in f32, the flagship at full
     # width, the stochastic configuration, then the trained checkpoint served
     paths['train_golden_f32'] = replay_train_golden()
-    paths['train_xz_flagship'], trainer, _ = drive_training(card)
+    paths['train_xz_flagship'], trainer, synthetic_device = \
+        drive_training(card)
     del trainer
     paths['train_stochastic_ag_r5f_v2'] = drive_stochastic_training()
     paths['serve_trained_checkpoint'] = serve_trained()
     shutil.rmtree(TRAIN_DIR)
 
-    # -- 5i. the other planning costs at their campaigns' points: JAX goldens
+    # -- 5i. training from collected records: shards written by the port,
+    # the flagship trained from them (the Python reader, then the native
+    # engine where it builds), the scoring nets trained from them (served
+    # in 5k), and the JAX trainers' quality gates
+    missing = probe_host()
+    records_root = tempfile.mkdtemp(prefix='chip_smoke_records_')
+    records = os.path.join(records_root, 'records')
+    write_records(records)
+    paths['train_records_xz_flagship'], _, _, records_device = \
+        train_from_records(records, 'python', TRAIN_STEPS, card,
+                           'train_records_step')
+    print('train step from records against synthetic batches (CUDA events, '
+          'median): {:.3f} ms against {:.3f} ms [{}]'.format(
+              float(np.percentile(records_device, 50)),
+              float(np.percentile(synthetic_device, 50)), card))
+    native = check_native_ingest(records, missing, card)
+    if native is not None:
+        paths['train_records_native_xz_flagship'] = native
+    trained = train_scoring_nets(records, records_root, card)
+    check_quality_gates(records_root)
+
+    # -- 5j. the other planning costs at their campaigns' points: JAX goldens
     # in f32, then act() in bf16 at full width, then the plain tail
     from visual_foresight_torch.models.convert import read_npz
     cost_root = tempfile.mkdtemp(prefix='chip_smoke_costs_')
@@ -2202,8 +2608,38 @@ def main():
             'xz_bench20_nce', AG_PARAMS, NCE_POLICY, 2,
             cls=controller_class('nce'), act_kw={'goal_image': goal_image(1)})
         paths['controller_inverse'] = drive_inverse(card)
+
+        # -- 5k. the nets trained from records in 5i, each served by its
+        # controller for one replan
+        paths['serve_trained_registration'], treg_ctrl, treg_states = \
+            drive_controller(
+                'xz2c_bench20_registration on the GDN trained from records',
+                REG_AGENT, dict(REG_POLICY, model_path=dirs['registration'],
+                                gdn_path=trained['gdn']), 2,
+                cls=controller_class('registration'),
+                act_kw={'desig_pix': np.array([[[24, 32]], [[30, 20]]]),
+                        'goal_pix': np.array([[[10, 50]], [[15, 40]]]),
+                        'goal_image': goal_image(2)},
+                want=REG_AGENT['ncam'] * replan_launches(REG_POLICY))
+        paths['serve_trained_classifier'], tclf_ctrl, tclf_states = \
+            drive_controller(
+                'ag_bench20_classifier on the classifier trained from '
+                'records', AG_AGENT,
+                dict(CLF_POLICY, classifier_path=trained['classifier']), 2,
+                cls=controller_class('classifier'),
+                act_kw={'goal_image': goal_image(1)})
+        paths['serve_trained_nce'], tnce_ctrl, tnce_states = \
+            drive_controller(
+                'xz_bench20_nce on the embedding trained from records',
+                AG_PARAMS, dict(NCE_POLICY, embedding_path=trained['nce']), 2,
+                cls=controller_class('nce'),
+                act_kw={'goal_image': goal_image(1)})
+        paths['serve_trained_inverse'] = drive_inverse(
+            card, dict(INV_POLICY, model_params_path=trained['inverse']),
+            name='trained_inverse')
     finally:
         shutil.rmtree(cost_root)
+        shutil.rmtree(records_root)
 
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
@@ -2271,6 +2707,12 @@ def main():
                     '768 samples x 45 steps x 3 iters + embedding of 768 '
                     'frames an iteration, bf16, xz_flagship', nce_ctrl,
                     nce_states, card)
+    for name, c, st in (('trained_registration', treg_ctrl, treg_states),
+                        ('trained_classifier', tclf_ctrl, tclf_states),
+                        ('trained_nce', tnce_ctrl, tnce_states)):
+        time_controller(name + '_replan', 'as {}_replan, on the net trained '
+                        'from records'.format(name.split('_')[1]), c, st,
+                        card)
     two_planes = time_two_planes(gen, REG_POLICY['num_samples'],
                                  tail['blocked_ms'], card)
     general = two_planes.pop('general')

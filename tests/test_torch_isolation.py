@@ -1,6 +1,9 @@
 """The port stands alone: importing every module of ``visual_foresight_torch``
-and ``chip_smoke`` pulls in neither JAX nor the JAX package, and its entry
-points refuse to fall back to the CPU when no card is present."""
+and ``chip_smoke`` pulls in neither JAX nor the JAX package (nor ``h5py``,
+``cv2`` or ``google_crc32c``, which the card machine may lack), and its entry
+points (the predictor, the planner, the controller and the trainers of the
+planning costs' networks) refuse to fall back to the CPU when no card is
+present."""
 
 import os
 import subprocess
@@ -23,8 +26,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax',
                                             'visual_foresight_tpu')))
+# imported where they are needed: the card machine may lack them
+bad += sorted({'h5py', 'cv2', 'google_crc32c'} & set(sys.modules))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 28 else 0)
+sys.exit(1 if bad or len(names) < 61 else 0)
 '''
 
 
@@ -35,8 +40,30 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the trainers of the planning costs' networks: one step at a tiny size
+TRAINERS = {
+    'train_gdn': ('train_gdn', 'train', []),
+    'train_classifier': ('train_classifier', 'train_classifier', []),
+    'train_nce': ('train_classifier', 'train_nce', ['--mode', 'nce']),
+    'train_inverse': ('train_inverse', 'train_inverse',
+                      ['--image_height', '32', '--image_width', '32']),
+}
+
+
+def _trainer(entry, **kw):
+    import importlib
+    module, fn, argv = TRAINERS[entry]
+    module = importlib.import_module(
+        'visual_foresight_torch.training.' + module)
+    argv = ['--steps', '1', '--batch_size', '2', '--image_height', '16',
+            '--image_width', '24'] + argv + \
+        (['--device', kw['device']] if 'device' in kw else [])
+    _, model = getattr(module, fn)(module.build_argparser().parse_args(argv))
+    return next(model.parameters())
+
+
 @pytest.mark.parametrize('entry', ['predictor', 'predictor_ag_r5f_v2',
-                                   'planner', 'controller'])
+                                   'planner', 'controller'] + list(TRAINERS))
 def test_entry_points_need_a_card_unless_told_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
@@ -65,7 +92,8 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
             'planner': lambda **kw: FusedCEMPlanner(spec, 4, k_elite=2,
                                                     **kw),
             'controller': lambda **kw: PixelCostController(
-                ag_params, dict(policy, **kw))}[entry]
+                ag_params, dict(policy, **kw))}.get(
+                    entry, lambda **kw: _trainer(entry, **kw))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         make()
     assert make(device='cpu').device.type == 'cpu'

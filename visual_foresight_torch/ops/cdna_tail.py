@@ -176,8 +176,9 @@ def _wants_grad(*tensors):
 def _no_backward(entry):
     raise RuntimeError(
         '{} has no backward kernel: on the card it serves inference only '
-        '(ROADMAP.md queue 1, item 9); call it under '
-        'torch.no_grad() or with inputs that need no gradient'.format(entry))
+        '(ROADMAP.md queue 2, "the backward for the other entries"); call '
+        'it under torch.no_grad() or with inputs that need no gradient'
+        .format(entry))
 
 
 def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
@@ -203,8 +204,9 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
         if prev_distrib.shape[-1]:
             raise RuntimeError(
                 'the CDNA tail backward kernel takes no distribution '
-                'channels (P = {}; ROADMAP.md queue 1, item 9): call it under '
-                'torch.no_grad()'.format(prev_distrib.shape[-1]))
+                'channels (P = {}; ROADMAP.md queue 2, "the backward for '
+                'the other entries"): call it under torch.no_grad()'
+                .format(prev_distrib.shape[-1]))
         return _FoldedTail.apply(prev, first, prev_distrib, first_distrib,
                                  kernels, masks, sna, mask_block)
     return _launch(prev, first, prev_distrib, first_distrib, kernels, masks,

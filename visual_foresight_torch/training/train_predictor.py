@@ -19,13 +19,18 @@ step) and ``model_config.json`` beside it, the posterior under
 ``posterior/params.npz``, the optimizer state (count, first and second
 moments per leaf) under ``opt/opt_state.npz``.
 
+With ``--data_dir`` the batches come from collected GZIP-TFRecord shards
+(``record_batches``): the native ingest engine by default, the Python reader
+with ``--loader python``; the frames cross to the card as uint8 and are cast
+there (``data/fused_ingest.py::device_ingest``).
+
 CLI (``--device cpu`` runs the plain PyTorch path on the CPU)::
 
     python -m visual_foresight_torch.training.train_predictor \\
-        --model_dir <ckpt dir> [--steps N] [--device cuda] ...
+        --model_dir <ckpt dir> [--data_dir <records>] [--steps N] ...
 
-Training from collected records (``--data_dir``) and over several cards
-(``--n_devices`` > 1) are not ported yet and raise.
+Training over several cards (``--n_devices`` > 1) is not ported yet and
+raises, as does a ``--data_dir`` of HDF5 (RoboNet) trajectories.
 """
 
 import argparse
@@ -38,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from visual_foresight_torch.data.fused_ingest import device_ingest
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import CDNAPredictor
 from visual_foresight_torch.models.convert import (flatten_flax,
@@ -124,7 +130,9 @@ class ClippedAdamW:
 
     It keeps f32 copies of parameters held in another dtype and writes
     them back rounded after each update.  ``step()`` returns the global
-    norm of the unclipped gradients (a 0-d tensor; no host sync).
+    norm of the unclipped gradients (a 0-d tensor; no host sync), or None
+    with ``max_norm`` None, which leaves the clip out.  :func:`adam` builds
+    ``optax.adam(lr)`` from it.
     """
 
     def __init__(self, named_params, schedule, max_norm=1.0, b1=0.9,
@@ -150,20 +158,24 @@ class ClippedAdamW:
     def step(self):
         grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
                  for p, m in zip(self.params, self.master)]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = norm < self.max_norm
+        norm = None
+        if self.max_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            keep = norm < self.max_norm
         # f32 scalars computed on the host: no copy to the device, no sync
         f32 = np.float32
         bc1 = float(f32(1) - f32(self.b1) ** (self.count + 1))
         bc2 = float(f32(1) - f32(self.b2) ** (self.count + 1))
         step_size = -float(self.schedule(self.count))
         for i, g in enumerate(grads):
-            g = torch.where(keep, g, g / norm * self.max_norm)
+            if norm is not None:
+                g = torch.where(keep, g, g / norm * self.max_norm)
             self.mu[i] = (1 - self.b1) * g + self.b1 * self.mu[i]
             self.nu[i] = (1 - self.b2) * (g * g) + self.b2 * self.nu[i]
             update = (self.mu[i] / bc1) / (torch.sqrt(self.nu[i] / bc2) +
                                            self.eps)
-            update = update + self.weight_decay * self.master[i]
+            if self.weight_decay:
+                update = update + self.weight_decay * self.master[i]
             self.master[i].add_(update * step_size)
             if self.copied[i]:
                 self.params[i].copy_(self.master[i])
@@ -191,6 +203,15 @@ class ClippedAdamW:
                 moments[i].copy_(torch.as_tensor(state[key][name]))
 
 
+def adam(named_params, lr):
+    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8 outside the square
+    root) over named parameters: :class:`ClippedAdamW` with a constant
+    rate, no clip and no weight decay."""
+    rate = np.float32(lr)
+    return ClippedAdamW(named_params, lambda count: rate, max_norm=None,
+                        weight_decay=0.0)
+
+
 def make_loss_fn(model, n_context, state_weight=1e-4, l1_weight=0.0,
                  ss_k=900.0, posterior=None, kl_beta=0.0, kl_anneal=(0, 1),
                  kl_free_nats=1.0):
@@ -209,7 +230,7 @@ def make_loss_fn(model, n_context, state_weight=1e-4, l1_weight=0.0,
     def loss_fn(batch, step, generator=None, gt_mask=None, eps=None):
         images = batch['images']
         if images.dtype == torch.uint8:
-            images = images.float() * (1.0 / 255.0)
+            images = device_ingest(images, torch.float32)
         actions, states = batch['actions'], batch['states']
         b, tp1 = images.shape[:2]
         t = tp1 - 1
@@ -333,6 +354,41 @@ def synthetic_batches(args, seed=0):
         yield {'images': imgs, 'actions': actions, 'states': states}
 
 
+def record_batches(args):
+    """Batches from collected TFRecords: ``{'images': uint8 (B, T, H, W,
+    3), 'actions': f32 (B, T-1, adim), 'states': f32 (B, T, sdim)}`` of
+    camera ``--camera``, cut to ``--sequence_length``.  The shards (a
+    directory with ``manifest.pkl``) go through ``fused_ingest.make_loader``:
+    the native engine, or the threaded Python reader with ``--loader
+    python`` or where the engine cannot be built.  Raises at once on a
+    directory without ``manifest.pkl``: HDF5 (RoboNet) trajectories need
+    the RoboNet reader, not ported yet."""
+    if not os.path.isfile(os.path.join(args.data_dir, 'manifest.pkl')):
+        raise NotImplementedError(
+            '{} holds no manifest.pkl; HDF5 (RoboNet) trajectories need the '
+            'RoboNet reader, which is not ported yet: it needs h5py, cv2 and '
+            'imageio (ROADMAP.md queue 1, item 10)'.format(args.data_dir))
+    from visual_foresight_torch.data import fused_ingest
+    loader = fused_ingest.make_loader(
+        args.data_dir, args.batch_size, prefer_native=args.loader != 'python',
+        threads=args.loader_threads, seed=args.seed)
+    return _camera_batches(loader, args)
+
+
+def _camera_batches(loader, args):
+    for batch in loader:
+        images = batch['images']          # (B, T, ncam, H, W, 3) uint8
+        cam = min(args.camera, images.shape[2] - 1)
+        yield {
+            'images': np.ascontiguousarray(
+                images[:, :args.sequence_length, cam]),
+            'actions': batch['actions'][:, :args.sequence_length - 1]
+            .astype(np.float32),
+            'states': batch['state'][:, :args.sequence_length]
+            .astype(np.float32),
+        }
+
+
 def model_config_dict(args):
     """The architecture hparams a serving-side predictor needs to rebuild
     this exact model, written next to the checkpoints."""
@@ -366,12 +422,9 @@ def make_trainer(args, device=None):
     """Model (and posterior) seeded as the JAX trainer seeds them (model 0,
     posterior 1; other draws), the optimizer and the train step, on
     ``device`` (default ``args.device``).  ``train`` runs on this."""
-    if args.data_dir:
-        raise NotImplementedError('--data_dir is not ported yet: the record '
-                                  'readers (ROADMAP.md queue 1, item 10)')
     if args.n_devices > 1:
         raise NotImplementedError('--n_devices > 1 is not ported yet: mesh '
-                                  '(ROADMAP.md queue 1, item 8)')
+                                  '(ROADMAP.md queue 1, item 7)')
     device = resolve_device(device or args.device)
     model = build_model(args)
     init_params(model, seed=0)
@@ -415,9 +468,12 @@ def to_device(batch, device):
 
 
 def train(args):
-    """Train on synthetic batches for ``args.steps`` steps (resuming from
-    ``--model_dir`` with ``--resume``).  Returns (history, trainer): the
-    logged metrics and the :class:`Trainer` it ran."""
+    """Train for ``args.steps`` steps on the records in ``--data_dir`` or
+    on synthetic batches (resuming from ``--model_dir`` with ``--resume``).
+    Returns (history, trainer): the logged metrics and the
+    :class:`Trainer` it ran."""
+    batches = record_batches(args) if args.data_dir else \
+        synthetic_batches(args)
     trainer = make_trainer(args)
     model, posterior, tx = trainer.model, trainer.posterior, trainer.tx
     start_step = 0
@@ -434,7 +490,6 @@ def train(args):
     n_params = sum(p.numel() for _, p in _named_params(model, posterior))
     print('model params:', n_params)
 
-    batches = synthetic_batches(args)
     t0 = time.time()
     history = []
     for step in range(start_step, args.steps):
@@ -538,8 +593,7 @@ def _restore(args, model, posterior, tx):
 def build_argparser():
     p = argparse.ArgumentParser(description='train the CDNA video predictor')
     p.add_argument('--data_dir', type=str, default='',
-                   help='records dir; not ported yet (raises); default: '
-                        'synthetic data')
+                   help='TFRecords dir (default: synthetic data)')
     p.add_argument('--model_dir', type=str, default='')
     p.add_argument('--steps', type=int, default=1000)
     p.add_argument('--batch_size', type=int, default=16)
@@ -583,7 +637,8 @@ def build_argparser():
     p.add_argument('--l1_weight', type=float, default=0.0)
     p.add_argument('--camera', type=int, default=0)
     p.add_argument('--loader', choices=('fused', 'python'), default='fused',
-                   help='record reader (with --data_dir; not ported yet)')
+                   help='record reader with --data_dir: the native '
+                        'engine (fused) or the threaded Python reader')
     p.add_argument('--loader_threads', type=int, default=2)
     p.add_argument('--n_devices', type=int, default=-1,
                    help='more than 1 is not ported yet (raises)')

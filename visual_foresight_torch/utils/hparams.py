@@ -12,6 +12,7 @@ provide a small, dependency-free clone with identical semantics:
 - ``add_hparam(name, value)``  — declare a new parameter (errors on redefine)
 - ``set_hparam(name, value)``  — override an existing parameter with type checking
 - ``values()``, ``get(name, default)``, ``in`` operator, attribute access
+- ``override_from_dict(dict)`` — bulk override (used by the dataset reader)
 
 Type checking follows the TF1 behaviour: ints may widen to floats, ``None``
 defaults accept anything, and list-typed params require list overrides.
@@ -37,6 +38,11 @@ class HParams(object):
             raise KeyError('Hyperparameter {} not defined; use add_hparam'.format(name))
         old = self._params[name]
         self._params[name] = self._check_type(name, old, value)
+
+    def override_from_dict(self, values):
+        for name, value in values.items():
+            self.set_hparam(name, value)
+        return self
 
     @staticmethod
     def _check_type(name, old, new):

@@ -150,7 +150,27 @@
    way (and the replans on the nets trained from records), and the tiled
    variant on two planes at the registration path's
    shape (B=768, C=3, P=2, blocked masks) beside its bound, the tiled
-   variant at P=1 and the general variant forced at the same shape.
+   variant at P=1 and the general variant forced at the same shape;
+8. the sim benchmark campaign: one line probing the host for it (whether
+   ``mujoco`` imports and its version, which GL backend renders a 96x128
+   frame, ``egl`` then ``osmesa``, each in a subprocess, and whether
+   ``imageio`` and ``matplotlib`` import: the port needs neither); then
+   ``PixelCostController.act()`` at xz_bench20's point (768 x 45 x 3, bf16,
+   xz_flagship) on task 0's start frame and pixels with a real file worker
+   as ``verbose_worker``: one replan (136 launches) whose dump is on disk
+   (``plan.html``, the start PNG and 20 GIF89a files of 45 frames of
+   48x64, read block by block), and the replan's host p50 and spread with
+   the dump and without it, 10 replans each in turns; then, where MuJoCo
+   renders, ``sim/run.py --benchmark`` of the twin configs
+   ``campaigns/xz_bench20.py`` and ``ag_bench20.py`` in this process, all
+   20 vendored tasks each, held to ``check_campaign`` (numpy alone, which
+   the CPU campaign test also runs): the reports written, 136 and 91
+   launches a replan, xz_bench20's per-task initial distance within
+   1e-3 of the JAX run's (``benchmarks/xz_bench20/runs/r5_s768``), and a
+   mean improvement of at least 0.086 (xz_bench20) and 0.010 (ag_bench20),
+   printed beside the JAX runs' with the wall time and the replans' host
+   p50.  Where MuJoCo does not render, one line says that the scored
+   campaigns wait for it.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -161,6 +181,7 @@ non-zero before printing a result.
 
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -339,6 +360,51 @@ SPEC_HP = {'xz_flagship': {'initial_std': 0.05, 'initial_std_lift': 0.15,
                          'initial_std_rot': np.pi / 32,
                          'initial_std_grasp': 2, 'action_order': None}}
 SPEC_HP['classic_cdna'] = SPEC_HP['classic_dna'] = SPEC_HP['xz_flagship']
+
+
+# -- the sim benchmark campaign ------------------------------------------------
+# xz_lifting_bench20's task 0 (benchmarks/tasks): its start frame, and the
+# designated pixel, goal pixel and state that the port's CartgripperXZGrasp
+# gives at reset from the task's reset state, at 64 pixels wide
+# (tests/test_torch_envs.py holds them against the env)
+TASK0_FRAME = os.path.join(REPO, 'benchmarks', 'tasks', 'xz_lifting_bench20',
+                           'traj_group0', 'traj0', 'images0', 'im_0.png')
+TASK0_DESIG_PIX = np.array([[[24, 36]]])
+TASK0_GOAL_PIX = np.array([[[24, 1]]])
+TASK0_STATE = np.array([0.048971992780443785, -0.013966588767465302, 1.0])
+DUMP_TIMED = 20               # replans timed, half with the dump
+N_VIS_GIFS = 2 * N_VIS        # the distribution and the frames of each
+# the scored campaigns: the twin config, the JAX runs on the same tasks
+# (the first one's per-task initial_dist is the reference), the floor on
+# the mean improvement (the lowest JAX run less two standard errors of a
+# 20-task mean), and the tail launches a replan
+CAMPAIGNS = {
+    'xz_bench20': {
+        'jax_runs': ('benchmarks/xz_bench20/runs/r5_s768',
+                     'benchmarks/xz_bench20/runs/r5_s768_chunked',
+                     'benchmarks/xz_bench20/runs/r5_s800',
+                     'benchmarks/xz_bench20_random/verbose'),
+        'floor': 0.086, 'launches': 1 + ITERS * 45},
+    'ag_bench20': {
+        'jax_runs': ('benchmarks/ag_bench20/runs/r5_v2',),
+        'floor': 0.010, 'launches': 1 + ITERS * 30},
+}
+INITIAL_DIST_ATOL = 1e-3
+# a 96x128 offscreen render, in a subprocess for each GL backend
+GL_PROBE = """
+import mujoco
+m = mujoco.MjModel.from_xml_string(
+    "<mujoco><worldbody><light pos='0 0 3'/>"
+    "<geom type='box' size='.2 .2 .2'/>"
+    "<camera name='c' pos='0 -2 0' xyaxes='1 0 0 0 0 1'/>"
+    "</worldbody></mujoco>")
+d = mujoco.MjData(m)
+mujoco.mj_forward(m, d)
+r = mujoco.Renderer(m, 96, 128)
+r.update_scene(d, camera='c')
+im = r.render()
+assert im.shape == (96, 128, 3) and im.std() > 0, im.shape
+"""
 
 
 def replan_launches(policy, iterations=None, horizon=None):
@@ -2416,6 +2482,304 @@ def check_quality_gates(root):
     if not all(ok for _, _, ok in gates):
         raise AssertionError('a trainer missed its JAX quality gate')
 
+# -- the sim benchmark campaign ------------------------------------------------
+
+def probe_campaign_host():
+    """One line on what this machine offers the campaign path: whether
+    ``mujoco`` imports (its version), which GL backend renders a 96x128
+    frame (``egl``, then ``osmesa``, each in a subprocess), and whether
+    ``imageio`` and ``matplotlib`` import (the port uses neither).  Returns
+    (mujoco's version or None, the backend that renders or None)."""
+    versions = {}
+    for name in ('mujoco', 'imageio', 'matplotlib'):
+        proc = subprocess.run(
+            [sys.executable, '-c',
+             'import {0}; print({0}.__version__)'.format(name)],
+            capture_output=True, text=True, timeout=300)
+        versions[name] = proc.stdout.strip() if proc.returncode == 0 \
+            else None
+    gl, tried = None, []
+    if versions['mujoco']:
+        for backend in ('egl', 'osmesa'):
+            env = dict(os.environ, MUJOCO_GL=backend,
+                       PYOPENGL_PLATFORM=backend)
+            proc = subprocess.run([sys.executable, '-c', GL_PROBE], env=env,
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode == 0:
+                gl = backend
+                break
+            lines = (proc.stderr.strip() or 'no output').splitlines()
+            tried.append('{} fails ({})'.format(backend, lines[-1][:160]))
+    print('campaign host probe: mujoco {}; GL backend rendering 96x128: {}'
+          '{}; imageio {}; matplotlib {}'.format(
+              versions['mujoco'] or 'does not import', gl or 'none',
+              ' ({})'.format('; '.join(tried)) if tried else '',
+              versions['imageio'] or 'does not import',
+              versions['matplotlib'] or 'does not import'))
+    return versions['mujoco'], gl
+
+
+def gif_frame_sizes(data):
+    """The (height, width) of every frame of a GIF89a, read by walking its
+    blocks: the header, the global colour table, extensions and image
+    blocks up to the trailer."""
+    if data[:6] != b'GIF89a':
+        raise AssertionError('not a GIF89a: {!r}'.format(data[:6]))
+
+    def skip_sub_blocks(pos):
+        while data[pos]:
+            pos += data[pos] + 1
+        return pos + 1
+
+    def colour_table(flags):
+        return 3 << ((flags & 7) + 1) if flags & 0x80 else 0
+
+    pos = 13 + colour_table(data[10])
+    sizes = []
+    while data[pos] != 0x3b:
+        if data[pos] == 0x21:                      # an extension
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2c:                    # an image block
+            w = int.from_bytes(data[pos + 5:pos + 7], 'little')
+            h = int.from_bytes(data[pos + 7:pos + 9], 'little')
+            pos = skip_sub_blocks(pos + 11 + colour_table(data[pos + 9]))
+            sizes.append((h, w))
+        else:
+            raise AssertionError('unknown GIF block 0x{:02x} at {}'.format(
+                data[pos], pos))
+    return sizes
+
+
+def check_dump_files(folder, frames):
+    """``plan.html``, the start frame and every GIF it names are on disk;
+    each GIF is a GIF89a of ``frames`` frames of 48x64."""
+    with open(os.path.join(folder, 'plan.html')) as f:
+        html = f.read()
+    names = sorted(n for n in os.listdir(folder) if n.endswith('.gif'))
+    if not os.path.isfile(os.path.join(folder, 'cam_0_start.png')) or \
+            len(names) != N_VIS_GIFS or \
+            any('src="{}"'.format(n) not in html for n in names):
+        raise AssertionError('the dump in {} is incomplete: {}'.format(
+            folder, sorted(os.listdir(folder))))
+    for name in names:
+        with open(os.path.join(folder, name), 'rb') as f:
+            sizes = gif_frame_sizes(f.read())
+        if sizes != [(H, W)] * frames:
+            raise AssertionError('{}: frames {} (expected {} of {}x{})'
+                                 .format(name, sizes[:3], frames, H, W))
+    print('verbose dump: plan.html, cam_0_start.png and {} GIF89a files of '
+          '{} frames of {}x{} in {}'.format(len(names), frames, H, W,
+                                            os.path.basename(folder)))
+
+
+def drive_verbose_dump(card):
+    """``PixelCostController.act()`` at xz_bench20's point (768 x 45 x 3,
+    bf16, xz_flagship) on task 0's start frame and pixels, with a real file
+    worker as ``verbose_worker``: one replan, its dump on disk
+    (``check_dump_files``) and its tail launches; then the replan's host
+    p50 with the dump and without it, in turns (with, without, without,
+    with, ...).  Returns the launches by kernel."""
+    import cv2
+    from visual_foresight_torch.agent.utils.file_saver import (
+        start_file_worker)
+    from visual_foresight_torch.policy.cem_controllers import (
+        PixelCostController)
+    frame = cv2.imread(TASK0_FRAME)[:, :, ::-1]
+    if frame.shape != (H, W, 3):
+        raise AssertionError('task 0 frame of shape {}'.format(frame.shape))
+    images = np.repeat(frame[None, None], 2, axis=0)
+    states = np.repeat(TASK0_STATE[None], 2, axis=0).astype(np.float32)
+    ctrl = PixelCostController(AG_PARAMS, dict(CTRL_POLICY))
+    check_restored('verbose dump', ctrl)
+    root = tempfile.mkdtemp(prefix='chip_smoke_dump_')
+    worker = start_file_worker()
+    try:
+        worker.put(('path', root))
+        ctrl.reset()
+        reset_tail_counts()
+        for t in range(2):
+            out = ctrl.act(t=t, i_tr=0, images=images[:t + 1],
+                           state=states[:t + 1], desig_pix=TASK0_DESIG_PIX,
+                           goal_pix=TASK0_GOAL_PIX, verbose_worker=worker)
+        torch.cuda.synchronize()
+        launches = read_tail_counts(
+            'verbose dump at xz_bench20 (task 0, 2 act() steps, 1 replan)',
+            replan_launches(CTRL_POLICY), ctrl.predictor)
+        if not np.isfinite(out['actions']).all():
+            raise AssertionError('the dumped replan gave {}'.format(
+                out['actions']))
+        times = {True: [], False: []}
+        for i in range(DUMP_TIMED):
+            dump = i % 4 in (0, 3)
+            ctrl._verbose_worker = worker if dump else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctrl.perform_CEM(states)
+            torch.cuda.synchronize()
+            times[dump].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        worker.close()                 # every dump written, the worker gone
+        drain = time.perf_counter() - t0
+        check_dump_files(os.path.join(root, 'planning_1_itr_2'),
+                         CTRL_POLICY['T'])
+    finally:
+        shutil.rmtree(root)
+    p50 = {k: float(np.percentile(v, 50)) for k, v in times.items()}
+    spread = {k: float(np.max(v) - np.min(v)) for k, v in times.items()}
+    print('verbose_dump_replan_p50_ms={:.3f} with the dump, {:.3f} without '
+          '(xz_bench20 768 x 45 x 3, bf16, host clock, {} replans each: {} '
+          'and {}); the dump adds {:.3f} ms a replan (p50s), against a '
+          'spread (max - min) of {:.3f} ms with it and {:.3f} ms without; '
+          'the worker drained its queue {:.3f} s after the last [{}]'.format(
+              p50[True], p50[False], DUMP_TIMED // 2,
+              ' '.join('{:.3f}'.format(x) for x in times[True]),
+              ' '.join('{:.3f}'.format(x) for x in times[False]),
+              p50[True] - p50[False], spread[True], spread[False], drain,
+              card))
+    return launches
+
+
+def jax_scores(run):
+    with open(os.path.join(REPO, run, 'scores_0to19.pkl'), 'rb') as f:
+        return {k: np.asarray(v) for k, v in pickle.load(f).items()}
+
+
+class ReplanClock(object):
+    """Inside the block, every ``PixelCostController.perform_CEM`` (the
+    class's, so it reaches the controller that a runner builds) is timed on
+    the host clock between two calls of ``sync``: ``ms`` holds the replans'
+    times, ``ctrls`` the last controller that planned."""
+
+    def __init__(self, sync):
+        from visual_foresight_torch.policy.cem_controllers import (
+            PixelCostController)
+        self._cls, self._sync = PixelCostController, sync
+        self.ms, self.ctrls = [], []
+
+    def __enter__(self):
+        plan = self._plan = self._cls.perform_CEM
+
+        def timed_plan(ctrl, state):
+            self.ctrls[:] = [ctrl]
+            self._sync()
+            t0 = time.perf_counter()
+            plan(ctrl, state)
+            self._sync()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        self._cls.perform_CEM = timed_plan
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.perform_CEM = self._plan
+
+
+def check_campaign(name, result_dir, hp, replans, launches, per_replan,
+                   floor, ref_initial=None, atol=INITIAL_DIST_ATOL):
+    """The gates on a campaign that ``sim/run.py --benchmark`` ran in one
+    worker, in numpy alone: its txt and pkl reports are in ``result_dir``,
+    every task of ``hp`` (its config) is scored, the tail's ``launches``
+    equal ``replans`` times ``per_replan``, each task's initial distance is
+    within ``atol`` of ``ref_initial`` (the reference run's, indexed by
+    task; skipped where None) and the mean improvement is at least
+    ``floor``.  Prints one line and returns (the scores by key, the largest
+    initial-distance gap or None)."""
+    span = '{}to{}'.format(hp['start_index'], hp['end_index'])
+    for report in ('results_{}.txt'.format(span), 'results_all.txt',
+                   'scores_{}.pkl'.format(span)):
+        if not os.path.isfile(os.path.join(result_dir, report)):
+            raise AssertionError('{}: no {}'.format(name, report))
+    with open(os.path.join(result_dir, 'scores_{}.pkl'.format(span)),
+              'rb') as f:
+        stats = {k: np.asarray(v) for k, v in pickle.load(f).items()}
+    tasks = hp['end_index'] - hp['start_index'] + 1
+    gap = None
+    if ref_initial is not None:
+        gap = float(np.max(np.abs(
+            stats['initial_dist'] -
+            np.asarray(ref_initial)[hp['start_index']:hp['end_index'] + 1])))
+    mean_imp = float(np.mean(stats['improvement']))
+    print('{} campaign gates: {} of {} tasks scored; {} tail launches for {} '
+          'replans x {}; initial_dist largest gap {} (atol {}); mean '
+          'improvement {:.5f} (floor {})'.format(
+              name, stats['improvement'].shape[0], tasks, launches, replans,
+              per_replan, 'not checked' if gap is None else
+              '{:.3e}'.format(gap), atol, mean_imp, floor))
+    if stats['improvement'].shape[0] != tasks:
+        raise AssertionError('{}: {} of {} tasks scored'.format(
+            name, stats['improvement'].shape[0], tasks))
+    if replans == 0 or launches != replans * per_replan:
+        raise AssertionError('{}: {} tail launches for {} replans x {}'
+                             .format(name, launches, replans, per_replan))
+    if gap is not None and not gap <= atol:
+        raise AssertionError('{}: the re-created scenes are {:.3e} from the '
+                             "reference's".format(name, gap))
+    if not mean_imp >= floor:
+        raise AssertionError('{}: mean improvement {:.5f} under {}'.format(
+            name, mean_imp, floor))
+    return stats, gap
+
+
+def drive_campaign(name, card):
+    """``sim/run.py --benchmark`` of the twin config ``name`` in this
+    process, on the card, every vendored task, held to ``check_campaign``:
+    the tail's launches equal to the replans times the policy's count, each
+    task's initial distance within ``INITIAL_DIST_ATOL`` of the JAX run's
+    (for xz_bench20, where it is fixed before the policy acts), and the
+    mean improvement at least the campaign's floor.  Returns the launches
+    by kernel."""
+    import mujoco
+    from visual_foresight_torch.sim import run
+    band = CAMPAIGNS[name]
+    config = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                          name + '.py')
+    reset_tail_counts()
+    t0 = time.perf_counter()
+    with ReplanClock(torch.cuda.synchronize) as clock:
+        result_dir = run.main([config, '--benchmark'])
+    wall = time.perf_counter() - t0
+    if not clock.ms:
+        raise AssertionError('{}: the campaign planned no time'.format(name))
+    launches = read_tail_counts(
+        '{} campaign ({} replans x {})'.format(name, len(clock.ms),
+                                               band['launches']),
+        len(clock.ms) * band['launches'], clock.ctrls[0].predictor)
+    ref = {run_dir: jax_scores(run_dir) for run_dir in band['jax_runs']}
+    stats, gap = check_campaign(
+        name, result_dir, run.load_config(config), len(clock.ms),
+        launches['cdna_tail'] + launches['cdna_tail_dna'], band['launches'],
+        band['floor'],
+        ref[band['jax_runs'][0]]['initial_dist']
+        if name == 'xz_bench20' else None)
+    print('{}_campaign: {} tasks, mean improvement {:.5f}, final distance '
+          '{:.5f}; JAX: {}; initial_dist largest gap to {} {} (mujoco {}); '
+          'wall {:.1f} s, {} replans, host p50 {:.3f} ms [{}]'.format(
+              name, stats['improvement'].shape[0],
+              float(np.mean(stats['improvement'])),
+              float(np.mean(stats['final_dist'])),
+              ', '.join('{} {:.5f} / {:.5f}'.format(
+                  os.path.relpath(r, 'benchmarks'),
+                  float(np.mean(v['improvement'])),
+                  float(np.mean(v['final_dist']))) for r, v in ref.items()),
+              band['jax_runs'][0],
+              'not checked' if gap is None else '{:.3e}'.format(gap),
+              mujoco.__version__, wall, len(clock.ms),
+              float(np.percentile(clock.ms, 50)), card))
+    return launches
+
+
+def drive_campaigns(card, gl):
+    """Both scored campaigns where MuJoCo renders here (``gl`` names the
+    backend the probe found); else one line saying that they wait."""
+    if gl is None:
+        print('scored campaigns: xz_bench20 and ag_bench20 wait for MuJoCo '
+              'on the card machine (no mujoco that renders here)')
+        return {}
+    os.environ['MUJOCO_GL'] = gl
+    return {'campaign_' + name: drive_campaign(name, card)
+            for name in CAMPAIGNS}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2741,6 +3105,16 @@ def main():
         profile_replan(lambda: c.perform_CEM(st))
 
     bwd = {b: time_bwd(gen, b, card) for b in BWD_TIMED_BATCHES}
+
+    # -- 7. the sim benchmark campaign: the host probe, the verbose dump at
+    # xz_bench20's point, then both scored campaigns where MuJoCo renders
+    _, gl = probe_campaign_host()
+    paths['verbose_dump_xz_bench20'] = drive_verbose_dump(card)
+    paths.update(drive_campaigns(card, gl))
+    campaign_launches = sum(
+        n['cdna_tail'] for p, n in paths.items()
+        if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_'))
+
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
 
@@ -2751,7 +3125,9 @@ def main():
         'name': 'cdna_tail', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
-        'launches': paths['controller']['cdna_tail'],
+        # the controller path and the campaign's (the dump and the scored
+        # campaigns)
+        'launches': paths['controller']['cdna_tail'] + campaign_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],

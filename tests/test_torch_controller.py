@@ -123,15 +123,21 @@ def test_controller_matches_jax_over_warm_started_steps():
 
 @pytest.mark.parametrize('override,where', [({}, 'verbose_worker')])
 def test_unported_controller_options_raise(override, where):
-    """The verbose plan dump is the one option not ported (other samplers
-    and the host loop are held against JAX in
-    ``tests/test_torch_host_loop.py`` and
-    ``tests/test_torch_controller_samplers.py``)."""
+    """The verbose plan dump was the one option not ported, and raised; it
+    now writes through the worker it is given (other samplers and the host
+    loop are held against JAX in ``tests/test_torch_host_loop.py`` and
+    ``tests/test_torch_controller_samplers.py``; the dump's items against
+    JAX's in ``tests/test_torch_verbose.py``)."""
+    from test_torch_verbose import ListWorker
     policy = dict(POLICY, device='cpu', **override)
+    policy.pop('verbose')            # the default, True: dump every replan
     ctrl = PixelCostController(AG_PARAMS, policy)
     ctrl.reset()
-    with pytest.raises(NotImplementedError):
-        ctrl.act(t=1, i_tr=0, desig_pix=np.array([[[4, 6]]]),
-                 goal_pix=np.array([[[10, 18]]]),
-                 images=np.zeros((2, 1, 16, 24, 3), np.uint8),
-                 state=np.zeros((2, 3), np.float32), verbose_worker='dir')
+    worker = ListWorker()
+    out = ctrl.act(t=1, i_tr=0, desig_pix=np.array([[[4, 6]]]),
+                   goal_pix=np.array([[[10, 18]]]),
+                   images=np.zeros((2, 1, 16, 24, 3), np.uint8),
+                   state=np.zeros((2, 3), np.float32), **{where: worker})
+    assert np.isfinite(out['actions']).all()
+    assert [i[1] for i in worker.items if i[0] == 'txt_file'] == \
+        ['planning_1_itr_2/plan.html']

@@ -127,9 +127,15 @@ def test_scoring_controller_matches_jax(name, goal_conditioned, fused):
     images, states = _frames(AG_PARAMS, 3, seed=6)
     assert side_by_side(jctrl, tctrl, 3, images, states,
                         goal_image=_goal_image()) == 2
-    with pytest.raises(NotImplementedError):
-        tctrl.act(t=1, i_tr=0, images=images[:3], state=states[:3],
-                  goal_image=_goal_image(), verbose_worker='dir')
+    # the verbose dump (it raised until it was ported): the fused replan
+    # dumps its last iteration, the host loop does not, as in JAX
+    from test_torch_verbose import ListWorker
+    worker = ListWorker()
+    tctrl._hp.set_hparam('verbose', True)
+    out = tctrl.act(t=1, i_tr=0, images=images[:3], state=states[:3],
+                    goal_image=_goal_image(), verbose_worker=worker)
+    assert np.isfinite(out['actions']).all()
+    assert any(i[0] == 'txt_file' for i in worker.items) == fused
 
 
 # -- the ensemble ----------------------------------------------------------------

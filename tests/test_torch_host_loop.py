@@ -231,5 +231,11 @@ def test_goal_image_controller_matches_jax(fused):
         _compare_step(t, got, want, exact=not fused)
         np.testing.assert_array_equal(tctrl._best_indices,
                                       jctrl._best_indices)
-    with pytest.raises(NotImplementedError):
-        tctrl.act(verbose_worker='dir', **kw)
+    # the verbose dump (it raised until it was ported): the fused replan
+    # dumps its last iteration, the host loop does not, as in JAX
+    from test_torch_verbose import ListWorker
+    worker = ListWorker()
+    tctrl._hp.set_hparam('verbose', True)
+    out = tctrl.act(verbose_worker=worker, **kw)
+    assert np.isfinite(out['actions']).all()
+    assert any(i[0] == 'txt_file' for i in worker.items) == fused

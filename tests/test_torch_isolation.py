@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``visual_foresight_torch``
 and ``chip_smoke`` pulls in neither JAX nor the JAX package (nor ``h5py``,
-``cv2`` or ``google_crc32c``, which the card machine may lack), and its entry
-points (the predictor, the planner, the controller and the trainers of the
-planning costs' networks) refuse to fall back to the CPU when no card is
+``cv2``, ``google_crc32c``, ``mujoco``, ``imageio`` or ``matplotlib``, which
+the card machine may lack), and its entry points (the predictor, the
+planner, the controller, the trainers of the planning costs' networks and
+the campaign runner) refuse to fall back to the CPU when no card is
 present."""
 
 import os
@@ -27,9 +28,10 @@ bad = sorted(m for m in sys.modules
              if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'flax',
                                             'visual_foresight_tpu')))
 # imported where they are needed: the card machine may lack them
-bad += sorted({'h5py', 'cv2', 'google_crc32c'} & set(sys.modules))
+bad += sorted({'h5py', 'cv2', 'google_crc32c', 'mujoco', 'imageio',
+               'matplotlib'} & set(sys.modules))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 61 else 0)
+sys.exit(1 if bad or len(names) < 100 else 0)
 '''
 
 
@@ -97,3 +99,14 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         make()
     assert make(device='cpu').device.type == 'cpu'
+
+
+@pytest.mark.parametrize('campaign', ['xz_bench20', 'ag_bench20'])
+def test_campaign_runner_needs_a_card(campaign):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    from visual_foresight_torch.sim import run
+    config = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                          campaign + '.py')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run.main([config, '--benchmark'])

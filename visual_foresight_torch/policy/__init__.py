@@ -1,0 +1,1 @@
+from .policy import Policy, DummyPolicy, NullPolicy, get_policy_args

@@ -10,10 +10,13 @@ with ``goal_image_mse`` as its cost); any other sampler, or
 
 The controller runs on ``device`` (a policy hparam, ``'cuda'`` by default).
 The fused planner draws from a ``torch.Generator`` seeded from ``seed``, the
-samplers' host draws from a ``np.random.RandomState`` seeded from it.  The
-verbose HTML dump (a ``verbose_worker``) is not ported and raises
-``NotImplementedError``.
+samplers' host draws from a ``np.random.RandomState`` seeded from it.  Given
+a ``verbose_worker``, the last iteration of every fused replan is dumped
+(``planning_<t>_itr_<i>/plan.html``: the goal image, the visualised elites'
+predicted frames as GIFs and their scores), as the JAX package dumps it.
 """
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -27,12 +30,14 @@ from visual_foresight_torch.planners.gaussian import (initial_mean,
 from visual_foresight_torch.prediction.predictor import TorchPredictor
 from .cem_base_controller import CEMBaseController
 from .samplers.gaussian_sampler import GaussianCEMSampler
+from .visualizer.construct_html import (fill_template, save_gifs, save_html,
+                                        save_img)
 
 
 class GoalImController(CEMBaseController):
     def __init__(self, ag_params, policyparams, gpu_id=0, ngpu=1):
         CEMBaseController.__init__(self, ag_params, policyparams)
-        self.device = resolve_device(self._hp.device)
+        self.device = resolve_device(self._hp.device, gpu_id)
 
         predictor_hparams = dict(self._hp.predictor_hparams or {})
         predictor_hparams.setdefault('designated_pixel_count', 1)
@@ -56,6 +61,7 @@ class GoalImController(CEMBaseController):
         self._n_cam = self.predictor.n_cam
         self._images = None
         self._goal_image = None
+        self._verbose_worker = None
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(self._hp.seed))
 
@@ -130,6 +136,25 @@ class GoalImController(CEMBaseController):
         for itr in range(scores_per_itr.shape[0]):
             self.plan_stat['scores_itr{}'.format(itr)] = scores_per_itr[itr]
         self._best_indices = np.argsort(scores_per_itr[-1])[:self.elite_count]
+
+        if self._verbose_condition(self._n_iter - 1) and \
+                self._verbose_worker is not None:
+            gen_images = result['vis']['gen_images'].cpu().numpy()
+            goal = self._goal().cpu().numpy()
+            folder = 'planning_{}_itr_{}'.format(self._t, self._n_iter - 1)
+            content = OrderedDict()
+            for c in range(self._n_cam):
+                content['goal_cam{}'.format(c)] = [save_img(
+                    self._verbose_worker, folder, 'goal_cam{}'.format(c),
+                    (goal[c] * 255).astype(np.uint8))]
+                rows = [(gen_images[v, :, c] * 255).astype(np.uint8)
+                        for v in range(gen_images.shape[0])]
+                content['cam_{}_pred'.format(c)] = save_gifs(
+                    self._verbose_worker, folder, 'cam_{}_pred'.format(c), rows)
+            content['scores'] = result['vis']['scores'].float().cpu().numpy()
+            save_html(self._verbose_worker, '{}/plan.html'.format(folder),
+                      fill_template(self._n_iter - 1, self._t, content))
+
         self._t_since_replan = 0
 
     def evaluate_rollouts(self, actions, cem_itr):
@@ -151,8 +176,7 @@ class GoalImController(CEMBaseController):
 
     def act(self, t=None, i_tr=None, images=None, goal_image=None, state=None,
             verbose_worker=None):
-        if verbose_worker is not None:
-            raise NotImplementedError('the verbose plan dump is not ported')
         self._images = images
         self._goal_image = goal_image
+        self._verbose_worker = verbose_worker
         return super().act(t, i_tr, state)

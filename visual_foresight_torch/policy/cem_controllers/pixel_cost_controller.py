@@ -25,9 +25,17 @@ The controller runs on ``device`` (a policy hparam, ``'cuda'`` by default;
 without a card it raises unless given ``'cpu'``).  The fused planner's draws
 and the latents of a stochastic predictor come from a ``torch.Generator``
 seeded from the ``seed`` hparam, the samplers' host draws from a
-``np.random.RandomState`` seeded from it.  The verbose HTML dump (a
-``verbose_worker``) is not ported and raises ``NotImplementedError``.
+``np.random.RandomState`` seeded from it.
+
+Given a ``verbose_worker`` (the benchmark agent's file worker), the last
+CEM iteration of every fused replan is dumped as the JAX package dumps it:
+``planning_<t>_itr_<i>/plan.html`` with the start frames, a GIF per
+visualised elite of each designated pixel's predicted distribution (the
+viridis colour map, ``visualizer/colormap.py``) and of the predicted
+frames, and the elites' scores.  The rollouts come to the host once a dump.
 """
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -47,6 +55,9 @@ from .samplers.autograsp_sampler import AutograspSampler
 from .samplers.correlated_noise import CorrelatedNoiseSampler
 from .samplers.folding_sampler import FoldingCEMSampler
 from .samplers.gaussian_sampler import GaussianCEMSampler
+from .visualizer.colormap import viridis
+from .visualizer.construct_html import (fill_template, save_gifs, save_html,
+                                        save_img)
 
 
 class PixelCostController(CEMBaseController):
@@ -54,7 +65,7 @@ class PixelCostController(CEMBaseController):
 
     def __init__(self, ag_params, policyparams, gpu_id=0, ngpu=1):
         CEMBaseController.__init__(self, ag_params, policyparams)
-        self.device = resolve_device(self._hp.device)
+        self.device = resolve_device(self._hp.device, gpu_id)
 
         predictor_hparams = dict(self._hp.predictor_hparams or {})
         predictor_hparams.setdefault('designated_pixel_count',
@@ -85,6 +96,7 @@ class PixelCostController(CEMBaseController):
         self._desig_pix = None
         self._goal_pix = None
         self._images = None
+        self._verbose_worker = None
         self._chosen_distrib = None
         self._fused_state = None
         self._generator = torch.Generator(device=self.device).manual_seed(
@@ -323,7 +335,60 @@ class PixelCostController(CEMBaseController):
             best_distrib = result['vis']['gen_distribs'][0].cpu().numpy()
             self._chosen_distrib = best_distrib[-n_ctx:]
 
+        if self._verbose_condition(self._n_iter - 1):
+            self._dump_verbose(result)
+
         self._t_since_replan = 0
+
+    def _dump_verbose(self, result):
+        if self._verbose_worker is None:
+            return
+        vis = {k: result['vis'][k].float().cpu().numpy()
+               for k in ('gen_images', 'gen_distribs', 'scores')}
+        gen_images = vis['gen_images']          # (nv, T', ncam, H, W, C)
+        gen_distribs = vis['gen_distribs']      # (nv, T', ncam, H, W, P)
+        verbose_folder = 'planning_{}_itr_{}'.format(self._t, self._n_iter - 1)
+        content_dict = OrderedDict()
+
+        nv = gen_images.shape[0]
+        for c in range(self._n_cam):
+            name = 'cam_{}_start'.format(c)
+            start_img = self._images[-1, c].copy()
+            for p in range(self._n_desig):
+                h, w = np.clip(self._desig_pix[c, p],
+                               [0, 0], [self._img_height - 1,
+                                        self._img_width - 1])
+                start_img[int(h), int(w)] = [255, 0, 0]
+                h, w = np.clip(self._goal_pix[c, p],
+                               [0, 0], [self._img_height - 1,
+                                        self._img_width - 1])
+                start_img[int(h), int(w)] = [0, 0, 255]
+            path = save_img(self._verbose_worker, verbose_folder, name,
+                            start_img)
+            content_dict[name] = [path for _ in range(nv)]
+
+        for c in range(self._n_cam):
+            for p in range(self._n_desig):
+                # each frame scaled to its own peak, as the JAX dump does
+                d = gen_distribs[:, :, c, :, :, p]
+                d = d / (d.max(axis=(2, 3), keepdims=True) + 1e-6)
+                rows = list(viridis(d))
+                name = 'cam_{}_desig_{}'.format(c, p)
+                content_dict[name] = save_gifs(self._verbose_worker,
+                                               verbose_folder, name, rows)
+
+        for c in range(self._n_cam):
+            rows = [(gen_images[v, :, c] * 255).astype(np.uint8)
+                    for v in range(nv)]
+            name = 'cam_{}_pred_images'.format(c)
+            content_dict[name] = save_gifs(self._verbose_worker,
+                                           verbose_folder, name, rows)
+
+        content_dict['scores'] = vis['scores']
+        html = fill_template(self._n_iter - 1, self._t, content_dict,
+                             img_height=self._hp.verbose_img_height)
+        save_html(self._verbose_worker,
+                  '{}/plan.html'.format(verbose_folder), html)
 
     # ------------------------------------------------------------ host loop
     def evaluate_rollouts(self, actions, cem_itr):
@@ -373,8 +438,6 @@ class PixelCostController(CEMBaseController):
 
     def act(self, t=None, i_tr=None, desig_pix=None, goal_pix=None,
             images=None, state=None, verbose_worker=None):
-        if verbose_worker is not None:
-            raise NotImplementedError('the verbose plan dump is not ported')
         # multi-object scenes hand over pixels for EVERY object; the policy
         # plans for the first n_desig of them (reference ntask semantics)
         self._desig_pix = np.array(desig_pix).reshape(
@@ -382,4 +445,5 @@ class PixelCostController(CEMBaseController):
         self._goal_pix = np.array(goal_pix).reshape(
             (self._n_cam, -1, 2))[:, :self._n_desig]
         self._images = images
+        self._verbose_worker = verbose_worker
         return super().act(t, i_tr, state)

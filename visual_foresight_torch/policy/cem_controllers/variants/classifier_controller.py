@@ -14,9 +14,13 @@ from ``classifier_path/params.npz`` (seeded weights, with a warning, where
 the file is missing).  The controller runs on ``device`` (a policy hparam,
 ``'cuda'`` by default).  The fused planner draws from a ``torch.Generator``
 seeded from ``seed``, the samplers' host draws from a
-``np.random.RandomState`` seeded from it.  The verbose HTML dump (a
-``verbose_worker``) is not ported and raises ``NotImplementedError``.
+``np.random.RandomState`` seeded from it.  Given a ``verbose_worker``, the
+last iteration of every fused replan is dumped
+(``planning_<t>_itr_<i>/plan.html``: the visualised elites' predicted
+frames of camera 0 as GIFs and their scores), as the JAX package dumps it.
 """
+
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -32,12 +36,13 @@ from visual_foresight_torch.planners.gaussian import (initial_mean,
 from visual_foresight_torch.prediction.predictor import TorchPredictor
 from ..cem_base_controller import CEMBaseController
 from ..samplers.gaussian_sampler import GaussianCEMSampler
+from ..visualizer.construct_html import fill_template, save_gifs, save_html
 
 
 class ClassifierController(CEMBaseController):
     def __init__(self, ag_params, policyparams, gpu_id=0, ngpu=1):
         CEMBaseController.__init__(self, ag_params, policyparams)
-        self.device = resolve_device(self._hp.device)
+        self.device = resolve_device(self._hp.device, gpu_id)
 
         predictor_hparams = dict(self._hp.predictor_hparams or {})
         predictor_hparams.setdefault('designated_pixel_count', 1)
@@ -59,6 +64,7 @@ class ClassifierController(CEMBaseController):
         self._img_width = ag_params['image_width']
         self._n_cam = self.predictor.n_cam
         self._images, self._goal_image = None, None
+        self._verbose_worker = None
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(self._hp.seed))
 
@@ -176,6 +182,19 @@ class ClassifierController(CEMBaseController):
         for itr in range(scores_per_itr.shape[0]):
             self.plan_stat['scores_itr{}'.format(itr)] = scores_per_itr[itr]
         self._best_indices = np.argsort(scores_per_itr[-1])[:self.elite_count]
+
+        if self._verbose_condition(self._n_iter - 1) and \
+                self._verbose_worker is not None:
+            gen_images = result['vis']['gen_images'].cpu().numpy()
+            folder = 'planning_{}_itr_{}'.format(self._t, self._n_iter - 1)
+            content = OrderedDict()
+            rows = [(gen_images[v, :, 0] * 255).astype(np.uint8)
+                    for v in range(gen_images.shape[0])]
+            content['pred'] = save_gifs(self._verbose_worker, folder, 'pred',
+                                        rows)
+            content['scores'] = result['vis']['scores'].float().cpu().numpy()
+            save_html(self._verbose_worker, '{}/plan.html'.format(folder),
+                      fill_template(self._n_iter - 1, self._t, content))
         self._t_since_replan = 0
 
     def evaluate_rollouts(self, actions, cem_itr):
@@ -197,8 +216,7 @@ class ClassifierController(CEMBaseController):
 
     def act(self, t=None, i_tr=None, images=None, goal_image=None, state=None,
             verbose_worker=None):
-        if verbose_worker is not None:
-            raise NotImplementedError('the verbose plan dump is not ported')
         self._images = images
         self._goal_image = goal_image
+        self._verbose_worker = verbose_worker
         return super().act(t, i_tr, state)

@@ -38,7 +38,7 @@ class TorchInverseModel:
         hp.update(hparams or {})
         self._hp = hp
         self._path = model_params_path
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, first_gpu)
         self.net = InverseNet(hp['adim'], hp['plan_T'], hp['num_context'])
         self.restored = False
 

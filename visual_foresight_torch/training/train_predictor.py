@@ -367,7 +367,7 @@ def record_batches(args):
         raise NotImplementedError(
             '{} holds no manifest.pkl; HDF5 (RoboNet) trajectories need the '
             'RoboNet reader, which is not ported yet: it needs h5py, cv2 and '
-            'imageio (ROADMAP.md queue 1, item 10)'.format(args.data_dir))
+            'imageio (ROADMAP.md queue 1, item 9)'.format(args.data_dir))
     from visual_foresight_torch.data import fused_ingest
     loader = fused_ingest.make_loader(
         args.data_dir, args.batch_size, prefer_native=args.loader != 'python',
@@ -424,7 +424,7 @@ def make_trainer(args, device=None):
     ``device`` (default ``args.device``).  ``train`` runs on this."""
     if args.n_devices > 1:
         raise NotImplementedError('--n_devices > 1 is not ported yet: mesh '
-                                  '(ROADMAP.md queue 1, item 7)')
+                                  '(ROADMAP.md queue 1, item 6)')
     device = resolve_device(device or args.device)
     model = build_model(args)
     init_params(model, seed=0)

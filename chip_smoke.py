@@ -170,7 +170,30 @@
    mean improvement of at least 0.086 (xz_bench20) and 0.010 (ag_bench20),
    printed beside the JAX runs' with the wall time and the replans' host
    p50.  Where MuJoCo does not render, one line says that the scored
-   campaigns wait for it.
+   campaigns wait for it;
+9. data collection and offline replay: ``sim/run.py`` of the twin config
+   ``campaigns/offline_towel_classifier.py`` (``OfflineAgent``,
+   ``OfflineSawyerEnv``, ``ClassifierController`` with
+   ``FoldingCEMSampler``, 600 samples, the host CEM loop, ag_r5f_v2 and the
+   seeded classifier, bf16) over 2 raw trajectories of 15 frames of 48x64
+   written here (``ag_bench20``'s start frames blended into its goal frames
+   with seeded noise; a state of width 5, the towel source's
+   ``state_append`` constants after a seeded (x, y) walk): 3 episodes, one
+   replan each, 3 x (1 + 15) = 48 tail launches a replan, every episode
+   written as a raw folder, the replans' host times and the wall time
+   printed, then 5 more replans timed and one profiled; the episodes
+   converted by the port's ``file_2_record`` into
+   GZIP TFRecords, read back equal to the raw frames, states and actions,
+   and 5 ag_r5f_v2 train steps from them (``--stochastic``, batch 2: 14
+   forward and 14 backward launches a step); one ``HumanCEMController``
+   replan at bench.py's point on the flagship (200 x 15 x 3, the host
+   loop: 48 launches) with a seeded script of scores in place of
+   ``input()`` and a real file worker: the scores as scripted, each refit's
+   elites the lowest scored and its mean theirs, the action the best-scored
+   sample's first, every page and GIF on disk; then the HDF5 writers where
+   ``h5py`` and ``imageio`` import and ``campaigns/collect_xz_r4.py`` (2
+   trajectories of T 30, read back) where MuJoCo renders, else one line
+   for each that waits.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -187,6 +210,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2646,15 +2670,16 @@ def jax_scores(run):
 
 
 class ReplanClock(object):
-    """Inside the block, every ``PixelCostController.perform_CEM`` (the
-    class's, so it reaches the controller that a runner builds) is timed on
-    the host clock between two calls of ``sync``: ``ms`` holds the replans'
-    times, ``ctrls`` the last controller that planned."""
+    """Inside the block, every ``perform_CEM`` of ``cls``
+    (``PixelCostController`` by default; the class's, so it reaches the
+    controller that a runner builds) is timed on the host clock between two
+    calls of ``sync``: ``ms`` holds the replans' times, ``ctrls`` the last
+    controller that planned."""
 
-    def __init__(self, sync):
+    def __init__(self, sync, cls=None):
         from visual_foresight_torch.policy.cem_controllers import (
             PixelCostController)
-        self._cls, self._sync = PixelCostController, sync
+        self._cls, self._sync = cls or PixelCostController, sync
         self.ms, self.ctrls = [], []
 
     def __enter__(self):
@@ -2779,6 +2804,375 @@ def drive_campaigns(card, gl):
     os.environ['MUJOCO_GL'] = gl
     return {'campaign_' + name: drive_campaign(name, card)
             for name in CAMPAIGNS}
+
+
+# -- data collection and offline replay ---------------------------------------
+# campaigns/offline_towel_classifier.py (the twin of experiments/offline_exp/
+# towel_classifier) on 2 raw trajectories written here: 3 episodes of 15
+# steps (the replay cycles through the folders), each one replan in the host
+# CEM loop of 3 iterations x one teacher-forced forward of the context action
+# and the 15-step plan at B=600
+OFFLINE_TWIN = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                            'offline_towel_classifier.py')
+COLLECT_TWIN = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                            'collect_xz_r4.py')
+AG_TASKS = os.path.join(REPO, 'benchmarks', 'tasks', 'ag_bench20',
+                        'traj_group0')
+REPLAY_TRAJS, REPLAY_EPISODES, REPLAY_T = 2, 3, 15
+OFFLINE_PER_REPLAN = ITERS * (N_CTX - 1 + DEFAULT_T)
+OFFLINE_TRAIN_STEPS = 5
+# the human-scored CEM at bench.py's point on the flagship (200 samples x
+# 5 actions x repeat 3 = 15 steps, 3 iterations), in the host loop
+# (num_samples, nactions, repeat and iterations at their defaults: 200, 5,
+# 3 and 3)
+HUMAN_POLICY = {'action_order': ['x', 'z', 'grasp'], 'initial_std_lift': 0.5,
+                'rejection_sampling': False, 'model_path': WEIGHTS}
+HUMAN_PER_REPLAN = ITERS * (N_CTX - 1 + T)
+
+
+def write_replay(root):
+    """``REPLAY_TRAJS`` raw trajectory folders of ``REPLAY_T`` frames in the
+    layout ``RawSaver`` writes (``images0/im_<t>.png``, ``obs_dict.pkl``):
+    the frames blend task k's start frame of ``ag_bench20`` into its goal
+    frame, plus seeded noise; the state is a seeded (x, y) walk followed by
+    the towel source's three ``state_append`` constants (width 5,
+    ag_r5f_v2's sdim).  Returns the frames by trajectory."""
+    import cv2
+    from visual_foresight_torch.campaigns.offline_towel_classifier import (
+        STATE_APPEND)
+    rng = np.random.RandomState(8)
+    frames = []
+    for k in range(REPLAY_TRAJS):
+        task = os.path.join(AG_TASKS, 'traj{}'.format(k), 'images0')
+        start, goal = (cv2.imread(os.path.join(task, 'im_{}.png'.format(i)))
+                       [:, :, ::-1].astype(np.float64) for i in (0, 1))
+        traj = os.path.join(root, 'traj_group0', 'traj{}'.format(k))
+        os.makedirs(os.path.join(traj, 'images0'))
+        seq = []
+        for t in range(REPLAY_T):
+            a = t / (REPLAY_T - 1)
+            im = (1 - a) * start + a * goal + rng.randn(*start.shape) * 4
+            seq.append(np.clip(np.round(im), 0, 255).astype(np.uint8))
+            cv2.imwrite(os.path.join(traj, 'images0', 'im_{}.png'.format(t)),
+                        seq[-1][:, :, ::-1])
+        xy = np.clip(0.5 + np.cumsum(rng.randn(REPLAY_T, 2) * 0.02, 0), 0, 1)
+        state = np.concatenate([xy, np.tile(STATE_APPEND, (REPLAY_T, 1))], 1)
+        with open(os.path.join(traj, 'obs_dict.pkl'), 'wb') as f:
+            pickle.dump({'state': state}, f)
+        frames.append(np.stack(seq))
+    return frames
+
+
+def drive_offline_replay(root, card):
+    """``sim/run.py`` of the towel twin on the card over the raw
+    trajectories of ``write_replay``: ``REPLAY_EPISODES`` episodes, each
+    replaying a folder and planning once with ``ClassifierController``
+    (``FoldingCEMSampler``, 600 samples, the host loop), the predictor and
+    the classifier restored; the tail's launches equal the replans times
+    ``OFFLINE_PER_REPLAN``; each episode is written as a raw folder (16
+    frames of 48x64, 15 finite actions, ``offline_replay``).  The first
+    replan warms cuDNN up; the others are timed.  Returns (launches, the
+    episodes' raw directory).  Then the replan is timed (``time_controller``)
+    and profiled once."""
+    from visual_foresight_torch.policy.cem_controllers.variants import (
+        ClassifierController)
+    from visual_foresight_torch.sim import run
+    replay, out = os.path.join(root, 'replay'), os.path.join(root, 'out')
+    frames = write_replay(replay)
+    reset_tail_counts()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, VMPC_REPLAY_DIR=replay,
+                         VMPC_DATA_DIR=out,
+                         VMPC_END_INDEX=str(REPLAY_EPISODES - 1)), \
+            ReplanClock(torch.cuda.synchronize, ClassifierController) as clock:
+        run.main([OFFLINE_TWIN])
+    wall = time.perf_counter() - t0
+    if len(clock.ms) != REPLAY_EPISODES:
+        raise AssertionError('offline replay: {} replans for {} episodes'
+                             .format(len(clock.ms), REPLAY_EPISODES))
+    ctrl = clock.ctrls[0]
+    check_restored('offline replay (towel twin)', ctrl)
+    launches = read_tail_counts(
+        'offline replay ({} replans x {})'.format(len(clock.ms),
+                                                   OFFLINE_PER_REPLAN),
+        len(clock.ms) * OFFLINE_PER_REPLAN, ctrl.predictor)
+    raw = os.path.join(out, 'train')
+    for k in range(REPLAY_EPISODES):
+        traj = os.path.join(raw, 'traj_group0', 'traj{}'.format(k))
+        with open(os.path.join(traj, 'policy_out.pkl'), 'rb') as f:
+            actions = np.stack([p['actions'] for p in pickle.load(f)])
+        with open(os.path.join(traj, 'agent_data.pkl'), 'rb') as f:
+            agent_data = pickle.load(f)
+        pngs = sorted(os.listdir(os.path.join(traj, 'images0')))
+        if len(pngs) != REPLAY_T + 1 or actions.shape != (REPLAY_T, 4) or \
+                not np.isfinite(actions).all() or \
+                not agent_data.get('offline_replay'):
+            raise AssertionError('offline replay: episode {} wrote {} frames '
+                                 'and actions {}'.format(k, len(pngs),
+                                                         actions.shape))
+    print('offline_replay: {} episodes x {} steps replayed from {} raw '
+          'trajectories (ag_bench20 frames + noise, 48x64, state width 5), '
+          '{} replans (600 samples x 15 steps x 3 iters, folding prior, host '
+          'loop, classifier cost, bf16, ag_r5f_v2 + seeded classifier), {} '
+          'tail launches; replan host clock {:.3f} ms the first (cuDNN\'s '
+          'warm-up), then {} ms (p50 {:.3f}); wall {:.1f} s with the '
+          'controller\'s build; raw episodes written [{}]'.format(
+              REPLAY_EPISODES, REPLAY_T, len(frames), len(clock.ms),
+              launches['cdna_tail'], clock.ms[0],
+              ' '.join('{:.3f}'.format(x) for x in clock.ms[1:]),
+              float(np.percentile(clock.ms[1:], 50)), wall, card))
+    point = ('600 samples x 15 steps x 3 iters, folding prior, host loop, '
+             'classifier cost, bf16, ag_r5f_v2')
+    time_controller('offline_replay_replan', point, ctrl, ctrl._state, card)
+    print('profile: one offline replay replan')
+    profile_replan(lambda: ctrl.perform_CEM(ctrl._state))
+    return launches, raw
+
+
+def train_converted_records(raw, root, card):
+    """The replayed episodes converted by the port's ``file_2_record`` into
+    GZIP TFRecords, read back by ``BaseVideoDataset`` (frames, actions and
+    states equal to the raw files), then ``OFFLINE_TRAIN_STEPS`` train
+    steps at ag_r5f_v2's configuration (``--stochastic``) from them: 14
+    forward and 14 backward tail launches a step, no plain version, every
+    metric finite.  Returns the launches."""
+    import cv2
+    from visual_foresight_torch.data.dataset_reader import BaseVideoDataset
+    from visual_foresight_torch.training.train_predictor import train
+    from visual_foresight_torch.utils import file_2_record
+    records = os.path.join(root, 'records')
+    t0 = time.perf_counter()
+    file_2_record.main([records, raw, str(W), '--T', str(REPLAY_T),
+                        '--nworkers', '1', '--traj_per_file',
+                        str(REPLAY_EPISODES), '--split', '1', '0', '0'])
+    converted = time.perf_counter() - t0
+    ds = BaseVideoDataset(records, 1, hparams_dict={'shuffle': False,
+                                                    'num_epochs': 1})
+    got = list(ds.numpy_iterator(keys=('images', 'actions', 'state')))
+    ds.close()
+    if len(got) != REPLAY_EPISODES:
+        raise AssertionError('the converted records hold {} trajectories'
+                             .format(len(got)))
+    for b in got:
+        # the shards' order is file_2_record's shuffle: find the episode
+        for k in range(REPLAY_EPISODES):
+            traj = os.path.join(raw, 'traj_group0', 'traj{}'.format(k))
+            with open(os.path.join(traj, 'policy_out.pkl'), 'rb') as f:
+                actions = np.stack([p['actions'] for p in pickle.load(f)])
+            if np.array_equal(b['actions'][0], actions.astype(
+                    b['actions'].dtype)):
+                break
+        else:
+            raise AssertionError('a converted trajectory\'s actions match no '
+                                 'episode')
+        with open(os.path.join(traj, 'obs_dict.pkl'), 'rb') as f:
+            state = pickle.load(f)['state'][:REPLAY_T]    # one a frame
+        frames = np.stack([cv2.imread(os.path.join(
+            traj, 'images0', 'im_{}.png'.format(t)))[:, :, ::-1]
+            for t in range(REPLAY_T)])
+        if not np.array_equal(b['images'][0, :, 0], frames) or \
+                not np.array_equal(b['state'][0],
+                                   state.astype(b['state'].dtype)):
+            raise AssertionError('the converted records differ from the raw '
+                                 'episode {}'.format(k))
+    args = train_args(os.path.join(AG_WEIGHTS, 'model_config.json'),
+                      batch_size=REPLAY_TRAJS, steps=OFFLINE_TRAIN_STEPS,
+                      log_every=1, data_dir=records, loader='python',
+                      stochastic=True, kl_anneal_start=0,
+                      kl_anneal_end=OFFLINE_TRAIN_STEPS)
+    reset_train_counts()
+    with PlainCalls() as plain:
+        t0 = time.perf_counter()
+        history, _ = train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_train_counts('training from the converted records',
+                                 OFFLINE_TRAIN_STEPS,
+                                 args.sequence_length - 1)
+    if plain.calls or len(history) != OFFLINE_TRAIN_STEPS or not all(
+            np.isfinite([h[k] for k in h]).all() for h in history):
+        raise AssertionError('training from the converted records: a plain '
+                             'version ran or a metric is not finite')
+    print('converted records: {} replayed episodes -> GZIP TFRecords by '
+          'file_2_record in {:.2f} s, read back equal to the raw frames, '
+          'states and actions; {} ag_r5f_v2 train steps (stochastic, batch '
+          '{}, bf16) from them in {:.1f} s, loss {} [{}]'.format(
+              REPLAY_EPISODES, converted, OFFLINE_TRAIN_STEPS, REPLAY_TRAJS,
+              wall, ' '.join('{:.5f}'.format(h['loss']) for h in history),
+              card))
+    return launches
+
+
+def drive_human_cem(root, card):
+    """One ``HumanCEMController`` replan at bench.py's point on the
+    flagship (200 x 15 x 3, bf16, the host loop) on task 0's start frame,
+    with a seeded script of scores in place of ``input()`` and a real file
+    worker: the tail's launches (3 forwards of 16 steps), the scores of
+    every iteration equal to the script, each refit's elites the lowest
+    scored samples and its mean theirs, the action the best-scored sample's
+    first, and every page and GIF on disk.  Returns the launches."""
+    import builtins
+    import cv2
+    from visual_foresight_torch.agent.utils.file_saver import (
+        start_file_worker)
+    from visual_foresight_torch.policy.cem_controllers.human_cem_controller \
+        import HumanCEMController
+    frame = cv2.imread(TASK0_FRAME)[:, :, ::-1]
+    images = np.repeat(frame[None, None], 2, axis=0)
+    states = np.repeat(TASK0_STATE[None], 2, axis=0).astype(np.float32)
+    ctrl = HumanCEMController(AG_PARAMS, dict(HUMAN_POLICY))
+    check_restored('human CEM', ctrl)
+    rng = np.random.RandomState(12)
+    given = []
+
+    def scripted_input(prompt=''):
+        if prompt.startswith('restore traj'):
+            return 'n'
+        given.append(float(rng.randint(0, 10000)) / 100)
+        return str(given[-1])
+
+    ctrl.reset()
+    refits = []
+    sampler = ctrl._sampler
+    refit = sampler.sample_next_actions
+
+    def traced_refit(n, best_actions, scores):
+        out = refit(n, best_actions, scores)
+        refits.append((best_actions.copy(), scores.copy(),
+                       sampler._mean.copy()))
+        return out
+
+    sampler.sample_next_actions = traced_refit
+    worker = start_file_worker()
+    ask, builtins.input = builtins.input, scripted_input
+    try:
+        worker.put(('path', root))
+        reset_tail_counts()
+        t0 = time.perf_counter()
+        for t in range(2):
+            out = ctrl.act(t=t, i_tr=0, images=images[:t + 1],
+                           state=states[:t + 1], verbose_worker=worker)
+        torch.cuda.synchronize()
+        replan = time.perf_counter() - t0
+        launches = read_tail_counts(
+            'human CEM (bench.py point, 1 replan x {})'.format(
+                HUMAN_PER_REPLAN), HUMAN_PER_REPLAN, ctrl.predictor)
+    finally:
+        builtins.input = ask
+        t0 = time.perf_counter()
+        worker.close()
+        drain = time.perf_counter() - t0
+    scores = np.reshape(given, (ITERS, M))
+    k = ctrl.elite_count
+    for itr in range(ITERS):
+        if not np.array_equal(ctrl.plan_stat['scores_itr{}'.format(itr)],
+                              scores[itr]):
+            raise AssertionError('human CEM: iteration {} scored other than '
+                                 'the script'.format(itr))
+    for itr, (elites, elite_scores, mean) in enumerate(refits):
+        lead = elites.reshape(k, NACT, REPEAT, -1)[:, :, -1].reshape(k, -1)
+        if not np.array_equal(elite_scores, np.sort(scores[itr])[:k]) or \
+                not np.array_equal(mean, lead.mean(0)):
+            raise AssertionError('human CEM: refit {} did not follow the '
+                                 'scripted scores'.format(itr))
+    best = np.argsort(scores[-1], kind='stable')
+    if len(refits) != ITERS - 1 or \
+            not np.array_equal(ctrl._best_indices, best[:k]) or \
+            not np.array_equal(out['actions'], ctrl._best_actions[0, 0]):
+        raise AssertionError('human CEM: the plan is not the best-scored '
+                             'sample\'s')
+    for itr in range(ITERS):
+        folder = os.path.join(root, 'planning_1_itr_{}'.format(itr))
+        gifs = [n for n in os.listdir(folder) if n.endswith('.gif')]
+        if len(gifs) != M or not all(os.path.isfile(os.path.join(folder, n))
+                                     for n in ('preds.html', 'plan.html',
+                                               'cam_0_start.png')):
+            raise AssertionError('human CEM: the pages of iteration {} are '
+                                 'incomplete'.format(itr))
+    print('human_cem: one replan at bench.py\'s point (200 x 15 x 3, bf16, '
+          'xz_flagship, host loop) with {} scripted scores, {} tail '
+          'launches, the refits led by the lowest scores, the action the '
+          'best-scored sample\'s; 2 act() steps {:.3f} s on the host clock; '
+          '{} pages and {} GIFs written, the worker drained {:.3f} s after '
+          'the act [{}]'.format(len(given), launches['cdna_tail'], replan,
+                                2 * ITERS, ITERS * M, drain, card))
+    return launches
+
+
+def collect_where_possible(root, gl):
+    """What of data collection the card machine cannot run: the MuJoCo
+    collection (``collect_xz_r4.py``, 2 trajectories of T 30, its records
+    read back) where MuJoCo renders (``gl``), and the HDF5 writers
+    (``agent/utils/hdf5_saver.py``, ``utils/file_2_hdf5.py``) where
+    ``h5py`` and ``imageio`` import; one line for each that waits."""
+    import importlib
+    missing = []
+    for name in ('h5py', 'imageio'):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            missing.append(name)
+    if missing:
+        print('HDF5 writers (agent/utils/hdf5_saver.py, utils/file_2_hdf5.py)'
+              ': wait for {} on the card machine; held against the JAX '
+              'package on the CPU (tests/test_torch_collect.py)'.format(
+                  ' and '.join(missing)))
+    else:
+        from visual_foresight_torch.agent.utils.hdf5_saver import HDF5Saver
+        obs = {'images': np.zeros((4, 1, H, W, 3), np.uint8),
+               'state': np.zeros((4, 3))}
+        HDF5Saver(root, {}, {'T': 4}, traj_per_file=1,
+                  split=(1.0, 0.0, 0.0)).save_traj(
+                      0, {}, obs, [{'actions': np.zeros(3)}] * 3)
+        print('HDF5 writers: h5py and imageio import; HDF5Saver wrote {}'
+              .format(os.listdir(os.path.join(root, 'hdf5', 'train'))))
+    if gl is None:
+        print('MuJoCo collection (campaigns/collect_xz_r4.py): waits for '
+              'MuJoCo on the card machine (no mujoco that renders here); '
+              'run on the CPU in tests/test_torch_collect.py')
+        return
+    from visual_foresight_torch.data.dataset_reader import BaseVideoDataset
+    from visual_foresight_torch.sim import run
+    os.environ['MUJOCO_GL'] = gl
+    data = os.path.join(root, 'collect')
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, VMPC_DATA_DIR=data, VMPC_END_INDEX='1'):
+        run.main([COLLECT_TWIN])
+    wall = time.perf_counter() - t0
+    n = 0
+    for half in ('good', 'bad'):
+        for mode in ('train', 'val', 'test'):
+            if os.listdir(os.path.join(data, 'records', half, mode)):
+                ds = BaseVideoDataset(os.path.join(data, 'records', half), 1,
+                                      hparams_dict={'shuffle': False,
+                                                    'num_epochs': 1})
+                n += len(list(ds.numpy_iterator(keys=('images',),
+                                                mode=mode)))
+                ds.close()
+    if n != 2:
+        raise AssertionError('collect_xz_r4: {} trajectories recorded'
+                             .format(n))
+    print('MuJoCo collection (collect_xz_r4, {}): 2 trajectories of T 30 '
+          'recorded and read back in {:.1f} s'.format(gl, wall))
+
+
+def drive_collection(card, gl):
+    """Phase 8: the offline replay, its episodes converted and trained
+    from, the human-scored CEM, and what waits.  Returns the launches by
+    path."""
+    root = tempfile.mkdtemp(prefix='chip_smoke_collect_')
+    try:
+        paths = {}
+        paths['offline_replay'], raw = drive_offline_replay(root, card)
+        paths['train_converted_records'] = train_converted_records(
+            raw, root, card)
+        human = os.path.join(root, 'human')
+        os.makedirs(human)
+        paths['human_cem'] = drive_human_cem(human, card)
+        collect_where_possible(root, gl)
+        return paths
+    finally:
+        shutil.rmtree(root)
 
 
 def main():
@@ -3111,9 +3505,16 @@ def main():
     _, gl = probe_campaign_host()
     paths['verbose_dump_xz_bench20'] = drive_verbose_dump(card)
     paths.update(drive_campaigns(card, gl))
+
+    # -- 8. data collection and offline replay: the towel twin replayed on
+    # the card, its episodes converted to records and trained from, one
+    # human-scored replan, and a line for what waits (MuJoCo, h5py)
+    collection = drive_collection(card, gl)
+    paths.update(collection)
     campaign_launches = sum(
         n['cdna_tail'] for p, n in paths.items()
-        if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_'))
+        if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
+        p in ('offline_replay', 'human_cem'))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
@@ -3125,8 +3526,9 @@ def main():
         'name': 'cdna_tail', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
-        # the controller path and the campaign's (the dump and the scored
-        # campaigns)
+        # the controller path, the campaign's (the dump and the scored
+        # campaigns) and data collection's (the offline replay, the human
+        # CEM)
         'launches': paths['controller']['cdna_tail'] + campaign_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],

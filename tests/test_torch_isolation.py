@@ -2,9 +2,10 @@
 and ``chip_smoke`` pulls in neither JAX nor the JAX package (nor ``h5py``,
 ``cv2``, ``google_crc32c``, ``mujoco``, ``imageio`` or ``matplotlib``, which
 the card machine may lack), and its entry points (the predictor, the
-planner, the controller, the trainers of the planning costs' networks and
-the campaign runner) refuse to fall back to the CPU when no card is
-present."""
+planner, the controllers, the trainers of the planning costs' networks and
+the campaign runner, with ``--benchmark`` and, on the offline replay,
+without it) refuse to fall back to the CPU when no card is present; random
+collection stays on the host."""
 
 import os
 import subprocess
@@ -65,7 +66,8 @@ def _trainer(entry, **kw):
 
 
 @pytest.mark.parametrize('entry', ['predictor', 'predictor_ag_r5f_v2',
-                                   'planner', 'controller'] + list(TRAINERS))
+                                   'planner', 'controller',
+                                   'human_cem_controller'] + list(TRAINERS))
 def test_entry_points_need_a_card_unless_told_cpu(entry):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
@@ -73,6 +75,8 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
     from visual_foresight_torch.planners.gaussian import make_action_spec
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
+    from visual_foresight_torch.policy.cem_controllers.human_cem_controller \
+        import HumanCEMController
     from visual_foresight_torch.prediction.predictor import TorchPredictor
     spec = make_action_spec({'initial_std': 0.05, 'initial_std_lift': 0.15,
                              'initial_std_rot': 0.1, 'initial_std_grasp': 2,
@@ -94,6 +98,8 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
             'planner': lambda **kw: FusedCEMPlanner(spec, 4, k_elite=2,
                                                     **kw),
             'controller': lambda **kw: PixelCostController(
+                ag_params, dict(policy, **kw)),
+            'human_cem_controller': lambda **kw: HumanCEMController(
                 ag_params, dict(policy, **kw))}.get(
                     entry, lambda **kw: _trainer(entry, **kw))
     with pytest.raises(RuntimeError, match='no CUDA device'):
@@ -101,12 +107,28 @@ def test_entry_points_need_a_card_unless_told_cpu(entry):
     assert make(device='cpu').device.type == 'cpu'
 
 
-@pytest.mark.parametrize('campaign', ['xz_bench20', 'ag_bench20'])
-def test_campaign_runner_needs_a_card(campaign):
+@pytest.mark.parametrize('campaign,flags', [
+    ('xz_bench20', ['--benchmark']), ('ag_bench20', ['--benchmark']),
+    # data collection: the offline replay plans with the classifier
+    ('offline_towel_classifier', [])],
+    ids=['xz_bench20', 'ag_bench20', 'offline_towel_classifier'])
+def test_campaign_runner_needs_a_card(campaign, flags):
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
     from visual_foresight_torch.sim import run
     config = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
                           campaign + '.py')
     with pytest.raises(RuntimeError, match='no CUDA device'):
-        run.main([config, '--benchmark'])
+        run.main([config] + flags)
+
+
+@pytest.mark.parametrize('campaign,on_card', [
+    ('collect_xz_r4', False), ('offline_towel_classifier', True),
+    ('xz_bench20', True), ('ag_bench20', True)])
+def test_runner_asks_for_the_card_only_for_planning_policies(campaign,
+                                                             on_card):
+    # random collection runs on the host, with or without a card
+    from visual_foresight_torch.sim import run
+    config = run.load_config(os.path.join(
+        REPO, 'visual_foresight_torch', 'campaigns', campaign + '.py'))
+    assert run.plans_on_device(config['policy']['type']) == on_card

@@ -4,8 +4,8 @@ The port's own copy of ``visual_foresight_tpu/agent/utils/record_saver.py``
 (``save_tf_record`` and ``RecordSaver``): trajectories are drawn into
 train/test/val buffers, flushed every ``traj_per_file``, features are keyed
 ``"{t}/{key}"`` per timestep, and the first trajectory's shapes and dtypes
-make a manifest (txt + pkl) from which the reader rebuilds the tensors.
-The HDF5 writer waits for the port of data collection (``ROADMAP.md``).
+make a manifest (txt + pkl) from which the reader rebuilds the tensors;
+and ``HDF5SaverBase``, the HDF5 writer of ``agent/utils/hdf5_saver.py``.
 """
 
 import os
@@ -154,3 +154,51 @@ class RecordSaver:
                 save_tf_record(file, buffer, self._sequence_keys, self._metadata_keys)
                 self._traj_buffers[i] = []
                 self._save_counters[i] = next_counter
+
+
+class HDF5SaverBase:
+    """Train/val/test-bucketed HDF5 trajectory writer
+    (reference ``record_saver.py:184-235``).  ``h5py`` is imported where a
+    file is written."""
+
+    def __init__(self, save_dir, traj_per_file, offset=0,
+                 split=(0.90, 0.05, 0.05), split_train_val_test=True):
+        self.train_test_val_split = split
+        self.split_train_val_test = split_train_val_test
+        self.traj_per_file = traj_per_file
+        self.traj_lists = [[], [], []]
+        self.save_dir = save_dir
+        self.traj_count = offset
+
+    def save_hdf5(self, traj_list, prefix):
+        import h5py
+        if self.split_train_val_test:
+            savedir = os.path.join(self.save_dir, 'hdf5', prefix)
+        else:
+            savedir = os.path.join(self.save_dir, 'hdf5')
+        os.makedirs(savedir, exist_ok=True)
+        self.traj_count += 1
+
+        fname = 'traj_{}to{}.h5'.format((self.traj_count - 1) * self.traj_per_file,
+                                        self.traj_count * self.traj_per_file)
+        with h5py.File(os.path.join(savedir, fname), 'w') as F:
+            F['traj_per_file'] = self.traj_per_file
+            for i, traj in enumerate(traj_list):
+                key = 'traj{}'.format(i)
+                assert traj['images'].dtype == np.uint8, 'images must be uint8'
+                for name, value in traj.items():
+                    F[key + '/' + name] = value
+
+    def make_traj(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def save_traj(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def _save_traj(self, traj):
+        draw = np.random.choice([0, 1, 2], 1, p=self.train_test_val_split)[0]
+        self.traj_lists[draw].append(traj)
+        for i, prefix in enumerate(('train', 'val', 'test')):
+            if len(self.traj_lists[i]) == self.traj_per_file:
+                self.save_hdf5(self.traj_lists[i], prefix)
+                self.traj_lists[i] = []

@@ -193,7 +193,26 @@
    sample's first, every page and GIF on disk; then the HDF5 writers where
    ``h5py`` and ``imageio`` import and ``campaigns/collect_xz_r4.py`` (2
    trajectories of T 30, read back) where MuJoCo renders, else one line
-   for each that waits.
+   for each that waits;
+10. pretrained TF1 weights, the data and profiling tools (``main``'s phase
+   9): the flagship's numpy weights written by ``export_tf1_checkpoint`` as
+   the TF1 bundle ``view0/model-5000`` beside a stale one of zeros at step
+   100; ``TorchPredictor`` restored from it on the card prints the import
+   of the step-5000 bundle, holds the numpy restore's state exactly, and
+   replans bench.py's point (200 x 15 x 3, the same context and draws) to
+   the numpy predictor's scores and actions bit for bit, 46 tiled launches
+   each; the bundle's size, the export and import times (with the CRC32C
+   in use) and both replans' host p50 in turns are printed;
+   ``visualize_predictions.main`` (``--n 4``, bf16) on records written as
+   in phase 5i and that bundle: a finite PSNR report, 4 strips and 14
+   tiled launches, its forward timed alone; ``check_dataset.main`` on the
+   same records; one replan of the bundle's predictor inside
+   ``device_trace`` and ``PhaseTimer``: a chrome trace with CUDA kernel
+   events (46 of the tail) and both phases; then the RoboNet reader on
+   HDF5 written by the port's ``HDF5Saver`` and 5 flagship train steps
+   from it where ``h5py`` and ``imageio`` import, and two
+   ``collect_sawyer_arm.py`` trajectories of T 6 where MuJoCo renders,
+   else one line for each that waits.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -692,10 +711,10 @@ def reset_tail_counts():
         fused_warp_composite.launches_by_variant[v] = 0
 
 
-def read_tail_counts(path, want, predictor):
+def read_tail_counts(path, want, hp):
     """The launches since ``reset_tail_counts``: ``want`` in all, each
-    through the entry and on the mask layout that ``predictor``'s
-    architecture gives.  DNA runs the DNA mode (the field made inside the
+    through the entry and on the mask layout that the architecture ``hp``
+    gives (a predictor's ``_hp``, or ``model_hp`` of a model).  DNA runs the DNA mode (the field made inside the
     kernel), never the field-given entry; CDNA the folded entry's tiled
     variant (never the general one), on blocked masks where the
     space-to-depth backbone keeps
@@ -706,7 +725,6 @@ def read_tail_counts(path, want, predictor):
     from visual_foresight_torch.ops.cdna_tail import (
         VARIANTS, fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
-    hp = predictor._hp
     dna = bool(hp['dna'])
     blocked = bool(hp['std_factor']) and hp['mask_softmax'] == 'lowres'
     want_folded, want_dna = (0, want) if dna else (want, 0)
@@ -912,7 +930,7 @@ def check_golden(name, **hparams):
     steps = 1 + int(g['iterations']) * int(g['nactions']) * repeat
     label = ' '.join([name] + ['{}={}'.format(k, v)
                                for k, v in hparams.items()])
-    launches = read_tail_counts('golden ' + label, steps, predictor)
+    launches = read_tail_counts('golden ' + label, steps, predictor._hp)
     same, score_err = compare_scores(
         'golden f32 replay of {} vs JAX'.format(label), out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
@@ -965,7 +983,7 @@ def check_golden_mppi():
         anchor=g['anchor'], anchor_valid=float(g['anchor_valid']))
     torch.cuda.synchronize()
     launches = read_tail_counts('golden MPPI ag_r5f_v2',
-                                1 + int(g['iterations']) * n, predictor)
+                                1 + int(g['iterations']) * n, predictor._hp)
     same, score_err = compare_scores(
         'golden f32 MPPI replay of ag_r5f_v2 vs JAX', out['scores_per_itr'],
         g['scores_per_itr'], k_elite, GOLDEN_SCORE_RTOL, per_element=True)
@@ -1080,7 +1098,7 @@ def drive_replan_200():
     launches = read_tail_counts(
         '200-sample replan ({} replans, {} launches each)'.format(
             len(contexts), LAUNCHES_PER_REPLAN),
-        LAUNCHES_PER_REPLAN * len(contexts), predictor)
+        LAUNCHES_PER_REPLAN * len(contexts), predictor._hp)
     for out in outs:
         shapes = {'best_actions': (10, T, 3), 'best_scores': (10,),
                   'scores_per_itr': (ITERS, M)}
@@ -1183,7 +1201,7 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
     launches = read_tail_counts(
         '{} controller ({} act() steps, {} replans x {})'.format(
             label, steps, replans, per_replan),
-        replans * per_replan, ctrl.predictor)
+        replans * per_replan, ctrl.predictor._hp)
     for a in actions:
         if a.shape != (adim,) or not np.isfinite(a).all():
             raise AssertionError('{} controller action {} is malformed'
@@ -1342,7 +1360,7 @@ def check_controller_golden(kind, dirs):
     out, scores = replay()
     launches = read_tail_counts(
         'golden {} (f32)'.format(kind),
-        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor)
+        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor._hp)
     best, best_actions = ctrl._best_indices.copy(), ctrl._best_actions.copy()
     registered = getattr(ctrl, 'reg_tradeoff', None), \
         getattr(ctrl, '_desig_pix', None)
@@ -1851,6 +1869,13 @@ def train_args(config, **flags):
     ``model_config.json``), on the card."""
     from visual_foresight_torch.training.train_predictor import (
         build_argparser)
+    return build_argparser().parse_args(config_argv(config, **flags))
+
+
+def config_argv(config, **flags):
+    """The trainer's command line (``train_predictor.build_argparser``'s
+    flags) for the architecture in ``config`` and the ``flags`` given, on
+    the card."""
     with open(config) as f:
         cfg = json.load(f)
     argv = ['--device', 'cuda', '--std_factor', str(cfg['std_factor']),
@@ -1869,7 +1894,7 @@ def train_args(config, **flags):
     argv += ['--bf16'] if cfg['dtype'] == 'bfloat16' else []
     for key, value in flags.items():
         argv += ['--' + key] + ([] if value is True else [str(value)])
-    return build_argparser().parse_args(argv)
+    return argv
 
 
 class PlainCalls:
@@ -2069,7 +2094,7 @@ def serve_trained():
                      generator=torch.Generator(device='cuda').manual_seed(4))
         torch.cuda.synchronize()
     launches = read_tail_counts('trained checkpoint, one 200-sample replan',
-                                LAUNCHES_PER_REPLAN, predictor)
+                                LAUNCHES_PER_REPLAN, predictor._hp)
     scores = out['scores_per_itr']
     if tuple(scores.shape) != (ITERS, M) or \
             not bool(torch.isfinite(scores).all()):
@@ -2629,7 +2654,7 @@ def drive_verbose_dump(card):
         torch.cuda.synchronize()
         launches = read_tail_counts(
             'verbose dump at xz_bench20 (task 0, 2 act() steps, 1 replan)',
-            replan_launches(CTRL_POLICY), ctrl.predictor)
+            replan_launches(CTRL_POLICY), ctrl.predictor._hp)
         if not np.isfinite(out['actions']).all():
             raise AssertionError('the dumped replan gave {}'.format(
                 out['actions']))
@@ -2769,7 +2794,7 @@ def drive_campaign(name, card):
     launches = read_tail_counts(
         '{} campaign ({} replans x {})'.format(name, len(clock.ms),
                                                band['launches']),
-        len(clock.ms) * band['launches'], clock.ctrls[0].predictor)
+        len(clock.ms) * band['launches'], clock.ctrls[0].predictor._hp)
     ref = {run_dir: jax_scores(run_dir) for run_dir in band['jax_runs']}
     stats, gap = check_campaign(
         name, result_dir, run.load_config(config), len(clock.ms),
@@ -2895,7 +2920,7 @@ def drive_offline_replay(root, card):
     launches = read_tail_counts(
         'offline replay ({} replans x {})'.format(len(clock.ms),
                                                    OFFLINE_PER_REPLAN),
-        len(clock.ms) * OFFLINE_PER_REPLAN, ctrl.predictor)
+        len(clock.ms) * OFFLINE_PER_REPLAN, ctrl.predictor._hp)
     raw = os.path.join(out, 'train')
     for k in range(REPLAY_EPISODES):
         traj = os.path.join(raw, 'traj_group0', 'traj{}'.format(k))
@@ -3056,7 +3081,7 @@ def drive_human_cem(root, card):
         replan = time.perf_counter() - t0
         launches = read_tail_counts(
             'human CEM (bench.py point, 1 replan x {})'.format(
-                HUMAN_PER_REPLAN), HUMAN_PER_REPLAN, ctrl.predictor)
+                HUMAN_PER_REPLAN), HUMAN_PER_REPLAN, ctrl.predictor._hp)
     finally:
         builtins.input = ask
         t0 = time.perf_counter()
@@ -3170,6 +3195,448 @@ def drive_collection(card, gl):
         os.makedirs(human)
         paths['human_cem'] = drive_human_cem(human, card)
         collect_where_possible(root, gl)
+        return paths
+    finally:
+        shutil.rmtree(root)
+
+
+# -- pretrained TF1 weights served, the data and profiling tools ---------------
+# the flagship's numpy weights written by the port's export_tf1_checkpoint as
+# a bundle at step 5000 beside a stale bundle of zeros at step 100 (the
+# highest step is served); bench.py's point replanned once on the bundle's
+# predictor and once on the numpy one, then timed in turns
+TF1_STEP, TF1_STALE = 5000, 100
+TF1_TENSORS = 38                  # the flagship's leaves
+TF1_ROUNDS, TF1_TIMED = ('numpy', 'tf1', 'tf1', 'numpy'), 5
+VIS_N = 4                         # visualize_predictions' --n
+VIS_RUNS = 3                      # its runs, the first checked
+HDF5_TRAJS, HDF5_PER_FILE, HDF5_STEPS = 16, 8, 5
+SAWYER_TWIN = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                           'collect_sawyer_arm.py')
+# the sawyer arm twin cut to T 6 (2 actions under repeat 3) and two
+# trajectories
+SAWYER_CUT = '''import copy
+from visual_foresight_torch.sim.run import load_config
+config = copy.deepcopy(load_config({src!r}))
+config['agent'].update(T=6, data_save_dir={out!r})
+config['policy'].update(nactions=2)
+config.update(start_index=0, end_index=1, traj_per_file=2,
+              current_dir={root!r})
+'''
+
+
+def model_hp(model):
+    """What ``read_tail_counts`` reads of an architecture, from a
+    ``CDNAPredictor`` built without a predictor (``visualize_predictions``'
+    model)."""
+    return {'dna': model.step.dna, 'std_factor': model.std_factor,
+            'mask_softmax': model.step.mask_softmax}
+
+
+class ForwardClock(object):
+    """Inside the block, every ``CDNAPredictor.forward`` (the class's, so it
+    reaches the model that a tool builds) is timed by CUDA events on the
+    current stream: ``ms`` holds the forwards' times, ``models`` the last
+    model that ran."""
+
+    def __enter__(self):
+        from visual_foresight_torch.models.cdna import CDNAPredictor
+        self.ms, self.models = [], []
+        forward = self._forward = CDNAPredictor.forward
+
+        def timed_forward(model, *args, **kwargs):
+            self.models[:] = [model]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = forward(model, *args, **kwargs)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            return out
+
+        CDNAPredictor.forward = timed_forward
+        return self
+
+    def __exit__(self, *exc):
+        from visual_foresight_torch.models.cdna import CDNAPredictor
+        CDNAPredictor.forward = self._forward
+
+
+def write_tf1(root):
+    """The flagship's ``params.npz`` written by the port's
+    ``export_tf1_checkpoint`` as the bundle ``root/view0/model-5000``
+    beside a stale bundle of zeros at ``model-100`` and the flagship's
+    ``model_config.json``.  Returns (the bundle's prefix, export seconds,
+    the bundle's bytes)."""
+    from visual_foresight_torch.models.convert import (read_npz,
+                                                       unflatten_flax)
+    from visual_foresight_torch.prediction import tf1_import
+    flat = read_npz(os.path.join(WEIGHTS, 'view0', 'params.npz'))
+    view0 = os.path.join(root, 'view0')
+    prefix = os.path.join(view0, 'model-{}'.format(TF1_STEP))
+    t0 = time.perf_counter()
+    tf1_import.export_tf1_checkpoint(unflatten_flax(flat), prefix)
+    export = time.perf_counter() - t0
+    tf1_import.export_tf1_checkpoint(
+        unflatten_flax({k: np.zeros_like(v) for k, v in flat.items()}),
+        os.path.join(view0, 'model-{}'.format(TF1_STALE)))
+    shutil.copy(os.path.join(WEIGHTS, 'model_config.json'), root)
+    size = sum(os.path.getsize(os.path.join(view0, n))
+               for n in os.listdir(view0)
+               if n.startswith(os.path.basename(prefix) + '.'))
+    return prefix, export, size
+
+
+def drive_tf1(root, card):
+    """The TF1 bundle served: ``TorchPredictor`` restored on the card from
+    ``write_tf1``'s directory prints the import of the step-5000 bundle
+    (``restored`` true), holds the numpy restore's state exactly, and its
+    200 x 15 x 3 replan (the same context and draws) gives the numpy
+    predictor's scores and actions bit for bit, 46 tiled launches each;
+    then both replans' host times in turns.  The import is timed inside
+    the restore (``predictor.load_view``: the bundle read, its CRCs and
+    shapes checked, the tree loaded into the model).  Returns (the
+    launches by path, the bundle predictor, its replan function)."""
+    import contextlib
+    import io
+    from visual_foresight_torch.data.tfrecord_io import (crc32c_impl,
+                                                         crc32c_numpy)
+    from visual_foresight_torch.prediction import predictor as t_predictor
+    crc = 'the numpy CRC32C' if crc32c_impl() is crc32c_numpy \
+        else 'google_crc32c'
+    prefix, export, size = write_tf1(root)
+    load_view, loads = t_predictor.load_view, []
+
+    def timed_load_view(*args):
+        t0 = time.perf_counter()
+        out = load_view(*args)
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), mock.patch.object(
+            t_predictor, 'load_view', timed_load_view):
+        imported = restored_predictor('bfloat16', weights=root)
+    restore = time.perf_counter() - t0
+    sys.stdout.write(log.getvalue())
+    want = 'imported TF1 checkpoint {} ({} tensors)'.format(prefix,
+                                                            TF1_TENSORS)
+    if want not in log.getvalue() or len(loads) != 1:
+        raise AssertionError('the predictor did not print "{}" once'.format(
+            want))
+    import_s = loads[0]
+    numpy_pred = restored_predictor('bfloat16')
+    ref = numpy_pred.models[0].state_dict()
+    for key, value in imported.models[0].state_dict().items():
+        if not torch.equal(value, ref[key]):
+            raise AssertionError('the TF1 restore differs from the numpy '
+                                 'one at {}'.format(key))
+
+    rng = np.random.RandomState(9)
+    context = lambda: (rng.rand(1, N_CTX, H, W, 3).astype(np.float32),
+                       (rng.randn(N_CTX, 3) * 0.05).astype(np.float32))
+    images, states = context()
+    preds = {'numpy': numpy_pred, 'tf1': imported}
+    replans = {name: replan_200(p) for name, p in preds.items()}
+    outs, paths = {}, {}
+    for name, pred in preds.items():
+        reset_tail_counts()
+        outs[name] = replans[name](
+            images, states,
+            generator=torch.Generator(device='cuda').manual_seed(1))
+        torch.cuda.synchronize()
+        paths['{}_replan_200'.format(name)] = read_tail_counts(
+            '200-sample replan on the {} restore'.format(
+                'TF1 bundle' if name == 'tf1' else 'numpy'),
+            LAUNCHES_PER_REPLAN, pred._hp)
+    for key in ('best_actions', 'best_scores', 'scores_per_itr'):
+        if not torch.equal(outs['tf1'][key], outs['numpy'][key]):
+            raise AssertionError('the TF1-restored replan\'s {} differ from '
+                                 'the numpy one\'s'.format(key))
+    times = {name: [] for name in preds}
+    spans = {name: [] for name in preds}
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    for name in TF1_ROUNDS:
+        replans[name](*context(), generator=gen)        # warm-up
+        for _ in range(TF1_TIMED):
+            args = context()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            replans[name](*args, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            spans[name].append(start.elapsed_time(end))
+    p50 = {name: (float(np.percentile(times[name], 50)),
+                  float(np.percentile(spans[name], 50))) for name in preds}
+    print('tf1: the flagship as a TF1 bundle ({} bytes, {} tensors) '
+          'exported in {:.3f} s and imported by the predictor\'s restore in '
+          '{:.3f} s with {} (the predictor built and restored on the card in '
+          '{:.3f} s); its state '
+          'equals the numpy restore\'s, its 200 x 15 x 3 replan equals the '
+          'numpy predictor\'s bit for bit ({} launches each); over {} '
+          'replans each in turns {}, host p50 / CUDA-event span p50: TF1 '
+          '{:.3f} / {:.3f} ms, numpy {:.3f} / {:.3f} ms [{}]'.format(
+              size, TF1_TENSORS, export, import_s, crc, restore,
+              LAUNCHES_PER_REPLAN, len(times['tf1']), '/'.join(TF1_ROUNDS),
+              *p50['tf1'], *p50['numpy'], card))
+    return paths, imported, replans['tf1']
+
+
+def drive_tools(root, weights_root, card):
+    """``visualize_predictions.main`` (``--n 4``, the flagship's flags, bf16)
+    on the card, on records written as phase 5i writes them and the weights
+    in ``weights_root``, ``VIS_RUNS`` times: the first gives a finite PSNR
+    report of ``sequence_length - 1`` steps, 4 strips on disk and
+    ``sequence_length - 1`` tiled launches; the tool's own forward is timed
+    in every run (``ForwardClock``).  Then ``check_dataset.main`` on the
+    same records.  Returns the first run's launches."""
+    import cv2
+    from visual_foresight_torch.training import visualize_predictions
+    from visual_foresight_torch.utils import check_dataset
+    config = os.path.join(WEIGHTS, 'model_config.json')
+    records = os.path.join(root, 'records')
+    write_records(records)
+    strips = os.path.join(root, 'strips')
+    argv = config_argv(config, data_dir=records, model_dir=weights_root,
+                       n=VIS_N, out_dir=strips, mode='train')
+    seq = train_args(config).sequence_length
+    walls = []
+    with ForwardClock() as clock:
+        for run in range(VIS_RUNS):
+            reset_tail_counts()
+            t0 = time.perf_counter()
+            report = visualize_predictions.main(argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if not run:
+                launches = read_tail_counts(
+                    'visualize_predictions (--n {}, {} frames)'.format(
+                        VIS_N, seq), seq - 1, model_hp(clock.models[0]))
+                first = report
+    report = first
+    if len(clock.ms) != VIS_RUNS:
+        raise AssertionError('visualize_predictions ran {} forwards in {} '
+                             'runs'.format(len(clock.ms), VIS_RUNS))
+    values = report['psnr_per_step'] + [report['psnr_autoregressive'],
+                                        report['psnr_final_step']]
+    if len(report['psnr_per_step']) != seq - 1 or \
+            not np.all(np.isfinite(values)):
+        raise AssertionError('visualize_predictions: PSNR report {}'.format(
+            report))
+    for b in range(VIS_N):
+        strip = cv2.imread(os.path.join(strips, 'traj{}.png'.format(b)))
+        if strip is None or strip.shape != (2 * H, (seq - 1) * W, 3):
+            raise AssertionError('visualize_predictions: strip {} is {}'
+                                 .format(b, None if strip is None
+                                         else strip.shape))
+    t0 = time.perf_counter()
+    check_dataset.main([records, '--batch_size', str(VIS_N), '--out',
+                        os.path.join(root, 'dataset_check.png')])
+    check = time.perf_counter() - t0
+    tiles = cv2.imread(os.path.join(root, 'dataset_check.png'))
+    if tiles is None or tiles.shape != (VIS_N * H, seq * W, 3):
+        raise AssertionError('check_dataset: tiles {}'.format(
+            None if tiles is None else tiles.shape))
+    print('visualize_predictions: PSNR {} dB autoregressive, {} dB at the '
+          'last step, {} strips, {} launches; {} runs of the tool, host '
+          'clock {} s, its forward ({} x {} frames, bf16, CUDA events) {} '
+          'ms; check_dataset {:.3f} s [{}]'.format(
+              report['psnr_autoregressive'], report['psnr_final_step'],
+              VIS_N, launches['cdna_tail'], VIS_RUNS,
+              ' / '.join('{:.3f}'.format(w) for w in walls), VIS_N, seq,
+              ' / '.join('{:.3f}'.format(ms) for ms in clock.ms), check,
+              card))
+    return launches
+
+
+def drive_profiling(root, predictor, replan, card):
+    """One 200 x 15 x 3 replan of the TF1-restored predictor inside
+    ``device_trace`` and ``PhaseTimer`` phases (the replan, then the copy
+    of its plan to the host): the chrome trace on disk holding CUDA kernel
+    events (the tail's among them) and the phases, the timer's counts, and
+    the replan's 46 launches.  Returns the launches."""
+    import glob
+    from visual_foresight_torch.utils.profiling import (PhaseTimer,
+                                                        device_trace)
+    rng = np.random.RandomState(11)
+    images = rng.rand(1, N_CTX, H, W, 3).astype(np.float32)
+    states = (rng.randn(N_CTX, 3) * 0.05).astype(np.float32)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    trace_dir = os.path.join(root, 'trace')
+    timer = PhaseTimer()
+    reset_tail_counts()
+    with device_trace(trace_dir):
+        with timer.phase('replan'):
+            out = replan(images, states, generator=gen)
+        with timer.phase('plan_to_host'):
+            out['best_actions'].cpu()
+    launches = read_tail_counts('profiled 200-sample replan (TF1 restore)',
+                                LAUNCHES_PER_REPLAN, predictor._hp)
+    report = timer.report()
+    if {k: v['count'] for k, v in report.items()} != {'replan': 1,
+                                                      'plan_to_host': 1}:
+        raise AssertionError('PhaseTimer report {}'.format(report))
+    files = glob.glob(os.path.join(trace_dir, '*.pt.trace.json'))
+    if len(files) != 1:
+        raise AssertionError('device_trace wrote {}'.format(files))
+    with open(files[0]) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    tail = [e for e in kernels if 'cdna_tail' in e.get('name', '')]
+    names = {e.get('name') for e in events}
+    if not kernels or len(tail) != LAUNCHES_PER_REPLAN or \
+            not {'replan', 'plan_to_host'} <= names:
+        raise AssertionError('the trace holds {} kernel events, {} of the '
+                             'tail, phases {}'.format(
+                                 len(kernels), len(tail),
+                                 sorted({'replan', 'plan_to_host'} & names)))
+    busy = sum(e.get('dur', 0) for e in kernels) / 1e3
+    print('profiling: device_trace wrote {} ({:.1f} kB, {} events, {} CUDA '
+          'kernels, {} of the tail, {:.3f} ms of kernel time); PhaseTimer {} '
+          '[{}]'.format(os.path.basename(files[0]),
+                        os.path.getsize(files[0]) / 1e3, len(events),
+                        len(kernels), len(tail), busy, json.dumps(report),
+                        card))
+    return launches
+
+
+def importable(name):
+    import importlib
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        return False
+    return True
+
+
+def write_hdf5(root, args):
+    """``HDF5_TRAJS`` flagship-shaped trajectories (the trainer's synthetic
+    batches as uint8) written by the port's ``HDF5Saver`` into the bucketed
+    layout under ``root``."""
+    from visual_foresight_torch.agent.utils.hdf5_saver import HDF5Saver
+    from visual_foresight_torch.training.train_predictor import (
+        synthetic_batches)
+    seq = args.sequence_length
+    saver = HDF5Saver(root, {'max_num_actions': seq}, {'T': seq},
+                      traj_per_file=HDF5_PER_FILE, split=(1.0, 0.0, 0.0))
+    batches = synthetic_batches(args, seed=4)
+    i = 0
+    while i < HDF5_TRAJS:
+        batch = next(batches)
+        for b in range(len(batch['images'])):
+            obs = {'images': np.round(batch['images'][b] * 255).astype(
+                np.uint8)[:, None], 'state': batch['states'][b]}
+            saver.save_traj(i, {}, obs, [{'actions': a}
+                                         for a in batch['actions'][b]])
+            i += 1
+
+
+def train_from_hdf5(args):
+    """``write_hdf5``'s trajectories under ``args.data_dir``, then
+    ``args.steps`` train steps from them through the RoboNet reader, logged
+    every step: every logged value finite.  Returns (the history, the wall
+    seconds)."""
+    from visual_foresight_torch.training.train_predictor import train
+    write_hdf5(args.data_dir, args)
+    t0 = time.perf_counter()
+    history, _ = train(args)
+    if args.device != 'cpu':
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(history) != args.steps or not all(
+            np.isfinite([h[k] for k in h]).all() for h in history):
+        raise AssertionError('training from HDF5: {}'.format(history))
+    return history, wall
+
+
+def collect_sawyer(root, gl):
+    """``SAWYER_CUT`` (two ``collect_sawyer_arm.py`` trajectories of T 6)
+    through ``sim.run.main`` with MuJoCo on the GL backend ``gl``, into
+    ``root``: two trajectories recorded and read back.  Returns the wall
+    seconds."""
+    from visual_foresight_torch.data.dataset_reader import BaseVideoDataset
+    from visual_foresight_torch.sim import run
+    cut = os.path.join(root, 'cut.py')
+    with open(cut, 'w') as f:
+        f.write(SAWYER_CUT.format(src=SAWYER_TWIN, root=root,
+                                  out=os.path.join(root, 'data')))
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, MUJOCO_GL=gl):
+        run.main([cut])
+    wall = time.perf_counter() - t0
+    records = os.path.join(root, 'data', 'records')
+    n = 0
+    for mode in ('train', 'val', 'test'):
+        if os.listdir(os.path.join(records, mode)):
+            ds = BaseVideoDataset(records, 1, hparams_dict={
+                'shuffle': False, 'num_epochs': 1})
+            n += len(list(ds.numpy_iterator(keys=('images',), mode=mode)))
+            ds.close()
+    if n != 2:
+        raise AssertionError('collect_sawyer_arm: {} trajectories recorded'
+                             .format(n))
+    return wall
+
+
+def run_or_wait(root, card, gl):
+    """What the card machine may lack: ``train_from_hdf5`` at the
+    flagship's widths (``HDF5_STEPS`` steps, tail launches counted) where
+    ``h5py`` and ``imageio`` import; ``collect_sawyer`` where MuJoCo renders
+    (``gl``); else one line for each that waits.  Returns the launches by
+    path."""
+    paths = {}
+    missing = [n for n in ('h5py', 'imageio') if not importable(n)]
+    if missing:
+        print('RoboNet reader (data/robonet_reader.py, train_predictor '
+              '--data_dir on HDF5): waits for {} on the card machine; held '
+              'against the JAX package on the CPU '
+              '(tests/test_torch_robonet.py)'.format(' and '.join(missing)))
+    else:
+        args = train_args(os.path.join(WEIGHTS, 'model_config.json'),
+                          batch_size=TRAIN_BATCH, steps=HDF5_STEPS,
+                          log_every=1, data_dir=os.path.join(root, 'hdf5'))
+        reset_train_counts()
+        history, wall = train_from_hdf5(args)
+        paths['train_hdf5_xz_flagship'] = read_train_counts(
+            'flagship training from HDF5 (RoboNet reader)', HDF5_STEPS,
+            args.sequence_length - 1)
+        print('RoboNet reader: {} trajectories written by HDF5Saver, {} '
+              'flagship steps from them in {:.1f} s, loss {:.5f} to {:.5f} '
+              '[{}]'.format(HDF5_TRAJS, HDF5_STEPS, wall,
+                            history[0]['loss'], history[-1]['loss'], card))
+    if gl is None:
+        print('sawyer MuJoCo envs (envs/mujoco_env/sawyer_env, '
+              'campaigns/collect_sawyer_arm.py, collect_sawyer_grasp.py): '
+              'wait for MuJoCo on the card machine (no mujoco that renders '
+              'here); held against the JAX package on the CPU '
+              '(tests/test_torch_sawyer.py)')
+        return paths
+    sawyer = os.path.join(root, 'sawyer')
+    os.makedirs(sawyer)
+    wall = collect_sawyer(sawyer, gl)
+    print('sawyer arm collection ({}): 2 trajectories of T 6 recorded and '
+          'read back in {:.1f} s'.format(gl, wall))
+    return paths
+
+
+def drive_tf1_and_tools(card, gl):
+    """Phase 9: the TF1 bundle served and replanned, the data tools and
+    profiling on the card, and what waits.  Returns the launches by
+    path."""
+    root = tempfile.mkdtemp(prefix='chip_smoke_tf1_')
+    try:
+        tf1_root = os.path.join(root, 'tf1')
+        paths, predictor, replan = drive_tf1(tf1_root, card)
+        paths['visualize_predictions'] = drive_tools(root, tf1_root, card)
+        paths['profiled_replan'] = drive_profiling(root, predictor, replan,
+                                                   card)
+        paths.update(run_or_wait(root, card, gl))
         return paths
     finally:
         shutil.rmtree(root)
@@ -3511,10 +3978,18 @@ def main():
     # human-scored replan, and a line for what waits (MuJoCo, h5py)
     collection = drive_collection(card, gl)
     paths.update(collection)
-    campaign_launches = sum(
+
+    # -- 9. the flagship served from a TF1 bundle (export, import, the
+    # replan against the numpy restore's), visualize_predictions and
+    # check_dataset on records, one replan under device_trace and
+    # PhaseTimer, and the RoboNet reader and sawyer envs where their
+    # packages import, else a line for each
+    paths.update(drive_tf1_and_tools(card, gl))
+    extra_path_launches = sum(
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
-        p in ('offline_replay', 'human_cem'))
+        p in ('offline_replay', 'human_cem', 'numpy_replan_200',
+              'tf1_replan_200', 'visualize_predictions', 'profiled_replan'))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
@@ -3527,9 +4002,11 @@ def main():
         'source': 'visual_foresight_torch/csrc/cdna_tail.cu',
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
         # the controller path, the campaign's (the dump and the scored
-        # campaigns) and data collection's (the offline replay, the human
-        # CEM)
-        'launches': paths['controller']['cdna_tail'] + campaign_launches,
+        # campaigns), data collection's (the offline replay, the human
+        # CEM) and phase 9's serving paths (the TF1 and numpy replans,
+        # visualize_predictions, the profiled replan); training paths are
+        # in launches_by_path alone
+        'launches': paths['controller']['cdna_tail'] + extra_path_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],

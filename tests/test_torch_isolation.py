@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``visual_foresight_torch``
 and ``chip_smoke`` pulls in neither JAX nor the JAX package (nor ``h5py``,
 ``cv2``, ``google_crc32c``, ``mujoco``, ``imageio`` or ``matplotlib``, which
-the card machine may lack), and its entry points (the predictor, the
+the card machine may lack; every module imports with those and
+``ml_dtypes`` blocked), and its entry points (the predictor, the
 planner, the controllers, the trainers of the planning costs' networks and
 the campaign runner, with ``--benchmark`` and, on the offline replay,
 without it) refuse to fall back to the CPU when no card is present; random
@@ -40,6 +41,57 @@ def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     proc = subprocess.run([sys.executable, '-c', _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the packages the card machine lacks, blocked outright: every module still
+# imports (the TF1 codec, the RoboNet reader, the sawyer envs and the tools
+# among them), and the RoboNet reader names h5py when it is built
+_BLOCKED = r'''
+import importlib, pkgutil, sys
+for name in ('h5py', 'imageio', 'mujoco', 'cv2', 'google_crc32c',
+             'ml_dtypes'):
+    sys.modules[name] = None
+import visual_foresight_torch as pkg
+names = [m.name for m in
+         pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+from visual_foresight_torch.data import robonet_reader, tfrecord_io
+assert tfrecord_io.crc32c_impl() is tfrecord_io.crc32c_numpy
+try:
+    robonet_reader.RoboNetTrajReader(sys.argv[1], 1)
+except ImportError as e:
+    assert 'h5py' in str(e), e
+else:
+    sys.exit('the RoboNet reader was built without h5py')
+print(len(names))
+'''
+
+NEW_MODULES = ('prediction.tf1_bundle', 'prediction.tf1_import',
+               'utils.profiling', 'utils.check_dataset',
+               'training.visualize_predictions', 'data.robonet_reader',
+               'envs.robot_envs.util.kinematics',
+               'envs.robot_envs.sawyer.inverse_kinematics',
+               'envs.mujoco_env.sawyer_env.arm_model',
+               'envs.mujoco_env.sawyer_env.sawyer_arm_env',
+               'envs.mujoco_env.sawyer_env.base_sawyer_env',
+               'campaigns.collect_sawyer_arm',
+               'campaigns.collect_sawyer_grasp')
+
+
+def test_port_imports_without_the_packages_the_card_machine_lacks(tmp_path):
+    import pkgutil
+    import visual_foresight_torch as pkg
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + '.')}
+    assert {'visual_foresight_torch.' + m for m in NEW_MODULES} <= names
+    open(str(tmp_path / 'traj0.hdf5'), 'wb').close()
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, '-c', _BLOCKED, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

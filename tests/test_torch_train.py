@@ -419,11 +419,15 @@ def test_trained_checkpoint_serves_from_torch_predictor(tmp_path):
 
 # -- the trainer's entry and the tail's gradient guards ---------------------
 
-@pytest.mark.parametrize('flag', [dict(data_dir='records'),
-                                  dict(n_devices=2)],
-                         ids=['data_dir', 'n_devices'])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+# --data_dir without manifest.pkl reads HDF5 trajectories: where there are
+# none, the RoboNet reader raises as JAX's discover does
+@pytest.mark.parametrize('flag,error,match', [
+    (dict(data_dir='records'), FileNotFoundError,
+     'no hdf5 trajectories under records'),
+    (dict(n_devices=2), NotImplementedError, 'ROADMAP.md')],
+    ids=['data_dir', 'n_devices'])
+def test_unported_flags_raise(flag, error, match):
+    with pytest.raises(error, match=match):
         ttrain.train(_args(steps=1, **flag))
 
 

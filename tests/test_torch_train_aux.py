@@ -16,8 +16,9 @@ predictor trainer's ``--data_dir`` path.
   element by up to twice the rate.
 - ``record_batches`` equals JAX's (``--loader python``) bit for bit;
   ``train_predictor --data_dir`` trains at tiny widths on the CPU through
-  either loader; a directory without ``manifest.pkl`` raises and names the
-  RoboNet reader's ``ROADMAP.md`` item.
+  either loader; a directory without ``manifest.pkl`` goes to the RoboNet
+  reader, which raises ``FileNotFoundError`` where it finds no HDF5
+  trajectory, as JAX's does.
 - A port-trained ``params.npz`` restores through ``restore_network`` (the
   same outputs exactly) and, through ``params_to_flax`` and the file alike,
   into the JAX network with outputs equal within atol 1e-5.
@@ -268,11 +269,15 @@ def test_predictor_trains_from_records(shard, tmp_path, loader):
 
 
 def test_data_dir_without_manifest_names_the_robonet_item(tmp_path):
+    """A directory without ``manifest.pkl`` goes to the RoboNet reader,
+    which raises on one that holds no HDF5 trajectories, as JAX's does."""
     args = tp.build_argparser().parse_args(_predictor_argv(
         str(tmp_path), '--device', 'cpu', '--steps', '1'))
-    with pytest.raises(NotImplementedError,
-                       match=r'RoboNet reader.*ROADMAP\.md queue 1'):
+    match = 'no hdf5 trajectories under {}'.format(tmp_path)
+    with pytest.raises(FileNotFoundError, match=match):
         tp.train(args)
+    with pytest.raises(FileNotFoundError, match=match):
+        next(jp.record_batches(args))
 
 
 # -- a trained network served ---------------------------------------------------------

@@ -14,13 +14,15 @@ One ``CDNAPredictor`` module per camera lives in ``predictor.models``; it
 is any architecture ``TPUPredictor`` builds (the classic backbone by
 default, the space-to-depth one, DNA, ``fuse_decode``; ``s2d_tail`` is taken
 and runs the full-resolution tail), as the hparams and the checkpoint's
-``model_config.json`` say.  Weights come from a
-numpy parameter file (``params.npz``: the flax tree flattened with
-'/'-joined keys) in each ``view<c>/`` directory, or from a seeded
-initialization.
+``model_config.json`` say.  Weights come from each ``view<c>/`` directory:
+its highest-step TF1 TensorBundle (``model-<N>.index`` and its data shards,
+imported through ``tf1_import``), else its numpy parameter file
+(``params.npz``: the flax tree flattened with '/'-joined keys), else a
+seeded initialization.
 """
 
 import copy
+import glob
 import json
 import os
 import warnings
@@ -31,9 +33,11 @@ import torch
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import CDNAPredictor
 from visual_foresight_torch.models.convert import (PARAMS_FILE,
-                                                   load_flax_params, read_npz,
+                                                   load_flax_params,
+                                                   params_to_flax, read_npz,
                                                    seeded_state,
                                                    unflatten_flax)
+from visual_foresight_torch.prediction import tf1_import
 # seed of the latent draw when ``__call__`` is given neither a generator nor
 # a latent (the JAX package then uses ``PRNGKey(0)``; the two streams differ)
 DEFAULT_LATENT_SEED = 0
@@ -163,23 +167,22 @@ class TorchPredictor:
         return self
 
     def restore(self):
-        """Load each camera's ``view<c>/params.npz``; where a view has none,
-        warn and use weights seeded with the camera index (``restored``
-        turns False), as ``TPUPredictor.restore`` does.  The architecture
-        in ``model_config.json`` was adopted when the predictor was built."""
+        """Load each camera's weights from ``view<c>/`` (``load_view``: its
+        latest TF1 bundle, else its ``params.npz``); where a view has
+        neither, warn and use weights seeded with the camera index
+        (``restored`` turns False), as ``TPUPredictor.restore`` does.  A
+        bundle or file that does not load raises.  The architecture in
+        ``model_config.json`` was adopted when the predictor was built."""
         states = []
         self.restored = True
         for c in range(self.n_cam):
-            path = os.path.join(str(self._model_path), 'view{}'.format(c),
-                                PARAMS_FILE)
-            if os.path.isfile(path):
-                load_flax_params(self.model, unflatten_flax(read_npz(path)))
+            view_dir = os.path.join(str(self._model_path), 'view{}'.format(c))
+            if load_view(self.model, view_dir) is not None:
                 states.append({k: v.clone() for k, v in
                                self.model.state_dict().items()})
-                print('restored predictor params from {}'.format(path))
             else:
-                warnings.warn('no numpy params at {}; using seeded random '
-                              'weights'.format(path))
+                warnings.warn('no TF1 bundle or numpy params in {}; using '
+                              'seeded random weights'.format(view_dir))
                 states.append(self.init_params(seed=c))
                 self.restored = False
         return self.set_params(states)
@@ -253,6 +256,44 @@ class TorchPredictor:
             'predicted_pixel_distributions':
                 _to_host(torch.stack(gen_d, dim=2)),
         }
+
+
+def latest_tf1_prefix(view_dir):
+    """Highest-step TF1 bundle prefix (``model-<N>.index``) in
+    ``view_dir``, or None: the reference's latest-iteration glob applied to
+    TF1 checkpoints (``setup_predictor.py:12-28``), as
+    ``TPUPredictor._latest_tf1_prefix``."""
+    best, best_step = None, -1
+    for idx in glob.glob(os.path.join(view_dir, '*.index')):
+        prefix = idx[:-len('.index')]
+        digits = ''.join(ch for ch in prefix.rsplit('-', 1)[-1]
+                         if ch.isdigit())
+        step = int(digits) if digits else 0
+        if step > best_step:
+            best, best_step = prefix, step
+    return best
+
+
+def load_view(model, view_dir):
+    """Load ``view_dir``'s weights into ``model``: its highest-step TF1
+    bundle, imported into the flax-keyed tree (suffix-matched, shapes
+    checked), else its ``params.npz``.  Returns the prefix or file loaded,
+    or None where the directory holds neither.  A corrupt bundle, a
+    missing tensor or shard, or a shape that disagrees raises."""
+    prefix = latest_tf1_prefix(view_dir)
+    if prefix is not None:
+        template = params_to_flax(model.state_dict())
+        tree, report = tf1_import.import_tf1_checkpoint(prefix, template)
+        load_flax_params(model, tree)
+        print('imported TF1 checkpoint {} ({} tensors)'.format(
+            prefix, len(report['matched'])))
+        return prefix
+    path = os.path.join(view_dir, PARAMS_FILE)
+    if os.path.isfile(path):
+        load_flax_params(model, unflatten_flax(read_npz(path)))
+        print('restored predictor params from {}'.format(path))
+        return path
+    return None
 
 
 def _to_host(t):

@@ -22,7 +22,9 @@ moments per leaf) under ``opt/opt_state.npz``.
 With ``--data_dir`` the batches come from collected GZIP-TFRecord shards
 (``record_batches``): the native ingest engine by default, the Python reader
 with ``--loader python``; the frames cross to the card as uint8 and are cast
-there (``data/fused_ingest.py::device_ingest``).
+there (``data/fused_ingest.py::device_ingest``).  A directory without
+``manifest.pkl`` holds HDF5 trajectories, read by
+``data/robonet_reader.py``.
 
 CLI (``--device cpu`` runs the plain PyTorch path on the CPU)::
 
@@ -30,7 +32,7 @@ CLI (``--device cpu`` runs the plain PyTorch path on the CPU)::
         --model_dir <ckpt dir> [--data_dir <records>] [--steps N] ...
 
 Training over several cards (``--n_devices`` > 1) is not ported yet and
-raises, as does a ``--data_dir`` of HDF5 (RoboNet) trajectories.
+raises.
 """
 
 import argparse
@@ -355,19 +357,23 @@ def synthetic_batches(args, seed=0):
 
 
 def record_batches(args):
-    """Batches from collected TFRecords: ``{'images': uint8 (B, T, H, W,
-    3), 'actions': f32 (B, T-1, adim), 'states': f32 (B, T, sdim)}`` of
-    camera ``--camera``, cut to ``--sequence_length``.  The shards (a
-    directory with ``manifest.pkl``) go through ``fused_ingest.make_loader``:
-    the native engine, or the threaded Python reader with ``--loader
-    python`` or where the engine cannot be built.  Raises at once on a
-    directory without ``manifest.pkl``: HDF5 (RoboNet) trajectories need
-    the RoboNet reader, not ported yet."""
+    """Batches from collected TFRecords or RoboNet-format HDF5: ``{'images':
+    uint8 (B, T, H, W, 3), 'actions': f32 (B, T-1, adim), 'states': f32 (B,
+    T, sdim)}`` of camera ``--camera``, cut to ``--sequence_length``.
+    TFRecord shards (a directory with ``manifest.pkl``) go through
+    ``fused_ingest.make_loader``: the native engine, or the threaded Python
+    reader with ``--loader python`` or where the engine cannot be built.
+    Any other directory holds HDF5 trajectories (RoboNet traj-per-file or
+    the bucketed ``HDF5Saver`` layout) and goes through
+    ``data/robonet_reader.RoboNetTrajReader``, which raises
+    ``FileNotFoundError`` where it finds none."""
     if not os.path.isfile(os.path.join(args.data_dir, 'manifest.pkl')):
-        raise NotImplementedError(
-            '{} holds no manifest.pkl; HDF5 (RoboNet) trajectories need the '
-            'RoboNet reader, which is not ported yet: it needs h5py, cv2 and '
-            'imageio (ROADMAP.md queue 1, item 9)'.format(args.data_dir))
+        from visual_foresight_torch.data.robonet_reader import (
+            RoboNetTrajReader)
+        loader = RoboNetTrajReader(args.data_dir, args.batch_size,
+                                   sequence_length=args.sequence_length,
+                                   seed=args.seed)
+        return _camera_batches(loader, args)
     from visual_foresight_torch.data import fused_ingest
     loader = fused_ingest.make_loader(
         args.data_dir, args.batch_size, prefer_native=args.loader != 'python',

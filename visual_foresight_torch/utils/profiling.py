@@ -1,0 +1,73 @@
+"""Replan-phase profiling hooks.
+
+The port's counterpart of ``visual_foresight_tpu/utils/profiling.py``.
+``PhaseTimer`` accumulates the host's wall time of named phases (with the
+same ``report`` keys as the JAX timer) and marks each phase in a profiler
+trace with ``torch.profiler.record_function``, where JAX uses
+``jax.profiler.TraceAnnotation``.  ``device_trace`` records a
+``torch.profiler`` trace (the CUDA activity too where a card is present)
+and writes it as a chrome trace into a directory, where JAX's writes a
+``jax.profiler`` trace.
+"""
+
+import contextlib
+import json
+import time
+from collections import defaultdict
+
+import torch
+
+
+class PhaseTimer:
+    """Accumulating wall-clock phase timer with JSON reporting."""
+
+    def __init__(self):
+        self._totals = defaultdict(float)
+        self._counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        with torch.profiler.record_function(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self._totals[name] += dt
+                self._counts[name] += 1
+
+    def report(self):
+        out = {}
+        for name, total in sorted(self._totals.items(),
+                                  key=lambda kv: -kv[1]):
+            n = self._counts[name]
+            out[name] = {'total_s': round(total, 4), 'count': n,
+                         'mean_ms': round(total / n * 1e3, 3)}
+        return out
+
+    def log(self, logger=None):
+        line = json.dumps(self.report())
+        if logger is not None:
+            logger.log(line)
+        else:
+            print(line)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir):
+    """Record a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA activity where a card is present) and write it into ``log_dir`` as
+    a chrome trace (``<host>_<pid>.<time>.pt.trace.json``, which
+    TensorBoard's profiler plugin and ``chrome://tracing`` read).  Yields
+    the profiler, whose ``events()`` hold the same records."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) \
+            as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()

@@ -212,7 +212,25 @@
    HDF5 written by the port's ``HDF5Saver`` and 5 flagship train steps
    from it where ``h5py`` and ``imageio`` import, and two
    ``collect_sawyer_arm.py`` trajectories of T 6 where MuJoCo renders,
-   else one line for each that waits.
+   else one line for each that waits;
+11. the robot path (``main``'s phase 10): the port's camera node
+   (``native/camera_stream.cpp``) built by ``ops/_build.py`` and started
+   twice in ``--test-pattern`` mode at 640x480 on the channels that the
+   twin's topics name; a two-view model directory (view 0 ag_r5f_v2, view 1
+   ag_r5f_v2 plus seeded noise); ``RobotEnvironment`` of
+   ``sim/run_robot.py`` on ``campaigns/robot_sawyer_pixel_cost.py`` with
+   ``--benchmark``, a kinematic fake arm (``FakeArm``), seeded clicks for
+   ``select_points`` and a script for ``input()``: 2 trajectories of T 20
+   (2 replans each, 600 samples x 15 steps x 3 iterations, 2 views, bf16:
+   92 tiled launches a replan), each replan's launches counted and timed
+   (host clock, CUDA events), the raw folders (a JPEG a frame and camera,
+   the pickles, ``env_metadata.json``), ``checkpoint.pkl``, the stats
+   against the clicks by hand, each camera's clip an mp4 (an ``ftyp`` box,
+   T or more frames read back; where the file worker cannot open an mp4
+   writer, a line says that the clips wait, and the run goes again without
+   them); then a third trajectory under ``resume``; then the first replan
+   again in f32 on the same context and draws, with the kernel and with
+   the plain tail: scores within rtol 1e-4 and the same elites.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -1116,24 +1134,39 @@ def drive_replan_200():
     return launches, latencies, replan, contexts, plan_gen
 
 
-def check_plain_tail_replan(replan, contexts, plan_gen):
-    """The same 200-sample replan with the plain tail on the card."""
+def check_plain_tail_replan(replan, label, k, rtol=SCORE_RTOL,
+                            per_element=False, same_elites=False):
+    """``replan()`` (one replan on fixed inputs and draws, returning its
+    scores by iteration and its elites) once with the tail kernel and once
+    with the plain tail on the card: the scores within ``rtol``
+    (``compare_scores``) and, with ``same_elites``, the same elites."""
     from visual_foresight_torch.models import cdna as cdna_model
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_reference)
-    noise = torch.randn((ITERS, M, NACT * 3), generator=plan_gen,
-                        device='cuda')
-    images, states = contexts[0]
-    out_k = replan(images, states, noise=noise)
+    scores_k, elites_k = replan()
     cdna_model.fused_warp_composite = fused_warp_composite_reference
     try:
-        out_p = replan(images, states, noise=noise)
+        scores_p, elites_p = replan()
     finally:
         cdna_model.fused_warp_composite = fused_warp_composite
     torch.cuda.synchronize()
-    compare_scores('replan kernel vs plain tail', out_k['scores_per_itr'],
-                   out_p['scores_per_itr'], out_k['best_scores'].shape[0],
-                   SCORE_RTOL)
+    same, _ = compare_scores(label, scores_k, scores_p, k, rtol, per_element)
+    if same_elites and (not same or not np.array_equal(elites_k, elites_p)):
+        raise AssertionError('{}: the plain tail chose other elites'.format(
+            label))
+
+
+def check_plain_tail_replan_200(replan, contexts, plan_gen):
+    """The same 200-sample replan with the plain tail on the card."""
+    noise = torch.randn((ITERS, M, NACT * 3), generator=plan_gen,
+                        device='cuda')
+    images, states = contexts[0]
+
+    def run():
+        out = replan(images, states, noise=noise)
+        return out['scores_per_itr'], None
+    # replan_200's planner keeps 10 elites
+    check_plain_tail_replan(run, 'replan kernel vs plain tail', 10)
 
 
 def with_sampler(policy, name):
@@ -2698,31 +2731,60 @@ class ReplanClock(object):
     """Inside the block, every ``perform_CEM`` of ``cls``
     (``PixelCostController`` by default; the class's, so it reaches the
     controller that a runner builds) is timed on the host clock between two
-    calls of ``sync``: ``ms`` holds the replans' times, ``ctrls`` the last
-    controller that planned."""
+    calls of ``sync``, and with a card also between two CUDA events:
+    ``ms`` holds the replans' host times, ``span_ms`` their spans on the
+    card, ``launches`` the tail launches of each, ``ctrls`` the last
+    controller that planned, and ``acts`` a copy of the arguments of every
+    ``act()`` at ``t`` = 1."""
 
     def __init__(self, sync, cls=None):
         from visual_foresight_torch.policy.cem_controllers import (
             PixelCostController)
         self._cls, self._sync = cls or PixelCostController, sync
-        self.ms, self.ctrls = [], []
+        self.ms, self.span_ms, self.launches, self.acts = [], [], [], []
+        self.ctrls = []
 
     def __enter__(self):
+        import copy
+        import functools
+        from visual_foresight_torch.ops.cdna_tail import fused_warp_composite
         plan = self._plan = self._cls.perform_CEM
+        act = self._act = self._cls.act
+        events = torch.cuda.is_available()
 
         def timed_plan(ctrl, state):
             self.ctrls[:] = [ctrl]
+            n0 = fused_warp_composite.launches
+            if events:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
             self._sync()
             t0 = time.perf_counter()
+            if events:
+                start.record()
             plan(ctrl, state)
+            if events:
+                end.record()
             self._sync()
             self.ms.append((time.perf_counter() - t0) * 1e3)
+            if events:
+                self.span_ms.append(start.elapsed_time(end))
+            self.launches.append(fused_warp_composite.launches - n0)
+
+        @functools.wraps(act)     # the agent reads act()'s signature
+        def recorded_act(ctrl, *args, **kw):
+            if kw.get('t') == 1:
+                self.acts.append(copy.deepcopy(
+                    {k: v for k, v in kw.items() if k != 'verbose_worker'}))
+            return act(ctrl, *args, **kw)
 
         self._cls.perform_CEM = timed_plan
+        self._cls.act = recorded_act
         return self
 
     def __exit__(self, *exc):
         self._cls.perform_CEM = self._plan
+        self._cls.act = self._act
 
 
 def check_campaign(name, result_dir, hp, replans, launches, per_replan,
@@ -3642,6 +3704,465 @@ def drive_tf1_and_tools(card, gl):
         shutil.rmtree(root)
 
 
+# -- the robot path --------------------------------------------------------------
+# campaigns/robot_sawyer_pixel_cost.py (the twin of experiments/sawyer/
+# pixel_cost/hparams.py) through sim/run_robot.py's RobotEnvironment: a
+# kinematic fake arm, two test-pattern camera nodes at 640x480 on channels
+# of this process (``robot_cameras``: the twin's topics /camera0/image_raw
+# and /camera1/image_raw with the pid added, so that two runs on one machine
+# never share a ring), and a two-view model directory (view 0 ag_r5f_v2, view 1 ag_r5f_v2
+# plus seeded noise); 2 trajectories of T 20 (a replan at t=1 and t=11,
+# each 2 views x (1 + 3 x 15) = 92 launches at B=600), then a third resumed
+ROBOT_TWIN = os.path.join(REPO, 'visual_foresight_torch', 'campaigns',
+                          'robot_sawyer_pixel_cost.py')
+ROBOT_NAME = 'vestri'         # a sawyer of envs/robot_envs/robot_configs.json
+ROBOT_FRAME = (480, 640)      # the nodes' frames, the twin's IMTopic size
+ROBOT_CAM_NAMES = ('front', 'left')
+ROBOT_VIEW1_SEED = 91
+ROBOT_CLICK_SEED = 15
+ROBOT_MOVE_S = 0.1            # a fake move's time, recorded by the cameras
+ROBOT_F32_SEED = 3
+
+
+class FakeArm(object):
+    """A kinematically exact fake arm with the surface of the robot
+    controllers (``tests/test_robot_env.py::FakeController``'s), given to
+    the robot env as its ``robot_type``.  A move takes ``move_s`` seconds,
+    so that the cameras record frames meanwhile."""
+
+    move_s = ROBOT_MOVE_S
+
+    def __init__(self, robot_name, print_debug=False, email_cred_file='',
+                 log_file='', gripper_attached='none'):
+        self._xyz = np.array([0.6, 0.0, 0.25])
+        self._yaw = 0.0
+        self._gripper = 1.0   # open fraction
+
+    def get_gripper_state(self, integrate_force=False):
+        return self._gripper, None
+
+    def get_gripper_limits(self):
+        return 0.0, 1.0
+
+    def open_gripper(self, wait=False):
+        self._gripper = 1.0
+
+    def close_gripper(self, wait=False):
+        self._gripper = 0.0
+
+    def quat_2_euler(self, quat):
+        from scipy.spatial.transform import Rotation
+        yaw, pitch, roll = Rotation.from_quat(
+            np.roll(np.asarray(quat), -1)).as_euler('ZYX')
+        return np.array([yaw, pitch, roll])
+
+    def euler_2_quat(self, yaw=0.0, pitch=0.0, roll=0.0):
+        from scipy.spatial.transform import Rotation
+        return np.roll(Rotation.from_euler(
+            'ZYX', [yaw, pitch, roll]).as_quat(), 1)
+
+    def get_state(self):
+        return np.zeros(7), np.zeros(7), self.get_cartesian_pose()
+
+    def get_cartesian_pose(self):
+        return np.concatenate([self._xyz, self.euler_2_quat(self._yaw)])
+
+    def get_xyz_quat(self):
+        eep = self.get_cartesian_pose()
+        return eep[:3], eep[3:]
+
+    def move_to_eep(self, target_pose, duration=1.5):
+        time.sleep(self.move_s)
+        self._xyz = np.asarray(target_pose[:3])
+        self._yaw = self.quat_2_euler(target_pose[3:])[0]
+
+    def move_to_neutral(self, duration=2.0):
+        self._xyz = np.array([0.6, 0.0, 0.25])
+        self._yaw = 0.0
+
+    def redistribute_objects(self):
+        pass
+
+
+class ScriptedClicks(object):
+    """``select_points`` answered from a seeded stream of pixels inside the
+    frames; ``calls`` keeps each call's prefix and answer."""
+
+    def __init__(self, seed):
+        self._rng = np.random.RandomState(seed)
+        self.calls = []
+
+    def _draw(self, ncam, n_desig, h, w):
+        return np.stack([self._rng.randint(0, (h, w), (n_desig, 2))
+                         for _ in range(ncam)]).astype(np.int64)
+
+    def __call__(self, images, cam_names, prefix, save_dir=None,
+                 clicks_per_desig=2, n_desig=1):
+        ncam, h, w = images.shape[:3]
+        out = self._draw(ncam, n_desig, h, w)
+        if clicks_per_desig == 2:
+            out = (out, self._draw(ncam, n_desig, h, w))
+        self.calls.append((prefix, out))
+        return out
+
+
+class ScriptedPrompts(object):
+    """``input()`` answered from a script: yes to the goal definition's
+    check, no to the retry question, enter to the others (the safe-neutral
+    and annotation prompts); ``seen`` keeps the prompts."""
+
+    def __init__(self):
+        self.seen = []
+
+    def __call__(self, prompt=''):
+        self.seen.append(prompt)
+        if 'definition okay' in prompt:
+            return 'y'
+        if 'retry' in prompt:
+            return 'n'
+        return ''
+
+
+def robot_cameras():
+    """The twin's two cameras on channels of this process: the node
+    channels, and the twin's topics on them (camera 0 flipped, as in
+    ``campaigns/robot_sawyer_pixel_cost.py``)."""
+    from visual_foresight_torch.envs.robot_envs.util.topic_utils import (
+        IMTopic)
+    pid = os.getpid()
+    channels = ['camera{}_image_raw_{}'.format(i, pid) for i in range(2)]
+    topics = [IMTopic('/camera{}/image_raw_{}'.format(i, pid), flip=i == 0)
+              for i in range(2)]
+    return channels, topics
+
+
+class CameraNodes(object):
+    """The port's camera node (``native/camera_stream.cpp``), built at
+    first use, started in ``--test-pattern`` mode on each of ``channels``;
+    on exit each is stopped and its ``/dev/shm`` ring unlinked.  A ring left
+    on a channel is removed first, so only the node's own ring counts as its
+    start.  A node that does not build or start raises."""
+
+    def __init__(self, channels, height, width, fps=30):
+        self._channels, self._size = channels, (height, width)
+        self._fps, self._procs = fps, []
+
+    def __enter__(self):
+        from visual_foresight_torch.native import start_cameras
+        exe = start_cameras.ensure_built()
+        h, w = self._size
+        try:
+            for ch in self._channels:
+                if os.path.exists(self.ring(ch)):
+                    os.remove(self.ring(ch))
+                self._procs.append(subprocess.Popen(
+                    [exe, '--channel', ch, '--test-pattern', '--width',
+                     str(w), '--height', str(h), '--fps', str(self._fps)],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+            deadline = time.time() + 10
+            for ch, proc in zip(self._channels, self._procs):
+                while not os.path.exists(self.ring(ch)):
+                    if proc.poll() is not None or time.time() > deadline:
+                        raise RuntimeError('the camera node on {} did not '
+                                           'start (exit {})'.format(
+                                               ch, proc.poll()))
+                    time.sleep(0.05)
+        except BaseException:
+            self.__exit__()
+            raise
+        return exe
+
+    @staticmethod
+    def ring(channel):
+        return '/dev/shm/vftpu_cam_' + channel
+
+    def __exit__(self, *exc):
+        for proc in self._procs:
+            proc.terminate()
+            try:
+                proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        for ch in self._channels:
+            if os.path.exists(self.ring(ch)):
+                os.remove(self.ring(ch))
+
+
+def robot_model_dir(root):
+    """The two-view model directory of the robot twin: ``view0/`` the
+    numpy export of ag_r5f_v2, ``view1/`` the same plus seeded noise (as
+    ``predictor_dirs`` makes registration's second view)."""
+    from visual_foresight_torch.models.convert import perturbed_flat, read_npz
+    flat = read_npz(os.path.join(AG_WEIGHTS, 'view0', 'params.npz'))
+    for v, views in enumerate((flat, perturbed_flat(flat, ROBOT_VIEW1_SEED,
+                                                    COPY_SCALE))):
+        os.makedirs(os.path.join(root, 'view{}'.format(v)))
+        np.savez(os.path.join(root, 'view{}'.format(v), 'params.npz'),
+                 **views)
+    shutil.copyfile(os.path.join(AG_WEIGHTS, 'model_config.json'),
+                    os.path.join(root, 'model_config.json'))
+    return root
+
+
+def robot_config(model_dir, result_dir, end_index, save_video=True,
+                 **cut):
+    """The twin's config for ``RobotEnvironment``: the fake arm, the
+    weights of ``model_dir`` (as ``VMPC_MODEL_DIR`` gives them), the
+    results under ``result_dir`` (as ``RESULT_DIR`` gives them) and
+    ``end_index``; ``cut`` updates the agent, the env and the policy
+    (``agent``, ``env``, ``policy`` dicts) for a run at a small size."""
+    import copy
+    from visual_foresight_torch.sim.run import load_config
+    with mock.patch.dict(os.environ, VMPC_MODEL_DIR=model_dir):
+        config = copy.deepcopy(load_config(ROBOT_TWIN))
+    env = config['agent']['env'][1]
+    env.update(robot_name=ROBOT_NAME, robot_type=FakeArm,
+               save_video=save_video, **cut.get('env', {}))
+    config['agent'].update(data_save_dir=result_dir, **cut.get('agent', {}))
+    config['policy'].update(cut.get('policy', {}))
+    config['end_index'] = end_index
+    return config
+
+
+def run_robot_twin(config, clock, resume=False):
+    """``RobotEnvironment`` of the port's ``sim/run_robot.py`` on
+    ``config`` with ``--benchmark`` (``resume``: ``-r``), the clicks and
+    prompts scripted, inside ``clock`` (a ``ReplanClock``); the cameras'
+    readers stopped and the file worker drained after (``close_robot``).
+    Returns (the clicks, the prompts, the controller).  Raises the file
+    worker's ``Mp4Unwritable`` where it could not open an mp4 writer in a
+    run that went through; a run that failed raises its own error."""
+    from visual_foresight_torch.envs.robot_envs import base_env
+    from visual_foresight_torch.sim import run_robot
+    clicks, prompts = ScriptedClicks(ROBOT_CLICK_SEED), ScriptedPrompts()
+    with mock.patch.object(base_env, 'select_points', clicks), \
+            mock.patch('builtins.input', prompts), clock:
+        robot = run_robot.RobotEnvironment(config, resume=resume,
+                                           benchmark=True)
+        try:
+            robot.run()
+        except BaseException:
+            try:
+                close_robot(robot)
+            except Exception as e:
+                print('robot twin: closing after the failed run: {}: {}'
+                      .format(type(e).__name__, e))
+            raise
+        close_robot(robot)
+    return clicks, prompts, robot.policy
+
+
+def close_robot(robot):
+    """Stop the cameras' readers of ``robot`` (a ``RobotEnvironment``),
+    then drain and stop its file worker, which raises where it failed."""
+    try:
+        robot.agent.env.close()
+    finally:
+        robot.agent.cleanup()
+
+
+def pix_to_width(pix, width, raw_width):
+    """Pixels of a ``raw_width`` frame at ``width``, rounded: the hand
+    computation that the stats are held to."""
+    return np.round(np.asarray(pix, np.float64) * width / raw_width)
+
+
+def check_robot_trajs(result_dir, trajs, clicks, T, save_video, width=W,
+                      raw_width=ROBOT_FRAME[1]):
+    """The raw folders and the stats of trajectories ``trajs``: per camera
+    one JPEG for each frame of ``obs_dict['images']``, the pickles and
+    ``env_metadata.json``; finite actions; states inside the workspace
+    (the xyz fraction in [0, 1], yaw and grip inside the env's bounds);
+    ``final_dist``, ``start_dist`` and ``improvement`` as computed here
+    from the scripted clicks (on frames ``raw_width`` wide, scored at
+    ``width``); with ``save_video`` each camera's clip an mp4 of T or more
+    frames.  Returns the numbers of clip frames."""
+    import cv2
+    bounds = json.load(open(os.path.join(
+        REPO, 'visual_foresight_torch', 'envs', 'robot_envs',
+        'robot_configs.json')))[ROBOT_NAME]
+    lo, hi = np.array(bounds[0]), np.array(bounds[1])
+    goals = [c for c in clicks.calls if c[0] == 'desig_goal']
+    finals = [c for c in clicks.calls if c[0] == 'final']
+    clip_frames = []
+    for k, i in enumerate(trajs):
+        traj = os.path.join(result_dir, 'raw', 'traj_group0',
+                            'traj{}'.format(i))
+        for name in ('agent_data.pkl', 'obs_dict.pkl', 'policy_out.pkl',
+                     'env_metadata.json'):
+            if not os.path.isfile(os.path.join(traj, name)):
+                raise AssertionError('robot traj {}: no {}'.format(i, name))
+        with open(os.path.join(traj, 'obs_dict.pkl'), 'rb') as f:
+            obs = pickle.load(f)
+        with open(os.path.join(traj, 'policy_out.pkl'), 'rb') as f:
+            actions = np.stack([p['actions'] for p in pickle.load(f)])
+        with open(os.path.join(traj, 'agent_data.pkl'), 'rb') as f:
+            stats = pickle.load(f)['stats']
+        for cam in range(len(ROBOT_CAM_NAMES)):
+            jpgs = os.listdir(os.path.join(traj, 'images{}'.format(cam)))
+            if sorted(jpgs) != sorted('im_{}.jpg'.format(t)
+                                      for t in range(T + 1)):
+                raise AssertionError('robot traj {}: images{} holds {}'
+                                     .format(i, cam, sorted(jpgs)))
+        state = obs['state']
+        inside = (state[:, :3] >= -1e-6).all() and \
+            (state[:, :3] <= 1 + 1e-6).all() and \
+            (state[:, 3:] >= lo[3:] - 1e-6).all() and \
+            (state[:, 3:] <= hi[3:] + 1e-6).all()
+        if actions.shape != (T, 4) or not np.isfinite(actions).all() or \
+                state.shape != (T + 1, 5) or not inside:
+            raise AssertionError('robot traj {}: actions {} or states out of '
+                                 'bounds'.format(i, actions.shape))
+        start, goal = (pix_to_width(p, width, raw_width)
+                       for p in goals[k][1])
+        final = pix_to_width(finals[k][1], width, raw_width)
+        want = {'final_dist': np.sqrt(((final - goal) ** 2).sum()),
+                'start_dist': np.sqrt(((start - goal) ** 2).sum())}
+        want['improvement'] = want['start_dist'] - want['final_dist']
+        for key, value in want.items():
+            if not abs(float(stats[key]) - value) <= 1e-9 * max(1, value):
+                raise AssertionError('robot traj {}: {} {} against {} by '
+                                     'hand'.format(i, key, stats[key],
+                                                   value))
+        if save_video:
+            for cam in ROBOT_CAM_NAMES:
+                clip = os.path.join(result_dir, 'bench', 'traj{}'.format(i),
+                                    'recording{}'.format(i),
+                                    '{}_clip.mp4'.format(cam))
+                with open(clip, 'rb') as f:
+                    head = f.read(12)
+                capture, n = cv2.VideoCapture(clip), 0
+                while capture.read()[0]:
+                    n += 1
+                capture.release()
+                if head[4:8] != b'ftyp' or n < T:
+                    raise AssertionError('robot traj {}: {} is no mp4 of T '
+                                         'frames ({!r}, {} frames)'.format(
+                                             i, clip, head[4:8], n))
+                clip_frames.append(n)
+    return clip_frames
+
+
+def robot_runs(model_dir, result, save_video, topics):
+    """The twin's two trajectories through ``run_robot`` on the card, on
+    the camera ``topics``, then a third under ``-r``, each held to
+    ``check_robot_trajs``; the tail counts reset first.  Returns (the two runs' ``ReplanClock``s, the controller,
+    the prompts answered, ``checkpoint.pkl``'s ``ntraj`` after each run,
+    the clip frames, the first run's wall time)."""
+    reset_tail_counts()
+    T = robot_config(model_dir, result, 1)['agent']['T']
+    clocks, ntraj, frames = [], [], []
+    t0 = time.perf_counter()
+    for end_index, trajs in ((1, (0, 1)), (2, (2,))):
+        clocks.append(ReplanClock(torch.cuda.synchronize))
+        clicks, prompts, ctrl = run_robot_twin(
+            robot_config(model_dir, result, end_index, save_video=save_video,
+                         env={'camera_topics': topics}),
+            clocks[-1], resume=end_index == 2)
+        if end_index == 1:
+            wall = time.perf_counter() - t0
+        check_restored('robot twin', ctrl)
+        if ctrl.device.type != 'cuda' or ctrl.predictor.n_cam != 2:
+            raise AssertionError('the robot twin planned on {} with {} '
+                                 'views'.format(ctrl.device,
+                                                ctrl.predictor.n_cam))
+        frames += check_robot_trajs(result, trajs, clicks, T, save_video)
+        with open(os.path.join(result, 'checkpoint.pkl'), 'rb') as f:
+            ntraj.append(pickle.load(f)['ntraj'])
+    return clocks, ctrl, prompts, ntraj, frames, wall
+
+
+def drive_robot(card):
+    """Phase 10: the sawyer pixel-cost twin through ``run_robot`` on the
+    card (the comment above ``ROBOT_TWIN``).  Returns the launches by
+    path."""
+    from visual_foresight_torch.agent.utils.file_saver import Mp4Unwritable
+    from visual_foresight_torch.policy.cem_controllers import (
+        PixelCostController)
+    root = tempfile.mkdtemp(prefix='chip_smoke_robot_')
+    try:
+        model_dir = robot_model_dir(os.path.join(root, 'model'))
+        result = os.path.join(root, 'result')
+        policy = robot_config(model_dir, result, 1)['policy']
+        channels, topics = robot_cameras()
+        per_replan = len(channels) * replan_launches(policy)
+        with CameraNodes(channels, *ROBOT_FRAME) as exe:
+            print('camera nodes: {} built from visual_foresight_torch/native/'
+                  'camera_stream.cpp, {} at {}x{} in --test-pattern mode'
+                  .format(os.path.relpath(exe, REPO), channels,
+                          ROBOT_FRAME[1], ROBOT_FRAME[0]))
+            save_video = True
+            try:
+                runs = robot_runs(model_dir, result, save_video, topics)
+            except Mp4Unwritable as e:
+                print('robot clips (bench/traj<i>/recording<i>/<cam>_clip.mp4)'
+                      ': wait, the file worker cannot write an mp4 on this '
+                      'machine ({}); rerun with save_video False'.format(e))
+                save_video = False
+                shutil.rmtree(result)
+                runs = robot_runs(model_dir, result, save_video, topics)
+        clocks, ctrl, prompts, ntraj, clip_frames, wall = runs
+        replans = [n for c in clocks for n in c.launches]
+        print('robot twin: {} replans ({} + {} resumed), tail launches each '
+              '{} (expected {}: 2 views x (1 + 3 x 15)); checkpoint ntraj {} '
+              'then {} after -r; prompts answered in the resumed run {}'
+              .format(len(replans), len(clocks[0].launches),
+                      len(clocks[1].launches), replans, per_replan, *ntraj,
+                      len(prompts.seen)))
+        if [len(c.launches) for c in clocks] != [4, 2] or \
+                any(n != per_replan for n in replans) or ntraj != [2, 3]:
+            raise AssertionError('the robot twin ran {} replans, launches {}, '
+                                 'ntraj {}'.format(
+                                     [len(c.launches) for c in clocks],
+                                     replans, ntraj))
+        launches = read_tail_counts(
+            'robot twin ({} replans x {})'.format(len(replans), per_replan),
+            len(replans) * per_replan, ctrl.predictor._hp)
+        ms = [x for c in clocks for x in c.ms]
+        span = [x for c in clocks for x in c.span_ms]
+        T = robot_config(model_dir, result, 1)['agent']['T']
+        print('robot_sawyer_pixel_cost: 3 trajectories of T {} through '
+              'run_robot (2, then 1 under -r), 600 samples x 15 steps x 3 '
+              'iters, 2 views, predictor_propagation, bf16, ag_r5f_v2 and a '
+              'seeded second view; replan host ms {} (p50 {:.3f}), CUDA-event '
+              'span ms {} (p50 {:.3f}); clips {} frames; wall {:.1f} s for '
+              'the first two with the controller\'s build [{}]'.format(
+                  T, ' '.join('{:.3f}'.format(x) for x in ms),
+                  float(np.percentile(ms, 50)),
+                  ' '.join('{:.3f}'.format(x) for x in span),
+                  float(np.percentile(span, 50)),
+                  clip_frames if save_video else 'not written', wall, card))
+
+        # the first replan again in f32, on the same context and draws:
+        # with the kernel and with the plain tail
+        ctrl32 = PixelCostController(
+            dict(ctrl.agentparams),
+            dict(policy, predictor_hparams={'dtype': 'float32'}))
+        check_restored('robot twin (f32)', ctrl32)
+
+        def replan():
+            ctrl32.reset()
+            ctrl32._generator.manual_seed(ROBOT_F32_SEED)
+            out = ctrl32.act(**clocks[0].acts[0])
+            return ([out['plan_stat']['scores_itr{}'.format(i)]
+                     for i in range(ctrl32._hp.iterations)],
+                    ctrl32._best_indices.copy())
+        check_plain_tail_replan(
+            replan, 'robot twin replan at t=1 (f32), kernel vs plain tail',
+            ctrl32.elite_count, GOLDEN_SCORE_RTOL, per_element=True,
+            same_elites=True)
+
+        # the run's controller replans at t=1 again under the profiler,
+        # without the verbose dump (no worker): the device's share of it
+        ctrl.reset()
+        profile_replan(lambda: ctrl.act(**clocks[0].acts[0]),
+                       'robot twin replan at t=1 (bf16, no dump) [{}]'.format(
+                           card))
+        return {'robot_sawyer_pixel_cost': launches}
+    finally:
+        shutil.rmtree(root)
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3696,7 +4217,7 @@ def main():
     # -- 4. the 200-sample replan on the restored weights ----------------------
     paths['replan_200'], latencies, replan, contexts, plan_gen = \
         drive_replan_200()
-    check_plain_tail_replan(replan, contexts, plan_gen)
+    check_plain_tail_replan_200(replan, contexts, plan_gen)
 
     # -- 5. the controllers at the campaigns' operating points -------------------
     paths['controller'], ctrl, ctrl_states = drive_controller(
@@ -3985,11 +4506,18 @@ def main():
     # PhaseTimer, and the RoboNet reader and sawyer envs where their
     # packages import, else a line for each
     paths.update(drive_tf1_and_tools(card, gl))
+
+    # -- 10. the robot path: the sawyer pixel-cost twin through run_robot
+    # (a fake arm, two test-pattern camera nodes, a two-view model), two
+    # trajectories and a resumed third, then its first replan in f32 with
+    # the kernel and with the plain tail
+    paths.update(drive_robot(card))
     extra_path_launches = sum(
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
         p in ('offline_replay', 'human_cem', 'numpy_replan_200',
-              'tf1_replan_200', 'visualize_predictions', 'profiled_replan'))
+              'tf1_replan_200', 'visualize_predictions', 'profiled_replan',
+              'robot_sawyer_pixel_cost'))
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
@@ -4003,9 +4531,9 @@ def main():
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
         # the controller path, the campaign's (the dump and the scored
         # campaigns), data collection's (the offline replay, the human
-        # CEM) and phase 9's serving paths (the TF1 and numpy replans,
-        # visualize_predictions, the profiled replan); training paths are
-        # in launches_by_path alone
+        # CEM), phase 9's serving paths (the TF1 and numpy replans,
+        # visualize_predictions, the profiled replan) and phase 10's robot
+        # twin; training paths are in launches_by_path alone
         'launches': paths['controller']['cdna_tail'] + extra_path_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],

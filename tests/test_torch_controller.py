@@ -48,9 +48,17 @@ def _perturbed(params, seed, scale=0.1):
 
 def _controllers(ag_params=AG_PARAMS, policy=POLICY):
     jctrl = JaxController(ag_params, dict(policy))
+    tctrl = PixelCostController(ag_params, dict(policy, device='cpu'))
+    tie_controllers(jctrl, tctrl, policy)
+    return jctrl, tctrl
+
+
+def tie_controllers(jctrl, tctrl, policy):
+    """Perturb the JAX controller's weights (one seed a camera), give the
+    port's controller the same, and make its replans draw the JAX
+    controller's normals."""
     jctrl.predictor.set_params([_perturbed(p, 9 + c) for c, p in
                                 enumerate(jctrl.predictor.params)])
-    tctrl = PixelCostController(ag_params, dict(policy, device='cpu'))
     tctrl.predictor.set_params([params_from_flax(jax.tree.map(np.asarray, p))
                                 for p in jctrl.predictor.params])
 
@@ -73,7 +81,6 @@ def _controllers(ag_params=AG_PARAMS, policy=POLICY):
         return replan(*args, noise=noise, latents=latents,
                       vis_latents=vis_latents, num_samples=num_samples, **kw)
     tctrl._fused.replan = injected
-    return jctrl, tctrl
 
 
 def _run_side_by_side(jctrl, tctrl, ag_params, steps=5):

@@ -538,3 +538,27 @@ def test_entries_without_a_backward_raise_under_grad_on_card():
             fn(*call)
         with torch.no_grad():
             fn(*call)
+
+
+@pytest.mark.cuda
+def test_robot_twin_episode_on_card(tmp_path):
+    """One fake-arm trajectory of ``campaigns/robot_sawyer_pixel_cost.py``
+    through ``run_robot`` on the card (``chip_smoke.py``'s phase 10 at one
+    trajectory): two test-pattern camera nodes at 640x480, the two-view
+    model, 2 replans of 2 views x (1 + 3 x 15) tiled tail launches, the raw
+    folder, the stats by hand and the clips."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import chip_smoke
+    channels, topics = chip_smoke.robot_cameras()
+    model = chip_smoke.robot_model_dir(str(tmp_path / 'model'))
+    config = chip_smoke.robot_config(model, str(tmp_path / 'result'), 0,
+                                     env={'camera_topics': topics})
+    per_replan = 2 * chip_smoke.replan_launches(config['policy'])
+    log = chip_smoke.ReplanClock(torch.cuda.synchronize)
+    with chip_smoke.CameraNodes(channels, *chip_smoke.ROBOT_FRAME):
+        clicks, _, ctrl = chip_smoke.run_robot_twin(config, log)
+    assert ctrl.predictor.restored and ctrl.device.type == 'cuda'
+    assert log.launches == [per_replan] * 2 and per_replan == 92
+    chip_smoke.check_robot_trajs(str(tmp_path / 'result'), (0,), clicks,
+                                 config['agent']['T'], True)

@@ -5,8 +5,8 @@ the card machine may lack; every module imports with those and
 ``ml_dtypes`` blocked), and its entry points (the predictor, the
 planner, the controllers, the trainers of the planning costs' networks and
 the campaign runner, with ``--benchmark`` and, on the offline replay,
-without it) refuse to fall back to the CPU when no card is present; random
-collection stays on the host."""
+without it, and the robot runner ``sim/run_robot.py``) refuse to fall back
+to the CPU when no card is present; random collection stays on the host."""
 
 import os
 import subprocess
@@ -78,7 +78,36 @@ NEW_MODULES = ('prediction.tf1_bundle', 'prediction.tf1_import',
                'envs.mujoco_env.sawyer_env.sawyer_arm_env',
                'envs.mujoco_env.sawyer_env.base_sawyer_env',
                'campaigns.collect_sawyer_arm',
-               'campaigns.collect_sawyer_grasp')
+               'campaigns.collect_sawyer_grasp',
+               # the robot path
+               'envs.robot_envs.robot_controller_interface',
+               'envs.robot_envs.base_env', 'envs.robot_envs.autograsp_env',
+               'envs.robot_envs.vanilla_env',
+               'envs.robot_envs.grippers.gripper',
+               'envs.robot_envs.grippers.sawyer.default_sawyer_gripper',
+               'envs.robot_envs.grippers.baxter.default_baxter_gripper',
+               'envs.robot_envs.grippers.kuka.default_kuka_gripper',
+               'envs.robot_envs.grippers.weiss.wsg50_gripper',
+               'envs.robot_envs.sawyer.control_util',
+               'envs.robot_envs.sawyer.sawyer_impedance',
+               'envs.robot_envs.baxter.baxter_impedance',
+               'envs.robot_envs.baxter.inverse_kinematics',
+               'envs.robot_envs.franka.franka_impedance',
+               'envs.robot_envs.franka.inverse_kinematics',
+               'envs.robot_envs.kuka.inverse_kinematics',
+               'envs.robot_envs.kuka.kuka_interface',
+               'envs.robot_envs.kuka.kuka_impedance',
+               'envs.robot_envs.widowx.widowx_controller',
+               'envs.robot_envs.util.topic_utils',
+               'envs.robot_envs.util.camera_recorder',
+               'envs.robot_envs.util.user_interface',
+               'envs.robot_envs.util.log_cameras',
+               'envs.robot_envs.util.get_points',
+               'envs.robot_envs.util.launchers',
+               'native.camera_client', 'native.start_cameras',
+               'sim.run_robot', 'sim.util.camera_calib',
+               'sim.util.record_motion',
+               'campaigns.robot_sawyer_pixel_cost')
 
 
 def test_port_imports_without_the_packages_the_card_machine_lacks(tmp_path):
@@ -172,6 +201,23 @@ def test_campaign_runner_needs_a_card(campaign, flags):
                           campaign + '.py')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         run.main([config] + flags)
+
+
+def test_robot_runner_needs_a_card():
+    # run_robot refuses before it builds the agent: no camera node, no arm
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device is valid')
+    from visual_foresight_torch.sim import run, run_robot
+    config = run.load_config(os.path.join(
+        REPO, 'visual_foresight_torch', 'campaigns',
+        'robot_sawyer_pixel_cost.py'))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_robot.RobotEnvironment(config, benchmark=True)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        run_robot.main([os.path.join(REPO, 'visual_foresight_torch',
+                                     'campaigns',
+                                     'robot_sawyer_pixel_cost.py'),
+                        'vestri'])
 
 
 @pytest.mark.parametrize('campaign,on_card', [

@@ -98,7 +98,12 @@ class InteractiveRobotGoalSource:
     """Robot benchmarks: the operator defines the goal live through the env
     (designated pixels, a goal image capture, or a pre-saved image file) and
     confirms it before the rollout starts.  Needs the live env, so goals are
-    acquired at episode init, not at world setup."""
+    acquired at episode init, not at world setup.
+
+    The save directory is the ``_bench_save`` of the trajectory at hand
+    (``sim/run_robot.py`` sets one a trajectory).  The JAX package keeps the
+    first trajectory's, so every later goal deletes and overwrites that
+    folder, its recordings among them."""
 
     def __init__(self, hyperparams, ncam):
         self._hp = hyperparams
@@ -106,7 +111,10 @@ class InteractiveRobotGoalSource:
         if '_bench_save' not in hyperparams:
             raise ValueError(
                 'benchmark dir missing — did you pass --benchmark?')
-        self._save_dir = hyperparams['_bench_save']
+
+    @property
+    def _save_dir(self):
+        return self._hp['_bench_save']
 
     def _fresh_save_dir(self):
         if os.path.exists(self._save_dir):

@@ -1,0 +1,18 @@
+"""Raw 5-dim delta action space (reference ``robot_envs/vanilla_env.py``).
+
+The port's copy of ``visual_foresight_tpu/envs/robot_envs/vanilla_env.py``."""
+
+import copy
+
+from .base_env import BaseRobotEnv
+
+
+class VanillaEnv(BaseRobotEnv):
+    def __init__(self, env_params, _=None):
+        self._hyper = copy.deepcopy(env_params)
+        BaseRobotEnv.__init__(self, env_params)
+        self._adim, self._sdim = self._base_adim, self._base_sdim
+
+    def _next_qpos(self, action):
+        assert action.shape[0] == self._base_adim, 'action must be 5-dim'
+        return self._previous_target_qpos * self.mode_rel + action

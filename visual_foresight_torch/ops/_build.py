@@ -12,6 +12,9 @@ nvcc per source at once.
 ingest engine, ``native/ingest.cpp``) into ``build/native/``: to a
 temporary name, renamed into place under a file lock, so that processes
 building it at once neither clash nor load a half-written file.
+``build_host_executable`` builds a program the same way (the camera node,
+``native/camera_stream.cpp``), named by a hash of its source and the
+headers beside it (``native/*.h``).
 """
 
 import ctypes
@@ -28,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 HOST_SRC = Path(__file__).resolve().parent.parent / 'native'
 HOST_BUILD_DIR = BUILD_DIR.parent / 'native'
-HOST_FLAGS = ('-O2', '-std=c++17', '-pthread', '-shared', '-fPIC')
+EXE_FLAGS = ('-O2', '-std=c++17', '-pthread')
+HOST_FLAGS = EXE_FLAGS + ('-shared', '-fPIC')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -107,23 +111,49 @@ def build_host(source, libs=(), flags=()):
     return the library path.  Raises where the compiler is missing or the
     build fails."""
     so = host_library_path(source, libs, flags)
-    if so.is_file():
-        return so
+    return _compile_host(source, so, HOST_FLAGS + tuple(flags), libs)
+
+
+def host_executable_path(source, libs=()):
+    """Where ``build_host_executable`` puts the program of
+    ``native/<source>``: named by a hash of the source, the headers beside
+    it, the flags and the libraries."""
+    headers = b''.join(p.read_bytes() for p in sorted(HOST_SRC.glob('*.h')))
+    text = (HOST_SRC / source).read_bytes() + headers + \
+        ' '.join(EXE_FLAGS + tuple(libs)).encode()
+    digest = hashlib.sha256(text).hexdigest()[:16]
+    return HOST_BUILD_DIR / '{}-{}'.format(Path(source).stem, digest)
+
+
+def build_host_executable(source, libs=()):
+    """Compile ``native/<source>`` into a program with ``g++`` (``$CXX`` if
+    set) and the libraries ``libs`` (for example ``('-lrt',)``) unless it
+    exists; return its path.  Raises where the compiler is missing or the
+    build fails."""
+    exe = host_executable_path(source, libs)
+    return _compile_host(source, exe, EXE_FLAGS, libs)
+
+
+def _compile_host(source, out, flags, libs):
+    """``g++ flags native/<source> -o out libs`` unless ``out`` exists: to a
+    temporary name, renamed into place under a file lock."""
+    if out.is_file():
+        return out
     HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(so.with_suffix('.lock'), 'w') as lock:
+    with open(out.with_suffix('.lock'), 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.is_file():
-            return so
+        if out.is_file():
+            return out
         cxx = shutil.which(os.environ.get('CXX', 'g++'))
         if cxx is None:
             raise RuntimeError('no C++ compiler (g++) on the PATH to build '
                                '{}'.format(source))
-        tmp = so.with_suffix('.so.tmp{}'.format(os.getpid()))
-        proc = subprocess.run([cxx, *HOST_FLAGS, *flags,
-                               str(HOST_SRC / source), '-o', str(tmp), *libs],
+        tmp = out.with_name('{}.tmp{}'.format(out.name, os.getpid()))
+        proc = subprocess.run([cxx, *flags, str(HOST_SRC / source), '-o',
+                               str(tmp), *libs],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError('{} failed on {} (exit {}):\n{}{}'.format(
                 cxx, source, proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, so)
-    return so
+        os.replace(tmp, out)
+    return out

@@ -103,19 +103,12 @@
    - the other planning costs, each controller restoring its weights (the
      seeded exports of the GDN, classifier, NCE and inverse nets; the
      ensemble's members 2 and 3 and the registration predictor's view 1
-     are seeded copies of xz_flagship written to a temporary directory):
-     first each JAX golden replayed in f32 (act() at t=1, 24 samples x 15
+     are seeded copies of xz_flagship, ``campaigns/stand_ins.py``'s):
+     each JAX golden replayed in f32 (act() at t=1, 24 samples x 15
      steps x 3 iterations, the JAX draws injected: scores, elites, plans,
      the registration's tradeoffs and pixels; the inverse net's plans),
-     then each again with the plain tail (the same elites, f32), then
-     act() at the campaign points in bf16: xz_bench20_ensemble (3
-     members x 3 iterations x one 46-step teacher-forced forward of 768
-     samples = 414 launches a replan), xz2c_bench20_registration (2
-     cameras x (1 + 3 x 30) = 182 launches of the tiled variant on two
-     packed planes: 2 designated pixels a camera), ag_bench20_classifier
-     on ag_r5f_v2 (91)
-     and xz_bench20_nce (136), one replan each; xz_bench20_inverse (10
-     steps, no tail launch);
+     then each again with the plain tail (the same elites, f32); their
+     bf16 replans at the campaign points are phase 11's twins;
    - training from collected records: one line probing the host side of
      ingest (``g++``, ``jpeglib.h``, ``zlib.h``; whether ``google_crc32c``,
      ``cv2``, ``h5py`` and ``imageio`` import); 48 trajectories of the
@@ -146,8 +139,7 @@
    (fused and host loop), folding, classic CDNA and classic DNA controllers
    (host clock and CUDA events), with a profiler breakdown of one replan of
    each but the one-batch 800-sample and the folding ones; then the
-   ensemble, registration, classifier, NCE and inverse replans the same
-   way (and the replans on the nets trained from records), and the tiled
+   replans on the nets trained from records the same way, and the tiled
    variant on two planes at the registration path's
    shape (B=768, C=3, P=2, blocked masks) beside its bound, the tiled
    variant at P=1 and the general variant forced at the same shape;
@@ -230,7 +222,33 @@
    writer, a line says that the clips wait, and the run goes again without
    them); then a third trajectory under ``resume``; then the first replan
    again in f32 on the same context and draws, with the kernel and with
-   the plain tail: scores within rtol 1e-4 and the same elites.
+   the plain tail: scores within rtol 1e-4 and the same elites;
+12. the campaign twins (``main``'s phase 11): each planning twin of the
+   benchmarks and of experiments/sim (``campaigns/<twin>.py``: hard,
+   classifier, both ensembles, registration, NCE, both inverse baselines;
+   ``sim_autograsp_stochastic``, ``sim_two_cam_registration``,
+   ``sim_2d_grasping_pixel_cost``, ``sim_2d_grasping_nce_experiments``,
+   ``sim_ensemble_grasping``) loaded from its own file with its default
+   weights (the vendored exports and ``campaigns/stand_ins.py``) and built
+   at its own operating point in bf16 on the card; the four experiments
+   whose policy raises as written (an override equal to its default, as in
+   the JAX package) raise that ``ValueError`` first and are then built
+   with those keys dropped; every view and net restored; two ``act()``
+   steps with one replan, then three replans timed as phase 7's (two on
+   the host clock, one between CUDA events), every replan's tail launches
+   equal to the count from the twin's policy (xz_bench20_ensemble: 3
+   members x 3 iterations x one 46-step teacher-forced forward of 768
+   samples = 414; xz2c_bench20_registration: 2 cameras x (1 + 3 x 30) =
+   182), tiled on blocked masks (two packed planes for the registration
+   twins); the
+   benchmarks on their task 0 (the stored start frames, the env's pixels
+   and state at reset, the goal image their goal source loads),
+   experiments/sim on seeded synthetic frames; the inverse twins without a
+   tail; one profiled replan of each of the ensemble, registration,
+   classifier and NCE benchmark twins and of the longest one; the random
+   baselines' policies built and acting once, no card work.  Phase 7 times
+   the tail at B = 200, 768, 600, 800 and 1536 and two planes at B = 768
+   and 200, each beside its bound.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -251,6 +269,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from visual_foresight_torch.campaigns import stand_ins
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -305,28 +325,53 @@ N_WARM, N_TIMED = 2, 10
 # bf16 anywhere in the path would miss both by two orders of magnitude.
 GOLDEN_SCORE_RTOL = 1e-4
 GOLDEN_FRAME_ATOL = 1e-4
-# xz_bench20's policy (benchmarks/xz_bench20/hparams.py; that file imports
-# the JAX package, so its values are written here)
+CAMPAIGNS_DIR = os.path.join(REPO, 'visual_foresight_torch', 'campaigns')
+# the vendored nets' numpy exports (no trained weights of the ensemble,
+# registration, classifier, NCE and inverse campaigns are in the repo: the
+# GDN, classifier, NCE and inverse nets are seeded exports,
+# tests/test_torch_weights_aux.py)
+SEEDED = {n: os.path.join(os.path.dirname(WEIGHTS), 'seeded_' + n)
+          for n in ('gdn', 'classifier', 'nce', 'inverse')}
+
+
+def twin_config(name, **env):
+    """The config of the campaign twin ``campaigns/<name>.py``, loaded with
+    the ``VMPC_*`` variables of ``env`` and no others (each twin's
+    stand-ins warn; here silenced: the script names its weights)."""
+    import copy
+    import warnings
+    from visual_foresight_torch.sim.run import load_config
+    clean = {k: v for k, v in os.environ.items() if not k.startswith('VMPC_')}
+    with mock.patch.dict(os.environ, dict(clean, **env), clear=True), \
+            warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        return copy.deepcopy(load_config(os.path.join(CAMPAIGNS_DIR,
+                                                      name + '.py')))
+
+
+def twin_policy(name, drop=(), **env):
+    """The policy of the twin ``name`` (``twin_config``) without its
+    ``type`` and the keys of ``drop``."""
+    return {k: v for k, v in twin_config(name, **env)['policy'].items()
+            if k not in ('type',) + tuple(drop)}
+
+
+# xz_bench20's policy, read from its twin (campaigns/xz_bench20.py)
 AG_PARAMS = {'adim': 3, 'sdim': 3, 'ncam': 1, 'image_height': H,
              'image_width': W, 'T': 45}
-CTRL_POLICY = {'action_order': ['x', 'z', 'grasp'], 'initial_std_lift': 0.5,
-               'rejection_sampling': False, 'replan_interval': 10,
-               'num_samples': 768, 'nactions': 15, 'T': 45,
-               'model_path': WEIGHTS}
+CTRL_POLICY = dict(twin_policy('xz_bench20'), model_path=WEIGHTS)
 CTRL_STEPS, CTRL_TIMED = 12, 5
-# ag_bench20's policy and agent (benchmarks/ag_bench20/hparams.py), on the
-# numpy export of ag_r5f_v2; ag_bench20_hard adds the two stochastic keys
+# ag_bench20's policy (campaigns/ag_bench20.py) and agent, on the numpy
+# export of ag_r5f_v2; ag_bench20_hard's twin with its two stochastic keys
+# set (VMPC_STOCH_K=2, VMPC_STOCH_PEN=1.0)
 AG_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
                           'ag_r5f_v2')
 AG_AGENT = {'adim': 4, 'sdim': 5, 'ncam': 1, 'image_height': H,
             'image_width': W, 'T': 30}
-AG_POLICY = {'initial_std': 0.04, 'initial_std_rot': np.pi / 32,
-             'initial_std_lift': 0.6, 'rejection_sampling': False,
-             'replan_interval': 10, 'predictor_propagation': True,
-             'num_samples': 768, 'nactions': 10, 'T': 30,
-             'model_path': AG_WEIGHTS}
-AG_HARD_POLICY = dict(AG_POLICY, stochastic_planning=(2,),
-                      stochastic_penalty=1.0)
+AG_POLICY = dict(twin_policy('ag_bench20'), model_path=AG_WEIGHTS)
+AG_HARD_POLICY = dict(twin_policy('ag_bench20_hard', VMPC_STOCH_K='2',
+                                  VMPC_STOCH_PEN='1.0'),
+                      model_path=AG_WEIGHTS)
 # xz_bench20 with VMPC_NUM_SAMPLES=800 and VMPC_SAMPLE_CHUNK=200
 CHUNK_POLICY = dict(CTRL_POLICY, num_samples=800, sample_chunk=200)
 # the RoboNet MPPI policy (experiments/robonet/view_generalization/
@@ -362,17 +407,14 @@ DNA_WEIGHTS = os.path.join(REPO, 'visual_foresight_torch', 'weights',
 CLASSIC_POLICY = dict(CTRL_POLICY, model_path=CLASSIC_WEIGHTS)
 DNA_POLICY = dict(CTRL_POLICY, model_path=DNA_WEIGHTS)
 FUSE_POLICY = dict(CTRL_POLICY, predictor_hparams={'fuse_decode': True})
-# the other planning costs at their campaigns' points
-# (benchmarks/{xz_bench20_ensemble,xz2c_bench20_registration,
-# ag_bench20_classifier,xz_bench20_nce,xz_bench20_inverse}/hparams.py; the
-# files import the JAX package, so their values are written here).  No
-# trained weights of theirs are vendored: the ensemble's members 2 and 3 and
-# the registration predictor's view 1 are seeded copies of xz_flagship (the
-# seeds in their goldens), the classifier runs ag_r5f_v2 in place of
-# ag_r5f_v1, and the GDN, classifier, NCE and inverse nets are seeded
-# exports (tests/test_torch_weights_aux.py)
-SEEDED = {n: os.path.join(os.path.dirname(WEIGHTS), 'seeded_' + n)
-          for n in ('gdn', 'classifier', 'nce', 'inverse')}
+# the other planning costs' goldens (f32, the JAX package's replans) and
+# phase 5k's nets trained from records, at their campaigns' points read
+# from their twins (campaigns/{xz2c_bench20_registration,
+# ag_bench20_classifier,xz_bench20_nce,xz_bench20_inverse}.py; phase 11
+# drives the twins themselves).  The ensemble's members 2 and 3 and the
+# registration predictor's view 1 are seeded copies of xz_flagship
+# (campaigns/stand_ins.py, the seeds in their goldens), the classifier runs
+# ag_r5f_v2 in place of ag_r5f_v1
 GOLDEN_PATHS = {
     'ensemble': os.path.join(WEIGHTS, 'golden_ensemble_f32.npz'),
     'registration': os.path.join(SEEDED['gdn'],
@@ -385,29 +427,30 @@ GOLDEN_PATHS = {
 GOLDEN_ACT_KEYS = {'ensemble': ('desig_pix', 'goal_pix'),
                    'registration': ('desig_pix', 'goal_pix', 'goal_image'),
                    'classifier': ('goal_image',), 'nce': ('goal_image',)}
-COPY_SCALE = 0.1
 N_MEMBERS = 3
-ENSEMBLE_POLICY = dict(CTRL_POLICY)           # model_path set by main()
+# the registration predictor's path is set by main() (predictor_dirs)
 REG_AGENT = dict(AG_PARAMS, T=30, ncam=2, ntask=1)
-REG_POLICY = {'action_order': ['x', 'z', 'grasp'],
-              'rejection_sampling': False, 'replan_interval': 10,
-              'num_samples': 768, 'nactions': 10, 'T': 30,
-              'predictor_hparams': {'ncam': 2}, 'gdn_path': SEEDED['gdn']}
-CLF_POLICY = {'initial_std': 0.04, 'initial_std_rot': np.pi / 32,
-              'initial_std_lift': 0.6, 'rejection_sampling': False,
-              'replan_interval': 10, 'num_samples': 768, 'nactions': 10,
-              'T': 30, 'model_path': AG_WEIGHTS, 'final_frames': 3,
-              'classifier_path': SEEDED['classifier']}
-NCE_POLICY = dict(CTRL_POLICY, embedding_path=SEEDED['nce'])
+REG_POLICY = twin_policy('xz2c_bench20_registration', drop=('model_path',),
+                         VMPC_MODEL_DIR='unused',
+                         VMPC_GDN_DIR=SEEDED['gdn'])
+CLF_POLICY = twin_policy('ag_bench20_classifier', VMPC_MODEL_DIR=AG_WEIGHTS,
+                         VMPC_CLASSIFIER_DIR=SEEDED['classifier'])
+NCE_POLICY = twin_policy('xz_bench20_nce', VMPC_MODEL_DIR=WEIGHTS,
+                         VMPC_EMBEDDING_DIR=SEEDED['nce'])
 INV_AGENT = {'adim': 3, 'sdim': 3, 'image_height': H, 'image_width': W}
-INV_POLICY = {'T': 45, 'model_params_path': SEEDED['inverse'],
-              'context_action_weight': [1, 1, 1],
-              'initial_action_low': [-0.025, -0.025, 0.],
-              'initial_action_high': [0.025, 0.025, 0.]}
+INV_POLICY = twin_policy('xz_bench20_inverse',
+                         VMPC_MODEL_DIR=SEEDED['inverse'])
 INV_STEPS = 10                # warm-ups at t < 2, replans at t = 2, 4, 6, 8
 INVERSE_ATOL = 1e-5
 # the registration path's distributions a camera: C + P = 5, two planes
 REG_P = 2
+# the batches the tail is timed at: the 200-sample replan, the campaigns'
+# 768, and the batches the twins serve (sim_autograsp_stochastic's 600,
+# the 800 of experiments/sim's pixel-cost, NCE and ensemble twins,
+# ag_bench20_hard's 768 x 2 latent copies); on two planes the
+# registration twins' 768 and 200
+TAIL_TIMED_BATCHES = (M, 768, 600, 800, 1536)
+TWO_PLANE_BATCHES = (768, M)
 # the effective-kernel entry: B, P, SNA and K swept at 48x64, C=3
 EFF_BATCHES, EFF_PS, EFF_KS = (768, 200), (0, 1, 2, 3), (3, 5, 7)
 EFF_ODD = [dict(b=3, h=13, w=10), dict(b=2, h=9, w=300, c=1, p=4)]
@@ -705,15 +748,17 @@ def check_tail_cases(gen):
                 for ones in (False, True):
                     check_tail(gen, b, dtype, variant, label, mask_block,
                                ones=ones, **shape)
-    # the registration path: two designated pixels a camera, C + P = 5
-    for mask_block in (MASK_BLOCK, 0):
-        for dtype in (torch.bfloat16, torch.float32):
-            for ones in (False, True):
-                err = check_tail(gen, REG_POLICY['num_samples'], dtype,
-                                 'tiled', 'registration shape', mask_block,
-                                 ones=ones, p=REG_P)
-                if dtype == torch.bfloat16 and not ones:
-                    reg_bf16 = max(reg_bf16, err)
+    # the registration paths: two designated pixels a camera, C + P = 5, at
+    # the benchmark's 768 samples and the two-camera experiment's 200
+    for b in TWO_PLANE_BATCHES:
+        for mask_block in (MASK_BLOCK, 0):
+            for dtype in (torch.bfloat16, torch.float32):
+                for ones in (False, True):
+                    err = check_tail(gen, b, dtype, 'tiled',
+                                     'registration shape', mask_block,
+                                     ones=ones, p=REG_P)
+                    if dtype == torch.bfloat16 and not ones:
+                        reg_bf16 = max(reg_bf16, err)
     return err_bf16, reg_bf16
 
 
@@ -1198,10 +1243,11 @@ def check_restored(label, ctrl):
 
 
 def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
-                     want=None):
+                     want=None, frames=None, states=None):
     """``act()`` of a ``cls`` controller (``PixelCostController`` by
     default) under ``policy`` for ``steps`` control steps on seeded
-    synthetic frames of every camera, with ``act_kw`` (the designated and
+    synthetic frames of every camera and states (or ``frames`` and
+    ``states`` given, a step each), with ``act_kw`` (the designated and
     goal pixels by default); a replan falls on the first planning step
     (``start_planning``, at least 1) and then every ``replan_interval``
     steps, earlier steps take warm-up actions.  Checks that the weights
@@ -1215,13 +1261,19 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
     check_restored(label, ctrl)
     adim, ncam = agent['adim'], agent.get('ncam', 1)
     rng = np.random.RandomState(2)
-    frames = (rng.rand(steps, ncam, H, W, 3) * 255).astype(np.uint8)
-    states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
+    if frames is None:
+        frames = (rng.rand(steps, ncam, H, W, 3) * 255).astype(np.uint8)
+        states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
     if act_kw is None:
         act_kw = {'desig_pix': np.array([[[24, 32]]]),
                   'goal_pix': np.array([[[10, 50]]])}
-    start = max(policy.get('start_planning', 0), N_CTX - 1)
-    replans = 1 + (steps - 1 - start) // policy['replan_interval']
+    # the controller's own values: a key that equals its default may be
+    # left out of ``policy``
+    hp = ctrl._hp
+    stochastic = hp.stochastic_planning if 'stochastic_planning' in hp \
+        else None
+    start = max(hp.start_planning, N_CTX - 1)
+    replans = 1 + (steps - 1 - start) // hp.replan_interval
     per_replan = want or replan_launches(policy)
     ctrl.reset()
     reset_tail_counts()
@@ -1239,9 +1291,8 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
         if a.shape != (adim,) or not np.isfinite(a).all():
             raise AssertionError('{} controller action {} is malformed'
                                  .format(label, a))
-    rows = policy['num_samples'] * (policy.get('stochastic_planning')
-                                    or (1,))[0]
-    for itr in range(policy.get('iterations', ITERS)):
+    rows = hp.num_samples * (stochastic or (1,))[0]
+    for itr in range(hp.iterations):
         scores = out['plan_stat']['scores_itr{}'.format(itr)]
         n_samples.append(scores.shape[-1])
         if scores.shape != (rows,) or not np.isfinite(scores).all():
@@ -1249,8 +1300,10 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
                                  .format(label, itr))
     print('{} controller actions finite, shape ({},); scores_itr* lengths '
           '{}; last action {}'.format(label, adim, n_samples, actions[-1]))
-    if policy.get('predictor_propagation'):
+    if policy.get('predictor_propagation') and \
+            not hasattr(ctrl, 'members_restored'):
         # the next replan's context: the best plan's predicted distribution
+        # (the ensemble's loop, as JAX's, keeps the start pixel's)
         d = ctrl._chosen_distrib
         if d.shape != (N_CTX, 1, H, W, P) or not np.isfinite(d).all() or \
                 not d.sum() > 0:
@@ -1303,28 +1356,21 @@ def check_grip(label, ctrl, policy, ag_epsilon=False):
 
 # -- the other planning costs ---------------------------------------------------
 
-def predictor_dirs(kind, root, seeds):
-    """The predictors of the ensemble and registration paths under
-    ``root``: the ensemble's member list (the flagship, then its seeded
-    copies) or the two-camera registration predictor (view 1 a seeded copy
-    of the flagship), as ``tests/test_torch_weights_aux.py`` makes them."""
-    from visual_foresight_torch.models.convert import (perturbed_flat,
-                                                       read_npz)
-    flagship = read_npz(os.path.join(WEIGHTS, 'view0', 'params.npz'))
-    copies = [perturbed_flat(flagship, int(s), COPY_SCALE) for s in seeds]
-
-    def write(path, views):
-        for v, flat in enumerate(views):
-            os.makedirs(os.path.join(path, 'view{}'.format(v)))
-            np.savez(os.path.join(path, 'view{}'.format(v), 'params.npz'),
-                     **flat)
-        shutil.copyfile(os.path.join(WEIGHTS, 'model_config.json'),
-                        os.path.join(path, 'model_config.json'))
-        return path
-    if kind == 'ensemble':
-        return [WEIGHTS] + [write(os.path.join(root, 'member{}'.format(i)),
-                                  [c]) for i, c in enumerate(copies)]
-    return write(os.path.join(root, 'xz2c'), [flagship] + copies)
+def predictor_dirs(kind, seeds):
+    """The predictors of the ensemble and registration paths: the
+    ensemble's member list (the flagship, then its seeded copies) or the
+    two-camera registration predictor (view 1 a seeded copy of the
+    flagship), as ``campaigns/stand_ins.py`` writes them for the twins
+    (``build/stand_ins/``, once)."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')         # the stand-ins named here
+        if kind == 'ensemble':
+            return [WEIGHTS] + [stand_ins.noisy_copy(
+                'xz_flagship', int(s), 'an ensemble member') for s in seeds]
+        (seed,) = seeds
+        return stand_ins.second_view('xz_flagship', int(seed),
+                                     'a second view')
 
 
 def controller_class(kind):
@@ -1336,14 +1382,17 @@ def controller_class(kind):
             'nce': variants.NCECostController}[kind]
 
 
-def cost_launches(kind, ctrl, ncam):
-    """Tail launches of one replan of a planning-cost controller: each
-    ensemble member runs one teacher-forced forward over the context action
-    and the plan an iteration; the others one rollout a camera."""
-    hp = ctrl._hp
-    if kind == 'ensemble':
-        return N_MEMBERS * hp.iterations * (N_CTX - 1 + hp.T)
-    return ncam * (1 + hp.iterations * hp.T)
+def cost_launches(cost, values, ncam):
+    """Tail launches of one replan of a planning-cost controller, from its
+    policy's ``values`` (a policy dict, or a controller's
+    ``_hp.values()``): each ensemble member runs one teacher-forced forward
+    over the context action and the plan an iteration; the others
+    ``replan_launches`` a camera."""
+    if cost == 'ensemble':
+        return values.get('num_ensembles', N_MEMBERS) * \
+            values.get('iterations', ITERS) * \
+            (N_CTX - 1 + values.get('T', DEFAULT_T))
+    return ncam * replan_launches(values)
 
 
 def check_controller_golden(kind, dirs):
@@ -1393,7 +1442,8 @@ def check_controller_golden(kind, dirs):
     out, scores = replay()
     launches = read_tail_counts(
         'golden {} (f32)'.format(kind),
-        cost_launches(kind, ctrl, agent.get('ncam', 1)), ctrl.predictor._hp)
+        cost_launches(kind, ctrl._hp.values(), agent.get('ncam', 1)),
+        ctrl.predictor._hp)
     best, best_actions = ctrl._best_indices.copy(), ctrl._best_actions.copy()
     registered = getattr(ctrl, 'reg_tradeoff', None), \
         getattr(ctrl, '_desig_pix', None)
@@ -1464,16 +1514,16 @@ def check_inverse_golden():
         raise AssertionError('the inverse net disagrees with JAX')
 
 
-def drive_inverse(card, policy=INV_POLICY, name='inverse'):
-    """``InvModelBaseController.act()`` at xz_bench20_inverse's point
-    (``policy``: the seeded export by default) for ``INV_STEPS`` steps
+def drive_inverse(card, policy, name, agent=INV_AGENT):
+    """``InvModelBaseController.act()`` under ``policy`` (``agent``:
+    xz_bench20_inverse's widths by default) for ``INV_STEPS`` steps
     (warm-up draws, then a plan from the net every two steps): finite
     actions, no tail launch; the host p50 and CUDA-event span of a replan
     (one forward of the net, printed as ``<name>_replan_*``) and a profiled
     one.  Returns the launches (all 0)."""
     from visual_foresight_torch.policy.inverse_models. \
         inverse_model_base_controller import InvModelBaseController
-    ctrl = InvModelBaseController(INV_AGENT, dict(policy))
+    ctrl = InvModelBaseController(agent, dict(policy))
     print('{} controller: restored={} ({})'.format(
         name, ctrl.predictor.restored, policy['model_params_path']))
     if not ctrl.predictor.restored:
@@ -1489,7 +1539,8 @@ def drive_inverse(card, policy=INV_POLICY, name='inverse'):
     torch.cuda.synchronize()
     launches = read_no_tail('{} controller ({} act() steps)'.format(
         name, INV_STEPS))
-    if any(a.shape != (3,) or not np.isfinite(a).all() for a in actions):
+    if any(a.shape != (agent['adim'],) or not np.isfinite(a).all()
+           for a in actions):
         raise AssertionError('{} controller actions malformed'.format(name))
     print('{} controller actions finite; last {}'.format(name, actions[-1]))
     ctx = np.stack(ctrl.context_frames)[None]
@@ -1507,7 +1558,8 @@ def drive_inverse(card, policy=INV_POLICY, name='inverse'):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         device.append(start.elapsed_time(end))
-    point = 'xz_bench20_inverse: one forward of the inverse net, 48x64, f32'
+    point = 'one forward of the inverse net, adim {}, 48x64, f32'.format(
+        agent['adim'])
     print('{}_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
           '[{}]'.format(name, float(np.percentile(host, 50)), point,
                         CTRL_TIMED, ' '.join('{:.3f}'.format(x)
@@ -1519,13 +1571,18 @@ def drive_inverse(card, policy=INV_POLICY, name='inverse'):
     return launches
 
 
-def time_controller(name, point, ctrl, states, card):
-    """Host p50 of the controller's replan (``perform_CEM``, which ``act``
-    calls when a replan is due) and the device span of one replan (CUDA
-    events around it), printed as ``<name>_p50_ms`` and
-    ``<name>_device_ms``."""
+def time_controller(name, point, ctrl, states, card, timed=CTRL_TIMED,
+                    want=None):
+    """Host p50 of ``timed`` replans of the controller (``perform_CEM``,
+    which ``act`` calls when a replan is due) and the device span of one
+    more (CUDA events around it), printed as ``<name>_p50_ms`` and
+    ``<name>_device_ms``; with ``want``, the tail launches of those
+    replans are ``want`` each (``read_tail_counts``).  Returns (host p50,
+    span) in ms."""
+    if want is not None:
+        reset_tail_counts()
     latencies = []
-    for _ in range(CTRL_TIMED):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ctrl.perform_CEM(states)
@@ -1538,12 +1595,17 @@ def time_controller(name, point, ctrl, states, card):
     ctrl.perform_CEM(states)
     end.record()
     torch.cuda.synchronize()
+    p50, span = float(np.percentile(latencies, 50)), start.elapsed_time(end)
+    if want is not None:
+        read_tail_counts('{} timed replans ({} x {})'.format(
+            name, timed + 1, want), (timed + 1) * want, ctrl.predictor._hp)
     print('{}_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
-          '[{}]'.format(name, float(np.percentile(latencies, 50)), point,
-                        CTRL_TIMED, ' '.join('{:.3f}'.format(x)
-                                             for x in latencies), card))
+          '[{}]'.format(name, p50, point, timed,
+                        ' '.join('{:.3f}'.format(x) for x in latencies),
+                        card))
     print('{}_device_ms={:.3f} ({}, CUDA events around one '
-          'replan) [{}]'.format(name, start.elapsed_time(end), point, card))
+          'replan) [{}]'.format(name, span, point, card))
+    return p50, span
 
 
 def time_tail(gen, b, card):
@@ -3895,8 +3957,8 @@ def robot_model_dir(root):
     ``predictor_dirs`` makes registration's second view)."""
     from visual_foresight_torch.models.convert import perturbed_flat, read_npz
     flat = read_npz(os.path.join(AG_WEIGHTS, 'view0', 'params.npz'))
-    for v, views in enumerate((flat, perturbed_flat(flat, ROBOT_VIEW1_SEED,
-                                                    COPY_SCALE))):
+    for v, views in enumerate((flat, perturbed_flat(
+            flat, ROBOT_VIEW1_SEED, stand_ins.COPY_SCALE))):
         os.makedirs(os.path.join(root, 'view{}'.format(v)))
         np.savez(os.path.join(root, 'view{}'.format(v), 'params.npz'),
                  **views)
@@ -4163,6 +4225,234 @@ def drive_robot(card):
     finally:
         shutil.rmtree(root)
 
+# -- the campaign twins ------------------------------------------------------------
+# task 0 of each vendored task set: the designated pixels, goal pixels and
+# state that the port's env gives at reset from the task's reset state, at
+# 64 pixels wide (tests/test_torch_twin_runs.py holds them against the
+# env); its start frames are the task's images<c>/im_0.png at 48x64 (the
+# autograsp sets store 96x128, resized here as the agent resizes frames)
+TASK0 = {
+    'xz_lifting_bench20': (TASK0_DESIG_PIX, TASK0_GOAL_PIX, TASK0_STATE),
+    'ag_bench20': (
+        np.array([[[34, 45], [34, 30], [22, 40]]]),
+        np.array([[[43, 27], [34, 14], [31, 43]]]),
+        np.array([0.09515970070549083, 0.13011127511913304,
+                  0.12548008853667184, -0.0012849840558106025, -1.0])),
+    'ag_bench20_hard': (
+        np.array([[[24, 40], [34, 30], [36, 45]]]),
+        np.array([[[17, 34], [34, 29], [37, 45]]]),
+        np.array([0.188394784305158, 0.30966497929047, 0.12620400000000012,
+                  2.2936243203780817, -1.0])),
+    'xz2c_bench20': (
+        np.array([[[24, 52]], [[14, 32]]]), np.array([[[24, 6]], [[40, 32]]]),
+        np.array([0.2899686737353413, 0.06185940156443665, 1.0])),
+}
+# the planning twins: (twin, cost, VMPC_* variables of the run, the keys
+# that equal their defaults: the JAX source raises on the first, and a user
+# drops them).  The benchmarks plan on their task 0, experiments/sim's on
+# seeded synthetic frames (no tasks of theirs are vendored)
+TWIN_POINTS = [
+    ('ag_bench20_hard', 'pixel',
+     {'VMPC_STOCH_K': '2', 'VMPC_STOCH_PEN': '1.0'}, ()),
+    ('ag_bench20_classifier', 'classifier', {}, ()),
+    ('ag_bench20_ensemble', 'ensemble', {}, ()),
+    ('xz_bench20_ensemble', 'ensemble', {}, ()),
+    ('xz2c_bench20_registration', 'registration', {}, ()),
+    ('xz_bench20_nce', 'nce', {}, ()),
+    ('xz_bench20_inverse', 'inverse', {}, ()),
+    ('ag_bench20_inverse', 'inverse', {}, ()),
+    ('sim_autograsp_stochastic', 'pixel', {}, ('repeat', 'iterations')),
+    ('sim_two_cam_registration', 'registration', {},
+     ('register_gtruth', 'num_samples', 'repeat', 'iterations')),
+    ('sim_2d_grasping_pixel_cost', 'pixel', {}, ('repeat',)),
+    ('sim_2d_grasping_nce_experiments', 'nce', {}, ()),
+    ('sim_ensemble_grasping', 'ensemble', {}, ('verbose',)),
+]
+RANDOM_TWINS = ('xz_bench20_random', 'xz2c_bench20_random',
+                'ag_bench20_random')
+TWIN_TIMED = 2                # host-timed replans after the warm-up act()s
+# the twins whose replans are profiled beside the longest one's: a
+# benchmark of each planning cost that the pixel paths do not show
+PROFILED_TWINS = ('xz_bench20_ensemble', 'xz2c_bench20_registration',
+                  'ag_bench20_classifier', 'xz_bench20_nce')
+
+
+def twin_agent(config):
+    """The agent params a runner gives a twin's policy: the config's agent
+    with the widths of its env (the autograsp cartgripper's actions and
+    states 4 and 5 wide, the xz gripper's 3 and 3) and its cameras."""
+    env_cls, env_params = config['agent']['env']
+    widths = (4, 5) if env_cls.__name__ == 'AutograspCartgripperEnv' \
+        else (3, 3)
+    agent = {k: v for k, v in config['agent'].items()
+             if k not in ('type', 'env')}
+    return dict(agent, adim=widths[0], sdim=widths[1],
+                ncam=env_params.get('ncam', 1))
+
+
+def build_twin(name, env, drop):
+    """The twin's config, agent and policy.  Where ``drop`` names keys,
+    the policy as written must raise ``ValueError`` on the first (its JAX
+    source does), and is then built without them."""
+    config = twin_config(name, **env)
+    cls = config['policy']['type']
+    policy = {k: v for k, v in config['policy'].items() if k != 'type'}
+    agent = twin_agent(config)
+    if drop:
+        want = 'Policy param {} override is identical to its default!' \
+            .format(drop[0])
+        try:
+            cls(agent, dict(policy))
+        except ValueError as e:
+            if str(e) != want:
+                raise AssertionError('twin {} raised {!r}, not {!r}'.format(
+                    name, str(e), want))
+        else:
+            raise AssertionError('twin {} built as written; its JAX source '
+                                 'raises'.format(name))
+        print('twin {}: as written, the policy raises ValueError({!r}), as '
+              'its JAX source does; built with {} dropped'.format(
+                  name, want, ', '.join(drop)))
+        policy = {k: v for k, v in policy.items() if k not in drop}
+    return config, cls, agent, policy
+
+
+def twin_inputs(name, cost, config, agent, steps):
+    """(frames, states, act() inputs) of a twin's replans: a benchmark's
+    task 0 (its stored start frames, the env's pixels and state at reset,
+    the goal image its goal source loads), or for experiments/sim seeded
+    synthetic frames and states (``drive_controller``'s) and pixels."""
+    from visual_foresight_torch.agent.goal_sources import (
+        TrajectoryFolderGoalSource)
+    ncam = agent['ncam']
+    root = config['agent']['start_goal_confs']
+    task_set = os.path.basename(root.rstrip('/'))
+    rng = np.random.RandomState(4)
+    if task_set in TASK0:
+        import cv2
+        desig, goal, state = TASK0[task_set]
+        folder = os.path.join(root, 'traj_group0', 'traj0')
+        frame = np.stack([cv2.resize(cv2.imread(os.path.join(
+            folder, 'images{}'.format(c), 'im_0.png'))[:, :, ::-1], (W, H),
+            interpolation=cv2.INTER_AREA) for c in range(ncam)])
+        if frame.shape != (ncam, H, W, 3):
+            raise AssertionError('{}: task 0 frames of shape {}'.format(
+                name, frame.shape))
+        frames = np.repeat(frame[None], steps, axis=0)
+        states = np.repeat(state[None], steps, axis=0).astype(np.float32)
+        hp = dict(config['agent'], data_save_dir=tempfile.gettempdir())
+        goal_image = TrajectoryFolderGoalSource(hp, ncam).load(0).goal_image
+        print('twin {}: task 0 of {} ({} camera(s), designated pixels {}, '
+              'goal pixels {})'.format(name, task_set, ncam,
+                                       desig.tolist(), goal.tolist()))
+    else:
+        frames = states = None
+        desig = np.array([[[24, 32]], [[30, 20]]])[:ncam]
+        goal = np.array([[[10, 50]], [[15, 40]]])[:ncam]
+        goal_image = rng.rand(1, ncam, H, W, 3).astype(np.float32)
+        print('twin {}: seeded synthetic frames ({} camera(s))'.format(
+            name, ncam))
+    act_kw = {'pixel': ('desig_pix', 'goal_pix'),
+              'ensemble': ('desig_pix', 'goal_pix'),
+              'registration': ('desig_pix', 'goal_pix', 'goal_image'),
+              'classifier': ('goal_image',),
+              'nce': ('goal_image',)}[cost]
+    given = {'desig_pix': desig, 'goal_pix': goal, 'goal_image': goal_image}
+    return frames, states, {k: given[k] for k in act_kw}
+
+
+def drive_random_twins():
+    """Each random baseline's policy built from its twin and one act():
+    no network, no card work.  Returns the launches by twin (all 0)."""
+    paths = {}
+    for name in RANDOM_TWINS:
+        config, cls, agent, policy = build_twin(name, {}, ())
+        reset_tail_counts()
+        np.random.seed(0)
+        pol = cls(agent, policy)
+        action = pol.act(t=0)['actions']
+        paths['twin_' + name] = read_no_tail('twin {} ({}, one act())'.format(
+            name, cls.__name__))
+        if action.shape != (agent['adim'],) or not np.isfinite(action).all():
+            raise AssertionError('twin {}: action {}'.format(name, action))
+        print('twin {}: {} action {}'.format(name, cls.__name__, action))
+    return paths
+
+
+def drive_twins(card):
+    """``main``'s phase 11: each planning twin of the benchmarks and of
+    experiments/sim built from its own file (``campaigns/<twin>.py``, its
+    default weights: the vendored exports and ``campaigns/stand_ins.py``)
+    at its own operating point, on the card in bf16; every view and net
+    restored; two ``act()`` steps with one replan (``drive_controller``),
+    then ``TWIN_TIMED`` + 1 timed replans (``time_controller``), every
+    replan's tail launches equal to the count from the twin's policy and
+    tiled on blocked masks; the inverse twins through ``drive_inverse`` (no
+    tail); one profiled replan of each of ``PROFILED_TWINS`` and of the
+    twin with the longest span; then the random baselines.  Returns the
+    launches by path."""
+    from visual_foresight_torch.policy.cem_controllers.variants import (
+        CEMControllerEnsembleVidPred)
+    paths, slowest, summary = {}, (0.0, None, None), []
+    for name, cost, env, drop in TWIN_POINTS:
+        config, cls, agent, policy = build_twin(name, env, drop)
+        if cost == 'inverse':
+            paths['twin_' + name] = drive_inverse(
+                card, policy, name='twin_' + name, agent=agent)
+            continue
+        ncam = agent['ncam']
+        # the values as written (those dropped equal their defaults)
+        written = {k: v for k, v in config['policy'].items() if k != 'type'}
+        per_replan = cost_launches(cost, written, ncam)
+        frames, states, act_kw = twin_inputs(name, cost, config, agent, 2)
+        paths['twin_' + name], ctrl, states = drive_controller(
+            'twin ' + name, agent, policy, 2, cls=cls, act_kw=act_kw,
+            want=per_replan, frames=frames, states=states)
+        hp = ctrl.predictor._hp
+        if ctrl.device.type != 'cuda' or hp['dtype'] != 'bfloat16':
+            raise AssertionError('twin {} planned on {} in {}'.format(
+                name, ctrl.device, hp['dtype']))
+        if isinstance(ctrl, CEMControllerEnsembleVidPred) and \
+                len(ctrl.members_restored) != written.get('num_ensembles',
+                                                          N_MEMBERS):
+            raise AssertionError('twin {}: {} members'.format(
+                name, len(ctrl.members_restored)))
+        if cost == 'registration':
+            print('twin {}: registration tradeoffs {} and registered pixels '
+                  '{}'.format(name, np.round(ctrl.reg_tradeoff, 4).tolist(),
+                              ctrl._desig_pix.tolist()))
+        rows = written['num_samples'] * (written.get('stochastic_planning')
+                                         or (1,))[0]
+        point = '{} x {} x {}, B={}, {} camera(s), {}, bf16, {} tiled tail ' \
+            'launches a replan'.format(
+                written['num_samples'], written.get('T', DEFAULT_T),
+                written.get('iterations', ITERS), rows, ncam, cost,
+                per_replan)
+        p50, span = time_controller('twin_' + name + '_replan', point, ctrl,
+                                    states, card, timed=TWIN_TIMED,
+                                    want=per_replan)
+        summary.append((name, p50, span, per_replan))
+        if name in PROFILED_TWINS:
+            print('profile: one replan of twin {}'.format(name))
+            profile_replan(lambda: ctrl.perform_CEM(states))
+        if span > slowest[0]:
+            slowest = (span, name, (ctrl, states))
+        del ctrl
+    span, name, (ctrl, states) = slowest
+    print('the longest replan span: twin {}, {:.3f} ms'.format(name, span))
+    if name not in PROFILED_TWINS:
+        print('profile: one replan of twin {}'.format(name))
+        profile_replan(lambda: ctrl.perform_CEM(states))
+    del ctrl
+    paths.update(drive_random_twins())
+    print('phase 11: {} planning twins replanned on the card, {} random '
+          'baselines; host p50 / span ms: {} [{}]'.format(
+              len(summary), len(RANDOM_TWINS), '; '.join(
+                  '{} {:.1f} / {:.1f} ({} launches)'.format(n, p, s, k)
+                  for n, p, s, k in summary), card))
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4311,13 +4601,11 @@ def main():
     trained = train_scoring_nets(records, records_root, card)
     check_quality_gates(records_root)
 
-    # -- 5j. the other planning costs at their campaigns' points: JAX goldens
-    # in f32, then act() in bf16 at full width, then the plain tail
+    # -- 5j. the other planning costs' JAX goldens in f32, each then with
+    # the plain tail (their bf16 replans at full width are phase 11's twins)
     from visual_foresight_torch.models.convert import read_npz
-    cost_root = tempfile.mkdtemp(prefix='chip_smoke_costs_')
     try:
-        dirs = {k: predictor_dirs(k, cost_root,
-                                  read_npz(GOLDEN_PATHS[k])['copy_seeds'])
+        dirs = {k: predictor_dirs(k, read_npz(GOLDEN_PATHS[k])['copy_seeds'])
                 for k in ('ensemble', 'registration')}
         for cost in ('ensemble', 'registration', 'classifier', 'nce'):
             paths['golden_' + cost] = check_controller_golden(
@@ -4326,34 +4614,6 @@ def main():
         rng = np.random.RandomState(4)
         goal_image = lambda ncam: rng.rand(1, ncam, H, W, 3).astype(
             np.float32)
-        paths['controller_ensemble'], ens_ctrl, ens_states = \
-            drive_controller(
-                'xz_bench20_ensemble (3 members)', AG_PARAMS,
-                dict(ENSEMBLE_POLICY, model_path=dirs['ensemble']), 2,
-                cls=controller_class('ensemble'),
-                want=N_MEMBERS * ITERS * (N_CTX - 1 + CTRL_POLICY['T']))
-        paths['controller_registration'], reg_ctrl, reg_states = \
-            drive_controller(
-                'xz2c_bench20_registration (2 cameras, P=2)', REG_AGENT,
-                dict(REG_POLICY, model_path=dirs['registration']), 2,
-                cls=controller_class('registration'),
-                act_kw={'desig_pix': np.array([[[24, 32]], [[30, 20]]]),
-                        'goal_pix': np.array([[[10, 50]], [[15, 40]]]),
-                        'goal_image': goal_image(2)},
-                want=REG_AGENT['ncam'] * replan_launches(REG_POLICY))
-        print('registration tradeoffs {} and registered pixels {}'.format(
-            np.round(reg_ctrl.reg_tradeoff, 4).tolist(),
-            reg_ctrl._desig_pix.tolist()))
-        paths['controller_classifier'], clf_ctrl, clf_states = \
-            drive_controller(
-                'ag_bench20_classifier (ag_r5f_v2, 3 final frames)',
-                AG_AGENT, CLF_POLICY, 2,
-                cls=controller_class('classifier'),
-                act_kw={'goal_image': goal_image(1)})
-        paths['controller_nce'], nce_ctrl, nce_states = drive_controller(
-            'xz_bench20_nce', AG_PARAMS, NCE_POLICY, 2,
-            cls=controller_class('nce'), act_kw={'goal_image': goal_image(1)})
-        paths['controller_inverse'] = drive_inverse(card)
 
         # -- 5k. the nets trained from records in 5i, each served by its
         # controller for one replan
@@ -4384,15 +4644,14 @@ def main():
             card, dict(INV_POLICY, model_params_path=trained['inverse']),
             name='trained_inverse')
     finally:
-        shutil.rmtree(cost_root)
         shutil.rmtree(records_root)
 
     # -- 6. times ----------------------------------------------------------------
     print('replan_p50_ms={:.3f} (200 samples x 15 steps x 48x64 x 3 iters, '
           'bf16, restored flagship, host clock, {} replans) [{}]'.format(
               float(np.percentile(latencies, 50)), N_TIMED, card))
-    time_tail(gen, M, card)
-    tail = time_tail(gen, CTRL_POLICY['num_samples'], card)
+    tails = {b: time_tail(gen, b, card) for b in TAIL_TIMED_BATCHES}
+    tail = tails[CTRL_POLICY['num_samples']]
     add_one_times = time_add_one(gen, card, PROBE_SHAPE)
     time_add_one(gen, card, (1 << 26,))
     time_controller('controller_replan',
@@ -4437,30 +4696,18 @@ def main():
     time_controller('folding_replan',
                     'folding 600 samples x 15 steps x 48x64 x 3 iters, bf16, '
                     'ag_r5f_v2', fold_ctrl, fold_states, card)
-    time_controller('ensemble_replan',
-                    '3 members x one 46-step teacher-forced forward of 768 '
-                    'samples x 3 iters, bf16, xz_flagship and 2 seeded '
-                    'copies', ens_ctrl, ens_states, card)
-    time_controller('registration_replan',
-                    '2 cameras x 768 samples x 30 steps x 3 iters, P=2 '
-                    '(two packed planes), 4 GDN passes, bf16, xz_flagship and '
-                    'a seeded copy', reg_ctrl, reg_states, card)
-    time_controller('classifier_replan',
-                    '768 samples x 30 steps x 3 iters + classifier on 2304 '
-                    'frames an iteration, bf16, ag_r5f_v2', clf_ctrl,
-                    clf_states, card)
-    time_controller('nce_replan',
-                    '768 samples x 45 steps x 3 iters + embedding of 768 '
-                    'frames an iteration, bf16, xz_flagship', nce_ctrl,
-                    nce_states, card)
-    for name, c, st in (('trained_registration', treg_ctrl, treg_states),
-                        ('trained_classifier', tclf_ctrl, tclf_states),
-                        ('trained_nce', tnce_ctrl, tnce_states)):
-        time_controller(name + '_replan', 'as {}_replan, on the net trained '
-                        'from records'.format(name.split('_')[1]), c, st,
-                        card)
-    two_planes = time_two_planes(gen, REG_POLICY['num_samples'],
-                                 tail['blocked_ms'], card)
+    for name, twin, c, st in (
+            ('trained_registration', 'xz2c_bench20_registration', treg_ctrl,
+             treg_states),
+            ('trained_classifier', 'ag_bench20_classifier', tclf_ctrl,
+             tclf_states),
+            ('trained_nce', 'xz_bench20_nce', tnce_ctrl, tnce_states)):
+        time_controller(name + '_replan', 'as twin {}\'s replan (phase 11), '
+                        'on the net trained from records'.format(twin), c,
+                        st, card)
+    planes = {b: time_two_planes(gen, b, tails[b]['blocked_ms'], card)
+              for b in TWO_PLANE_BATCHES}
+    two_planes = planes[REG_POLICY['num_samples']]
     general = two_planes.pop('general')
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
@@ -4478,13 +4725,6 @@ def main():
     profile_replan(lambda: dna_ctrl.perform_CEM(dna_states))
     print('profile: one xz_bench20 replan with fuse_decode')
     profile_replan(lambda: fuse_ctrl.perform_CEM(fuse_states))
-
-    for label, c, st in (('ensemble', ens_ctrl, ens_states),
-                         ('registration', reg_ctrl, reg_states),
-                         ('classifier', clf_ctrl, clf_states),
-                         ('NCE', nce_ctrl, nce_states)):
-        print('profile: one {} replan'.format(label))
-        profile_replan(lambda: c.perform_CEM(st))
 
     bwd = {b: time_bwd(gen, b, card) for b in BWD_TIMED_BATCHES}
 
@@ -4512,12 +4752,23 @@ def main():
     # trajectories and a resumed third, then its first replan in f32 with
     # the kernel and with the plain tail
     paths.update(drive_robot(card))
+
+    # -- 11. the campaign twins: each planning twin of the benchmarks and of
+    # experiments/sim built from its own file at its own operating point
+    # (bf16, cuda), every view and net restored, replanned through act();
+    # the random baselines' policies built and acting on the host
+    paths.update(drive_twins(card))
+    two_plane_paths = ['twin_' + n for n, c, _, _ in TWIN_POINTS
+                       if c == 'registration']
     extra_path_launches = sum(
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
+        (p.startswith('twin_') and p not in two_plane_paths) or
         p in ('offline_replay', 'human_cem', 'numpy_replan_200',
               'tf1_replan_200', 'visualize_predictions', 'profiled_replan',
               'robot_sawyer_pixel_cost'))
+    by_batch = lambda runs: {str(b): {k: r[k] for k in (
+        'ms', 'plain_ms', 'bound_ms', 'bound_by')} for b, r in runs.items()}
 
     a_ms, a_plain, a_lib, a_bound, a_by = add_one_times
     dna_path = paths['controller_classic_dna']
@@ -4532,20 +4783,26 @@ def main():
         # the controller path, the campaign's (the dump and the scored
         # campaigns), data collection's (the offline replay, the human
         # CEM), phase 9's serving paths (the TF1 and numpy replans,
-        # visualize_predictions, the profiled replan) and phase 10's robot
-        # twin; training paths are in launches_by_path alone
+        # visualize_predictions, the profiled replan), phase 10's robot
+        # twin and phase 11's campaign twins but the registration ones
+        # (two planes, counted there); training paths are in
+        # launches_by_path alone
         'launches': paths['controller']['cdna_tail'] + extra_path_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
         'ms_full_resolution_masks': tail['full_ms'],
         'plain_ms': tail['plain_ms'], 'bound_ms': tail['bound_ms'],
         'bound_by': tail['bound_by'], 'library_ms': None,
-        # two packed planes: the registration path (C=3, P=2)
+        # the blocked layout at each timed batch (B=768 above)
+        'by_batch': by_batch({b: dict(r, ms=r['blocked_ms'])
+                              for b, r in tails.items()}),
+        # two packed planes: the registration twins (C=3, P=2)
         'tiled_two_planes': dict(
             two_planes,
-            launches=paths['controller_registration']['cdna_tail'],
+            launches=sum(paths[p]['cdna_tail'] for p in two_plane_paths),
             max_abs_err=reg_err, library_ms=None,
-            shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16'),
+            shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16',
+            by_batch=by_batch(planes)),
         # the general variant: on no served path (read_tail_counts asserts
         # 0 launches on each), timed forced at the registration shape
         'general_variant': dict(

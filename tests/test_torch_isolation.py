@@ -107,7 +107,24 @@ NEW_MODULES = ('prediction.tf1_bundle', 'prediction.tf1_import',
                'native.camera_client', 'native.start_cameras',
                'sim.run_robot', 'sim.util.camera_calib',
                'sim.util.record_motion',
-               'campaigns.robot_sawyer_pixel_cost')
+               'campaigns.robot_sawyer_pixel_cost',
+               # the campaign twins of the benchmarks and experiments/sim
+               'campaigns.stand_ins', 'campaigns.ag_bench20_hard',
+               'campaigns.ag_bench20_classifier',
+               'campaigns.ag_bench20_ensemble',
+               'campaigns.xz_bench20_ensemble',
+               'campaigns.xz2c_bench20_registration',
+               'campaigns.xz_bench20_nce', 'campaigns.xz_bench20_inverse',
+               'campaigns.ag_bench20_inverse', 'campaigns.xz_bench20_random',
+               'campaigns.xz2c_bench20_random', 'campaigns.ag_bench20_random',
+               'campaigns.sim_autograsp_stochastic',
+               'campaigns.sim_two_cam_registration',
+               'campaigns.sim_2d_grasping_pixel_cost',
+               'campaigns.sim_2d_grasping_nce_experiments',
+               'campaigns.sim_2d_grasping_create_configs',
+               'campaigns.sim_2d_grasping_generate_tasks',
+               'campaigns.sim_ensemble_grasping',
+               'campaigns.sim_ensemble_grasping_tasks')
 
 
 def test_port_imports_without_the_packages_the_card_machine_lacks(tmp_path):
@@ -222,7 +239,10 @@ def test_robot_runner_needs_a_card():
 
 @pytest.mark.parametrize('campaign,on_card', [
     ('collect_xz_r4', False), ('offline_towel_classifier', True),
-    ('xz_bench20', True), ('ag_bench20', True)])
+    ('xz_bench20', True), ('ag_bench20', True),
+    # the benchmarks' random baselines run on the host too
+    ('xz_bench20_random', False), ('ag_bench20_inverse', True),
+    ('sim_2d_grasping_generate_tasks', False)])
 def test_runner_asks_for_the_card_only_for_planning_policies(campaign,
                                                              on_card):
     # random collection runs on the host, with or without a card

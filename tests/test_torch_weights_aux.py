@@ -50,8 +50,6 @@ std 2; measured 3.4e-5 relative on the NCE golden; the inverse plans atol
 import argparse
 import json
 import os
-import shutil
-import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +59,8 @@ import torch
 
 from test_torch_planner import _jax_replan_draws, _jax_sample_normals
 from test_torch_planner import few_torch_threads  # noqa: F401
+from visual_foresight_torch.campaigns import stand_ins
+from visual_foresight_torch.campaigns.stand_ins import COPY_SCALE
 from visual_foresight_torch.models.convert import (flatten_flax,
                                                    perturbed_flat, read_npz,
                                                    restore_network,
@@ -72,7 +72,6 @@ FLAGSHIP = os.path.join(WEIGHTS, 'xz_flagship')
 AG_R5F_V2 = os.path.join(WEIGHTS, 'ag_r5f_v2')
 H, W = 48, 64
 NET_SCALE, NET_FLOOR = 0.3, 0.1
-COPY_SCALE = 0.1
 SCORE_RTOL, ACTION_ATOL, INVERSE_ATOL = 1e-4, 5e-5, 1e-5
 # name -> (net_config.json, noise seed, parameter count)
 NETS = {
@@ -153,28 +152,21 @@ def _torch_net(name):
             'seeded_inverse': lambda: inverse.InverseNet(3, 7, 2)}[name]()
 
 
-def predictor_dirs(kind, root, seeds):
-    """The predictor directories of a golden's controller: the ensemble's
-    member list (the flagship, then its seeded copies) or the two-camera
-    registration predictor (view 1 a seeded copy); ``None`` for the
-    others, which read a vendored export."""
+def predictor_dirs(kind, seeds):
+    """The predictor directories of a golden's controller, the stand-ins
+    of ``campaigns/stand_ins.py``: the ensemble's member list (the
+    flagship, then its seeded copies) or the two-camera registration
+    predictor (view 1 a seeded copy); ``None`` for the others, which read a
+    vendored export."""
     if not len(seeds):
         return None
-    flagship = read_npz(os.path.join(FLAGSHIP, 'view0', 'params.npz'))
-    copies = [perturbed_flat(flagship, int(s), COPY_SCALE) for s in seeds]
-
-    def write(path, views):
-        for v, flat in enumerate(views):
-            os.makedirs(os.path.join(path, 'view{}'.format(v)))
-            np.savez(os.path.join(path, 'view{}'.format(v), 'params.npz'),
-                     **flat)
-        shutil.copyfile(os.path.join(FLAGSHIP, 'model_config.json'),
-                        os.path.join(path, 'model_config.json'))
-        return path
-    if kind == 'ensemble':
-        return [FLAGSHIP] + [write(os.path.join(root, 'member{}'.format(i)),
-                                   [c]) for i, c in enumerate(copies)]
-    return write(os.path.join(root, 'xz2c'), [flagship] + copies)
+    with pytest.warns(UserWarning, match='standing in'):
+        if kind == 'ensemble':
+            return [FLAGSHIP] + [stand_ins.noisy_copy(
+                'xz_flagship', int(s), 'an ensemble member') for s in seeds]
+        (seed,) = seeds
+        return stand_ins.second_view('xz_flagship', int(seed),
+                                     'a second view')
 
 
 def golden_inputs(kind, agent):
@@ -228,16 +220,12 @@ def jax_golden(kind):
     """One JAX replan of a controller golden, with its inputs and draws."""
     path, agent, policy, act_keys = GOLDENS[kind]
     inputs = golden_inputs(kind, agent)
-    root = tempfile.mkdtemp()
-    try:
-        ctrl = _jax_controller(kind, agent, policy, predictor_dirs(
-            kind, root, COPY_SEEDS.get(kind, ())))
-        ctrl.reset()
-        out = ctrl.act(t=1, i_tr=0, images=inputs['images'],
-                       state=inputs['states'], verbose_worker=None,
-                       **{k: inputs[k] for k in act_keys})
-    finally:
-        shutil.rmtree(root)
+    ctrl = _jax_controller(kind, agent, policy, predictor_dirs(
+        kind, COPY_SEEDS.get(kind, ())))
+    ctrl.reset()
+    out = ctrl.act(t=1, i_tr=0, images=inputs['images'],
+                   state=inputs['states'], verbose_worker=None,
+                   **{k: inputs[k] for k in act_keys})
     adim = agent['adim']
     m, iters = policy['num_samples'], 3
     dim = NACTIONS * adim
@@ -308,7 +296,7 @@ def write_exports():
 
 
 # -- the port's side ---------------------------------------------------------------
-def port_controller(kind, golden, root, device='cpu'):
+def port_controller(kind, golden, device='cpu'):
     """The port's controller of a golden, its weights restored."""
     from visual_foresight_torch.policy.cem_controllers.registration_controller \
         import RegisterGtruthController
@@ -318,7 +306,7 @@ def port_controller(kind, golden, root, device='cpu'):
     agent = json.loads(str(golden['agent']))
     policy = json.loads(str(golden['policy']))
     policy['device'] = device
-    dirs = predictor_dirs(kind, root, golden['copy_seeds'])
+    dirs = predictor_dirs(kind, golden['copy_seeds'])
     if kind == 'ensemble':
         ctrl = CEMControllerEnsembleVidPred(agent, dict(policy,
                                                         model_path=dirs))
@@ -381,9 +369,9 @@ def test_port_restores_the_export(name):
 
 
 @pytest.mark.parametrize('kind', sorted(GOLDENS))
-def test_port_replays_controller_golden_on_cpu(kind, tmp_path):
+def test_port_replays_controller_golden_on_cpu(kind):
     golden = read_npz(GOLDENS[kind][0])
-    ctrl = port_controller(kind, golden, str(tmp_path))
+    ctrl = port_controller(kind, golden)
     out, agent = replay(kind, golden, ctrl)
     scores = np.stack([out['plan_stat']['scores_itr{}'.format(i)]
                        for i in range(golden['scores_per_itr'].shape[0])])

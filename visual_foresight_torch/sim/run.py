@@ -19,12 +19,12 @@ reference's conventions (``resolve_result_dir``: ``RESULT_DIR`` >
 thread copies the data to it while the run lasts
 (``util/synchronize_tfrecs.py``).
 
-A policy that plans with a network (a benchmark's, or any CEM or inverse
-model controller) runs on the card: on ``cuda:<gpu_id>`` (``--gpu_id`` plus
-the worker's number), or on the CPU where the config's policy sets
-``'device': 'cpu'``.  Without a card and without that key the runner
-refuses before it builds anything; random and scripted collection stays on
-the host.  Workers (``--nworkers`` > 1) are started with ``spawn``: a forked
+A policy that plans with a network (any CEM or inverse model controller)
+runs on the card: on ``cuda:<gpu_id>`` (``--gpu_id`` plus the worker's
+number), or on the CPU where the config's policy sets ``'device': 'cpu'``.
+Without a card and without that key the runner refuses before it builds
+anything; random and scripted policies stay on the host, a benchmark's
+random baseline too.  Workers (``--nworkers`` > 1) are started with ``spawn``: a forked
 child of a process that holds a CUDA context cannot use the card.
 """
 
@@ -240,9 +240,10 @@ def main(cmd_args=None):
     print('parallel ', parallel)
 
     hyperparams = load_config(args.experiment)
-    if args.do_benchmark or plans_on_device(hyperparams['policy']['type']):
+    if plans_on_device(hyperparams['policy']['type']):
         # no quiet fallback to the CPU: the planning policy needs the card
-        # unless its config says 'cpu'; checked before anything is built
+        # unless its config says 'cpu'; checked before anything is built.
+        # A random baseline plans nothing, with or without --benchmark
         resolve_device(hyperparams['policy'].get('device', 'cuda'))
     apply_machine_split(hyperparams, args.nsplit, args.isplit)
     ranges = worker_index_ranges(hyperparams['start_index'],

@@ -222,7 +222,17 @@
    writer, a line says that the clips wait, and the run goes again without
    them); then a third trajectory under ``resume``; then the first replan
    again in f32 on the same context and draws, with the kernel and with
-   the plain tail: scores within rtol 1e-4 and the same elites;
+   the plain tail: scores within rtol 1e-4 and the same elites; then
+   ``campaigns/robonet_franka.py`` through ``run_robot`` with
+   ``--benchmark`` on one test-pattern node, its default weights
+   (ag_r5f_v2) and ``use_fused_planner`` off (the fused planner refuses its
+   10 actions under T 15, as the JAX package asserts): 2 trajectories of T
+   15, a replan each at t=5, MPPI 200 samples x 5 iterations in the host
+   loop, 5 x (1 + 10) = 55 tiled launches a replan, the raw folders, the
+   stats and the clip; and ``campaigns/collect_robot_sawyer_grasp.py``
+   through ``run_robot`` without ``--benchmark`` on five nodes: one
+   ``GaussianPolicy`` trajectory of T 30, its raw frames read back at
+   240x320, no tail launch;
 12. the campaign twins (``main``'s phase 11): each planning twin of the
    benchmarks and of experiments/sim (``campaigns/<twin>.py``: hard,
    classifier, both ensembles, registration, NCE, both inverse baselines;
@@ -248,7 +258,23 @@
    classifier and NCE benchmark twins and of the longest one; the random
    baselines' policies built and acting once, no card work.  Phase 7 times
    the tail at B = 200, 768, 600, 800 and 1536 and two planes at B = 768
-   and 200, each beside its bound.
+   and 200, each beside its bound, and holds two planes at the sawyer
+   registration experiment's 96x128 (B=400, C=3, P=2, both layouts, bf16
+   and f32) against the plain version and times it beside its bound;
+13. the robot twins (``main``'s phase 12): each planning twin of
+   experiments/sawyer and experiments/robonet (``campaigns/robot_sawyer_*``,
+   ``robonet_*``: 22) built from its own file with its stand-ins (the
+   registration experiment's: a seeded predictor at the flagship's widths
+   at 96x128 and a seeded GDN) at its own point in bf16 on the card; those
+   whose source does not build as written raise as it does first (an
+   override equal to its default, a key no controller declares, a plan the
+   fused planner refuses) and are built as a user must; every view and net
+   restored; twins of equal policy (but for their weights) and agent point
+   form a group (12), which replans once: act() to its first replan, then
+   three timed replans, every replan's tail launches equal to the count
+   from its policy (``robot_launches``), tiled on blocked masks, two planes
+   at 96x128 for the registration twin; the human CEM on seeded scripted
+   scores and a file worker; the inverse twins (192x256) without a tail.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -257,6 +283,7 @@ failed phase raises and exits non-zero; without a CUDA card it exits
 non-zero before printing a result.
 """
 
+import functools
 import json
 import os
 import pickle
@@ -374,25 +401,31 @@ AG_HARD_POLICY = dict(twin_policy('ag_bench20_hard', VMPC_STOCH_K='2',
                       model_path=AG_WEIGHTS)
 # xz_bench20 with VMPC_NUM_SAMPLES=800 and VMPC_SAMPLE_CHUNK=200
 CHUNK_POLICY = dict(CTRL_POLICY, num_samples=800, sample_chunk=200)
-# the RoboNet MPPI policy (experiments/robonet/view_generalization/
-# single_view.py) on ag_r5f_v2; the sampler class is filled in by main()
-ROBONET_POLICY = {'zeros_for_start_frames': False, 'replan_interval': 10,
-                  'start_planning': 5, 'iterations': 5,
-                  'selection_frac': 1. / 10, 'nactions': 10,
-                  'num_samples': 600, 'model_path': AG_WEIGHTS}
+# the RoboNet MPPI policy, read from its twin
+# (campaigns/robonet_view_generalization_single_view.py) on ag_r5f_v2; the
+# sampler class is filled in by main()
+ROBONET_POLICY = twin_policy('robonet_view_generalization_single_view',
+                             drop=('sampler',), VMPC_MODEL_DIR=AG_WEIGHTS)
 # fused MPPI plans at control cadence: T = nactions, anchored chain
 ROBONET_FUSED_POLICY = dict(ROBONET_POLICY, T=10,
                             smooth_across_last_action=True)
 # as written (T left at its default): the host CEM loop
 ROBONET_HOST_POLICY = dict(ROBONET_POLICY, use_fused_planner=False)
 ROBONET_STEPS = 16            # warm-ups at t < 5, replans at t = 5 and 15
-# experiments/sawyer/mixed_objects/hparams_deformable_objects.py (its two
-# cameras cut to ag_r5f_v2's one view, its two tasks to the first)
-FOLDING_POLICY = {'replan_interval': 15, 'num_samples': 600,
-                  'selection_frac': 0.05, 'initial_std': 0.005,
-                  'initial_std_lift': 0.05,
-                  'state_append': [0.41, 0.25, 0.166],
-                  'model_path': AG_WEIGHTS}
+# the folding policy, read from its twin
+# (campaigns/robot_sawyer_mixed_objects_deformable.py): its two cameras cut
+# to ag_r5f_v2's one view, its two tasks to the first
+FOLDING_POLICY = twin_policy('robot_sawyer_mixed_objects_deformable',
+                             drop=('sampler',), VMPC_MODEL_DIR=AG_WEIGHTS)
+# the cuts of the two twins' policies, printed by main()
+POLICY_CUTS = (
+    'RoboNet MPPI (robonet_view_generalization_single_view): fused at T 10 '
+    '(the twin leaves T at 15 under 10 actions, which only the host loop '
+    'plans), the chain anchored on the last executed action; as written in '
+    'the host loop; ag_r5f_v2 for the twin\'s stand-in, the same export',
+    'folding (robot_sawyer_mixed_objects_deformable): one camera '
+    '(ag_r5f_v2\'s one view for the twin\'s two-view stand-in), the first '
+    'of its two tasks')
 # the explicit-gripper samplers at ag_bench20's point; AutograspEpsilon
 # finds z and the grip by name
 AUTOGRASP_POLICY = dict(AG_POLICY)
@@ -1252,17 +1285,20 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
     (``start_planning``, at least 1) and then every ``replan_interval``
     steps, earlier steps take warm-up actions.  Checks that the weights
     restored, the tail's launches (``read_tail_counts``: ``want`` a replan,
+    or ``want(ctrl)`` where it is a function of the built controller,
     ``replan_launches(policy)`` by default), and that
     the actions and the last replan's scores are finite and of the
-    expected shapes.  Returns (launches by kernel, controller, states)."""
+    expected shapes; frames are of the agent's size.  Returns (launches by
+    kernel, controller, states)."""
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
     ctrl = (cls or PixelCostController)(agent, dict(policy))
     check_restored(label, ctrl)
     adim, ncam = agent['adim'], agent.get('ncam', 1)
+    h, w = agent.get('image_height', H), agent.get('image_width', W)
     rng = np.random.RandomState(2)
     if frames is None:
-        frames = (rng.rand(steps, ncam, H, W, 3) * 255).astype(np.uint8)
+        frames = (rng.rand(steps, ncam, h, w, 3) * 255).astype(np.uint8)
         states = (rng.randn(steps, agent['sdim']) * 0.05).astype(np.float32)
     if act_kw is None:
         act_kw = {'desig_pix': np.array([[[24, 32]]]),
@@ -1274,7 +1310,8 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
         else None
     start = max(hp.start_planning, N_CTX - 1)
     replans = 1 + (steps - 1 - start) // hp.replan_interval
-    per_replan = want or replan_launches(policy)
+    per_replan = want(ctrl) if callable(want) else \
+        want or replan_launches(policy)
     ctrl.reset()
     reset_tail_counts()
     actions, n_samples = [], []
@@ -1305,7 +1342,8 @@ def drive_controller(label, agent, policy, steps, cls=None, act_kw=None,
         # the next replan's context: the best plan's predicted distribution
         # (the ensemble's loop, as JAX's, keeps the start pixel's)
         d = ctrl._chosen_distrib
-        if d.shape != (N_CTX, 1, H, W, P) or not np.isfinite(d).all() or \
+        if d.shape != (N_CTX, ncam, h, w, ctrl._n_desig) or \
+                not np.isfinite(d).all() or \
                 not d.sum() > 0:
             raise AssertionError('{}: propagated distribution malformed'
                                  .format(label))
@@ -1514,13 +1552,14 @@ def check_inverse_golden():
         raise AssertionError('the inverse net disagrees with JAX')
 
 
-def drive_inverse(card, policy, name, agent=INV_AGENT):
+def drive_inverse(card, policy, name, agent=INV_AGENT, profile=True):
     """``InvModelBaseController.act()`` under ``policy`` (``agent``:
-    xz_bench20_inverse's widths by default) for ``INV_STEPS`` steps
-    (warm-up draws, then a plan from the net every two steps): finite
-    actions, no tail launch; the host p50 and CUDA-event span of a replan
-    (one forward of the net, printed as ``<name>_replan_*``) and a profiled
-    one.  Returns the launches (all 0)."""
+    xz_bench20_inverse's widths at 48x64 by default) for ``INV_STEPS``
+    steps (warm-up draws, then a plan from the net every ``replan_every``
+    steps) on seeded frames of the agent's size: finite actions, no tail
+    launch; the host p50 and CUDA-event span of a replan (one forward of
+    the net, printed as ``<name>_replan_*``) and, with ``profile``, a
+    profiled one.  Returns the launches (all 0)."""
     from visual_foresight_torch.policy.inverse_models. \
         inverse_model_base_controller import InvModelBaseController
     ctrl = InvModelBaseController(agent, dict(policy))
@@ -1528,9 +1567,10 @@ def drive_inverse(card, policy, name, agent=INV_AGENT):
         name, ctrl.predictor.restored, policy['model_params_path']))
     if not ctrl.predictor.restored:
         raise AssertionError('the {} controller did not restore'.format(name))
+    h, w = agent['image_height'], agent['image_width']
     rng = np.random.RandomState(2)
-    frames = (rng.rand(INV_STEPS, 1, 1, H, W, 3) * 255).astype(np.uint8)
-    goal = (rng.rand(1, 1, H, W, 3) * 255).astype(np.uint8)
+    frames = (rng.rand(INV_STEPS, 1, 1, h, w, 3) * 255).astype(np.uint8)
+    goal = (rng.rand(1, 1, h, w, 3) * 255).astype(np.uint8)
     np.random.seed(0)
     ctrl.reset()
     reset_tail_counts()
@@ -1558,16 +1598,17 @@ def drive_inverse(card, policy, name, agent=INV_AGENT):
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         device.append(start.elapsed_time(end))
-    point = 'one forward of the inverse net, adim {}, 48x64, f32'.format(
-        agent['adim'])
+    point = 'one forward of the inverse net, adim {}, {}x{}, f32'.format(
+        agent['adim'], h, w)
     print('{}_replan_p50_ms={:.3f} ({}, host clock, {} replans: {}) '
           '[{}]'.format(name, float(np.percentile(host, 50)), point,
                         CTRL_TIMED, ' '.join('{:.3f}'.format(x)
                                              for x in host), card))
     print('{}_replan_device_ms={:.3f} ({}, CUDA events, median) [{}]'
           .format(name, float(np.percentile(device, 50)), point, card))
-    print('profile: one {} replan'.format(name))
-    profile_replan(replan)
+    if profile:
+        print('profile: one {} replan'.format(name))
+        profile_replan(replan)
     return launches
 
 
@@ -1724,6 +1765,117 @@ def time_two_planes(gen, b, tiled_ms, card):
     if not general_err <= TAIL_TOL[torch.bfloat16]:
         raise AssertionError('the general variant disagrees with its plain '
                              'version')
+    return res
+
+
+# the sawyer registration experiment's tail: 400 samples a camera, 96x128,
+# C=3, two designated pixels (P=2), masks blocked r=4
+REG96_SHAPE = dict(b=400, h=96, w=128, c=C, p=REG_P)
+
+
+def check_two_planes_96x128(gen, card):
+    """The tiled variant on two packed planes at the sawyer registration
+    experiment's tail shape (``REG96_SHAPE``, blocked masks r=4; also at
+    full resolution): one launch against the plain version in f32 and
+    bf16, on random and on all-one frames, then the bf16 kernel and its
+    plain version timed (CUDA graph, CUDA events) beside the bound of its
+    inputs.  A launch failure or a disagreement raises.  Returns the
+    numbers and the largest bf16 error."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_reference, kernel_variant)
+    shape = dict(REG96_SHAPE)
+    b = shape.pop('b')
+    if kernel_variant(shape['c'], shape['p'], MASK_BLOCK) != 'tiled':
+        raise AssertionError('the 96x128 registration shape is not the '
+                             'tiled variant\'s')
+    err = 0.0
+    for mask_block in (MASK_BLOCK, 0):
+        for dtype in (torch.bfloat16, torch.float32):
+            for ones in (False, True):
+                e = check_tail(gen, b, dtype, 'tiled',
+                               'sawyer registration at 96x128', mask_block,
+                               ones=ones, **shape)
+                if dtype == torch.bfloat16:
+                    err = max(err, e)
+    sets = [tail_inputs(gen, b, torch.bfloat16, mask_block=MASK_BLOCK,
+                        **shape) for _ in range(4)]
+    res = {'ms': graph_ms(lambda *a: fused_warp_composite(
+        *a, sna=True, mask_block=MASK_BLOCK), sets, reps=50),
+           'plain_ms': graph_ms(lambda *a: fused_warp_composite_reference(
+               *a, sna=True, mask_block=MASK_BLOCK), sets, reps=5)}
+    outs = fused_warp_composite_reference(*sets[0], sna=True,
+                                          mask_block=MASK_BLOCK)
+    res['bound_ms'], res['bound_by'], bytes_ms = tail_bound(sets[0], outs,
+                                                            sna=True)
+    del sets, outs
+    res['max_abs_err'] = err
+    share = bytes_ms / res['ms']
+    print('cdna_tail_tiled_two_planes_96x128_kernel_ms={:.5f} plain_ms={:.5f} '
+          'bound_ms={:.5f} (by {}), {:.1%} of 3.35 TB/s (B={} bf16, 96x128, '
+          'C=3, P=2, blocked masks r=4, CUDA graph, CUDA events); bf16 '
+          'max_abs_err={:.3e} [{}]'.format(
+              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
+              share, b, err, card))
+    if share > 1.0:
+        raise AssertionError('the two-plane variant at 96x128 moved its '
+                             'bytes faster than the card can: the timing '
+                             'is wrong')
+    return res
+
+
+# csrc/cdna_tail.cu's tile of the tiled variant (kTileH x kTileW pixels of
+# one sample a block)
+TILE_H, TILE_W = 8, 64
+
+
+def report_two_plane_tiles(gen, b, card):
+    """The two-plane tiled variant at batch ``b`` (C=3, P=2, blocked masks
+    r=4, bf16) at 48x64 and at 96x128, side by side: its grid of tiles, the
+    blocks an SM holds (``cdna_tail_tiled_occupancy``, the CUDA occupancy
+    query at the launch's shared memory) and the waves they make over the
+    card's SMs, each launch's time (CUDA graph, CUDA events) against its
+    byte bound; then one launch at each shape under ``torch.profiler``.
+    Returns the numbers by shape."""
+    import ctypes
+    from visual_foresight_torch.ops import _build, cdna_tail
+    query = _build.load(cdna_tail.SOURCE).cdna_tail_tiled_occupancy
+    query.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+    query.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = query(C, REG_P, K, NUM_MASKS, cdna_tail._DTYPES[torch.bfloat16],
+                ctypes.byref(blocks), ctypes.byref(smem))
+    if err or blocks.value < 1:
+        raise RuntimeError('the tiled variant\'s occupancy query failed: '
+                           'cudaError {}, {} blocks'.format(err, blocks.value))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    run = lambda *a: cdna_tail.fused_warp_composite(*a, sna=True,
+                                                    mask_block=MASK_BLOCK)
+    res = {}
+    for h, w in ((H, W), (REG96_SHAPE['h'], REG96_SHAPE['w'])):
+        sets = [tail_inputs(gen, b, torch.bfloat16, p=REG_P, h=h, w=w,
+                            mask_block=MASK_BLOCK) for _ in range(4)]
+        ms = graph_ms(run, sets, reps=50)
+        outs = cdna_tail.fused_warp_composite_reference(
+            *sets[0], sna=True, mask_block=MASK_BLOCK)
+        bound = tail_bound(sets[0], outs, sna=True)[0]
+        across, down = -(-w // TILE_W), -(-h // TILE_H)
+        tiles = across * down * b
+        waves = tiles / float(sms * blocks.value)
+        print('two-plane tiled variant at {}x{}, B={}: {} tiles of {}x{} '
+              '({} x {} a sample), {} blocks of 128 threads an SM at {} '
+              'bytes of shared memory each, {:.2f} waves over {} SMs; '
+              '{:.5f} ms, {:.2f}x its {:.5f} ms byte bound, {:.2f} us a '
+              'wave (CUDA graph, CUDA events) [{}]'.format(
+                  h, w, b, tiles, TILE_H, TILE_W, down, across, blocks.value,
+                  smem.value, waves, sms, ms, ms / bound, bound,
+                  ms * 1e3 / waves, card))
+        print('profile: one two-plane launch at {}x{}, B={}'.format(h, w, b))
+        profile_replan(lambda: run(*sets[0]),
+                       what='two-plane launch at {}x{}'.format(h, w))
+        res['{}x{}'.format(h, w)] = dict(tiles=tiles, waves=waves, ms=ms,
+                                         bound_ms=bound)
+        del sets, outs
+    res['blocks_per_sm'], res['smem_bytes'] = blocks.value, smem.value
     return res
 
 
@@ -3885,16 +4037,18 @@ class ScriptedPrompts(object):
         return ''
 
 
-def robot_cameras():
-    """The twin's two cameras on channels of this process: the node
-    channels, and the twin's topics on them (camera 0 flipped, as in
+def robot_cameras(flips=(True, False)):
+    """Cameras on channels of this process, one a flag of ``flips``: the
+    node channels, and topics on them flipped as ``flips`` says (the
+    pixel-cost twin's by default: camera 0 flipped, as in
     ``campaigns/robot_sawyer_pixel_cost.py``)."""
     from visual_foresight_torch.envs.robot_envs.util.topic_utils import (
         IMTopic)
     pid = os.getpid()
-    channels = ['camera{}_image_raw_{}'.format(i, pid) for i in range(2)]
-    topics = [IMTopic('/camera{}/image_raw_{}'.format(i, pid), flip=i == 0)
-              for i in range(2)]
+    channels = ['camera{}_image_raw_{}'.format(i, pid)
+                for i in range(len(flips))]
+    topics = [IMTopic('/camera{}/image_raw_{}'.format(i, pid), flip=flip)
+              for i, flip in enumerate(flips)]
     return channels, topics
 
 
@@ -3968,16 +4122,21 @@ def robot_model_dir(root):
 
 
 def robot_config(model_dir, result_dir, end_index, save_video=True,
-                 **cut):
-    """The twin's config for ``RobotEnvironment``: the fake arm, the
-    weights of ``model_dir`` (as ``VMPC_MODEL_DIR`` gives them), the
-    results under ``result_dir`` (as ``RESULT_DIR`` gives them) and
-    ``end_index``; ``cut`` updates the agent, the env and the policy
-    (``agent``, ``env``, ``policy`` dicts) for a run at a small size."""
+                 twin=ROBOT_TWIN, **cut):
+    """The config of the robot twin file ``twin`` (the sawyer pixel-cost
+    twin by default) for ``RobotEnvironment``: the fake arm, the weights of
+    ``model_dir`` (as ``VMPC_MODEL_DIR`` gives them; None: the twin's
+    default weights), the results under ``result_dir`` (as ``RESULT_DIR``
+    gives them) and ``end_index``; ``cut`` updates the agent, the env and
+    the policy (``agent``, ``env``, ``policy`` dicts) for a run at a small
+    size."""
     import copy
+    import warnings
     from visual_foresight_torch.sim.run import load_config
-    with mock.patch.dict(os.environ, VMPC_MODEL_DIR=model_dir):
-        config = copy.deepcopy(load_config(ROBOT_TWIN))
+    env_vars = {} if model_dir is None else {'VMPC_MODEL_DIR': model_dir}
+    with mock.patch.dict(os.environ, env_vars), warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        config = copy.deepcopy(load_config(twin))
     env = config['agent']['env'][1]
     env.update(robot_name=ROBOT_NAME, robot_type=FakeArm,
                save_video=save_video, **cut.get('env', {}))
@@ -4031,7 +4190,7 @@ def pix_to_width(pix, width, raw_width):
 
 
 def check_robot_trajs(result_dir, trajs, clicks, T, save_video, width=W,
-                      raw_width=ROBOT_FRAME[1]):
+                      raw_width=ROBOT_FRAME[1], cam_names=ROBOT_CAM_NAMES):
     """The raw folders and the stats of trajectories ``trajs``: per camera
     one JPEG for each frame of ``obs_dict['images']``, the pickles and
     ``env_metadata.json``; finite actions; states inside the workspace
@@ -4039,7 +4198,8 @@ def check_robot_trajs(result_dir, trajs, clicks, T, save_video, width=W,
     ``final_dist``, ``start_dist`` and ``improvement`` as computed here
     from the scripted clicks (on frames ``raw_width`` wide, scored at
     ``width``); with ``save_video`` each camera's clip an mp4 of T or more
-    frames.  Returns the numbers of clip frames."""
+    frames; ``cam_names`` the env's names of its cameras.  Returns the
+    numbers of clip frames."""
     import cv2
     bounds = json.load(open(os.path.join(
         REPO, 'visual_foresight_torch', 'envs', 'robot_envs',
@@ -4061,7 +4221,7 @@ def check_robot_trajs(result_dir, trajs, clicks, T, save_video, width=W,
             actions = np.stack([p['actions'] for p in pickle.load(f)])
         with open(os.path.join(traj, 'agent_data.pkl'), 'rb') as f:
             stats = pickle.load(f)['stats']
-        for cam in range(len(ROBOT_CAM_NAMES)):
+        for cam in range(len(cam_names)):
             jpgs = os.listdir(os.path.join(traj, 'images{}'.format(cam)))
             if sorted(jpgs) != sorted('im_{}.jpg'.format(t)
                                       for t in range(T + 1)):
@@ -4088,7 +4248,7 @@ def check_robot_trajs(result_dir, trajs, clicks, T, save_video, width=W,
                                      'hand'.format(i, key, stats[key],
                                                    value))
         if save_video:
-            for cam in ROBOT_CAM_NAMES:
+            for cam in cam_names:
                 clip = os.path.join(result_dir, 'bench', 'traj{}'.format(i),
                                     'recording{}'.format(i),
                                     '{}_clip.mp4'.format(cam))
@@ -4137,8 +4297,8 @@ def robot_runs(model_dir, result, save_video, topics):
 
 def drive_robot(card):
     """Phase 10: the sawyer pixel-cost twin through ``run_robot`` on the
-    card (the comment above ``ROBOT_TWIN``).  Returns the launches by
-    path."""
+    card (the comment above ``ROBOT_TWIN``).  Returns the launches by path
+    and whether the file worker wrote the clips."""
     from visual_foresight_torch.agent.utils.file_saver import Mp4Unwritable
     from visual_foresight_torch.policy.cem_controllers import (
         PixelCostController)
@@ -4221,9 +4381,182 @@ def drive_robot(card):
         profile_replan(lambda: ctrl.act(**clocks[0].acts[0]),
                        'robot twin replan at t=1 (bf16, no dump) [{}]'.format(
                            card))
-        return {'robot_sawyer_pixel_cost': launches}
+        return {'robot_sawyer_pixel_cost': launches}, save_video
     finally:
         shutil.rmtree(root)
+
+
+# phase 10's RoboNet drive: the franka twin as a user runs it (its MPPI
+# plan of 10 actions under T 15 only in the host CEM loop: the fused planner
+# refuses it as written) with its default weights (ag_r5f_v2), one camera;
+# two trajectories of T 15, a replan each at t=5 (the next would fall at
+# t=15), each 5 iterations x (1 + 10) = 55 launches at B=200
+ROBONET_ROBOT_TWIN = os.path.join(CAMPAIGNS_DIR, 'robonet_franka.py')
+ROBONET_ROBOT_TRAJS = 2
+# and one robot collection twin without --benchmark: the sawyer grasp
+# collection (GaussianPolicy, five cameras at 240x320, T 30), one
+# trajectory, its raw frames read back
+COLLECT_ROBOT_TWIN = os.path.join(CAMPAIGNS_DIR,
+                                  'collect_robot_sawyer_grasp.py')
+
+
+def twin_flips(twin):
+    """The flip flags of the camera topics that the twin file names."""
+    from visual_foresight_torch.sim.run import load_config
+    env = load_config(twin)['agent']['env'][1]
+    return tuple(t.flip for t in env['camera_topics'])
+
+
+def drive_robonet_robot(card, save_video, cut=None):
+    """Phase 10's RoboNet drive (the comment above ``ROBONET_ROBOT_TWIN``):
+    ``run_robot`` with ``--benchmark`` on the franka twin, ``FakeArm`` and
+    a test-pattern camera node, the twin's default weights; each replan's
+    launches, the raw folders, the stats against the clicks and (with
+    ``save_video``) the clip.  ``cut`` (agent, env and policy updates) runs
+    it at a small size, on the CPU where its policy names that device.
+    Returns the launches by path."""
+    from visual_foresight_torch.policy.cem_controllers.samplers import (
+        correlated_noise)
+    root = tempfile.mkdtemp(prefix='chip_smoke_robonet_robot_')
+    try:
+        channels, topics = robot_cameras(twin_flips(ROBONET_ROBOT_TWIN))
+        cut = cut or {}
+        policy_cut = dict(cut.get('policy', {}), use_fused_planner=False)
+        config = robot_config(
+            None, root, ROBONET_ROBOT_TRAJS - 1, save_video,
+            twin=ROBONET_ROBOT_TWIN, env=dict(cut.get('env', {}),
+                                              camera_topics=topics),
+            agent=cut.get('agent', {}), policy=policy_cut)
+        print('robonet_franka: use_fused_planner False, as a user runs it '
+              '(the fused planner refuses 10 actions under T 15); weights '
+              '{}'.format(os.path.relpath(config['policy']['model_path'],
+                                          REPO)))
+        per_replan = replan_launches(config['policy'])
+        T = config['agent']['T']
+        device = torch.device(config['policy'].get('device', 'cuda')).type
+        clock = ReplanClock(torch.cuda.synchronize if device == 'cuda'
+                            else (lambda: None))
+        with CameraNodes(channels, *ROBOT_FRAME):
+            reset_tail_counts()
+            t0 = time.perf_counter()
+            clicks, prompts, ctrl = run_robot_twin(config, clock)
+            wall = time.perf_counter() - t0
+        if device == 'cuda':
+            check_restored('robonet_franka', ctrl)
+        mppi = correlated_noise.CorrelatedNoiseSampler
+        if ctrl.device.type != device or ctrl._fused is not None or \
+                ctrl._hp.sampler is not mppi or \
+                ctrl.predictor.n_cam != len(channels):
+            raise AssertionError('robonet_franka planned on {} with {} '
+                                 '(fused {})'.format(ctrl.device,
+                                                     ctrl._hp.sampler,
+                                                     ctrl._fused))
+        frames = check_robot_trajs(root, range(ROBONET_ROBOT_TRAJS), clicks,
+                                   T, save_video,
+                                   width=config['agent']['image_width'],
+                                   cam_names=ROBOT_CAM_NAMES[:len(channels)])
+        print('robonet_franka: {} replans, tail launches each {} (expected '
+              '{}: {} iterations x (1 + {}), the host loop)'.format(
+                  len(clock.launches), clock.launches, per_replan,
+                  ctrl._hp.iterations, ctrl._hp.nactions))
+        want = [per_replan if device == 'cuda' else 0] * ROBONET_ROBOT_TRAJS
+        if clock.launches != want:
+            raise AssertionError('robonet_franka ran {} replans of {} '
+                                 'launches'.format(len(clock.launches),
+                                                   clock.launches))
+        launches = read_tail_counts(
+            'robonet_franka ({} replans x {})'.format(ROBONET_ROBOT_TRAJS,
+                                                     per_replan),
+            ROBONET_ROBOT_TRAJS * per_replan, ctrl.predictor._hp) \
+            if device == 'cuda' else {}
+        span = clock.span_ms or [float('nan')]
+        print('robonet_franka: {} trajectories of T {} through run_robot '
+              '--benchmark, MPPI {} samples x {} iters in the host loop, 1 '
+              'view, {}, {}; replan host ms {} (p50 {:.3f}), CUDA-'
+              'event span ms {} (p50 {:.3f}); clips {}; wall {:.1f} s with '
+              'the controller\'s build [{}]'.format(
+                  ROBONET_ROBOT_TRAJS, T, ctrl._hp.num_samples,
+                  ctrl._hp.iterations, ctrl.predictor._hp['dtype'],
+                  os.path.basename(config['policy']['model_path']),
+                  ' '.join('{:.3f}'.format(x) for x in clock.ms),
+                  float(np.percentile(clock.ms, 50)),
+                  ' '.join('{:.3f}'.format(x) for x in span),
+                  float(np.percentile(span, 50)),
+                  frames if save_video else 'not written', wall, card))
+        return {'robot_robonet_franka': launches}
+    finally:
+        shutil.rmtree(root)
+
+
+def drive_robot_collection(card, cut=None):
+    """Phase 10's collection drive (the comment above
+    ``COLLECT_ROBOT_TWIN``): ``run_robot`` without ``--benchmark`` on the
+    sawyer grasp collection twin, ``FakeArm`` and one test-pattern node a
+    camera; the raw folder read back: one JPEG a frame and camera of the
+    agent's size, finite actions of the env's width, states inside the
+    workspace, ``checkpoint.pkl``; no tail launch.  ``cut`` (agent and
+    policy updates) runs it at a small size.  Returns the launches by
+    path."""
+    import cv2
+    from visual_foresight_torch.policy.random.gaussian import GaussianPolicy
+    root = tempfile.mkdtemp(prefix='chip_smoke_robot_collect_')
+    try:
+        channels, topics = robot_cameras(twin_flips(COLLECT_ROBOT_TWIN))
+        cut = cut or {}
+        config = robot_config(None, root, 0, False, twin=COLLECT_ROBOT_TWIN,
+                              env={'camera_topics': topics},
+                              agent=dict(cut.get('agent', {}),
+                                         record=os.path.join(root, 'record')),
+                              policy=cut.get('policy', {}))
+        agent = config['agent']
+        T, h, w = agent['T'], agent['image_height'], agent['image_width']
+        with CameraNodes(channels, *ROBOT_FRAME):
+            reset_tail_counts()
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            from visual_foresight_torch.sim import run_robot
+            robot = run_robot.RobotEnvironment(config)
+            try:
+                robot.run()
+            finally:
+                close_robot(robot)
+            wall = time.perf_counter() - t0
+        if type(robot.policy) is not GaussianPolicy:
+            raise AssertionError('the collection twin ran {}'.format(
+                type(robot.policy).__name__))
+        launches = read_no_tail('robot collection twin (1 trajectory)')
+        traj = os.path.join(root, 'raw', 'traj_group0', 'traj0')
+        with open(os.path.join(traj, 'policy_out.pkl'), 'rb') as f:
+            actions = np.stack([p['actions'] for p in pickle.load(f)])
+        with open(os.path.join(traj, 'obs_dict.pkl'), 'rb') as f:
+            state = pickle.load(f)['state']
+        shapes = set()
+        for cam in range(len(channels)):
+            for t in range(T + 1):
+                im = cv2.imread(os.path.join(traj, 'images{}'.format(cam),
+                                             'im_{}.jpg'.format(t)))
+                shapes.add(None if im is None else im.shape)
+        with open(os.path.join(root, 'checkpoint.pkl'), 'rb') as f:
+            ntraj = pickle.load(f)['ntraj']
+        if shapes != {(h, w, 3)} or actions.shape != (T, 4) or \
+                not np.isfinite(actions).all() or \
+                state.shape != (T + 1, 5) or \
+                not (state[:, :3] >= -1e-6).all() or \
+                not (state[:, :3] <= 1 + 1e-6).all() or ntraj != 1:
+            raise AssertionError('the collection twin\'s raw trajectory: '
+                                 'frames {}, actions {}, states {}, ntraj '
+                                 '{}'.format(shapes, actions.shape,
+                                             state.shape, ntraj))
+        print('collect_robot_sawyer_grasp: one trajectory of T {} through '
+              'run_robot (no --benchmark), GaussianPolicy, {} cameras: {} '
+              'JPEGs of {}x{} read back, actions {} finite, states in the '
+              'workspace; wall {:.1f} s; no tail launch [{}]'.format(
+                  T, len(channels), len(channels) * (T + 1), h, w,
+                  actions.shape, wall, card))
+        return {'robot_collect_sawyer_grasp': launches}
+    finally:
+        shutil.rmtree(root)
+
 
 # -- the campaign twins ------------------------------------------------------------
 # task 0 of each vendored task set: the designated pixels, goal pixels and
@@ -4453,6 +4786,304 @@ def drive_twins(card):
     return paths
 
 
+# -- the robot and RoboNet experiment twins ------------------------------
+# each planning twin of experiments/sawyer and experiments/robonet: (twin,
+# cost, the keys equal to their defaults (the source raises ValueError on
+# the first, a user drops them), the keys no controller declares (KeyError),
+# the fused planner's refusal of the plan as written, or None (a user turns
+# use_fused_planner off; the host CEM loop plans it)); the CPU tests read
+# these facts from here
+ROBOT_MPPI_TWINS = (
+    'robonet_baxter_fine_tune', 'robonet_baxter_fine_tune_baxter_scratch',
+    'robonet_baxter_fine_tune_sawyer_baxter_fine_tune', 'robonet_franka',
+    'robonet_new_bin_inlay_all_robots', 'robonet_new_bin_inlay_sawyer_only',
+    'robonet_robotiq_fine_tune_start_all',
+    'robonet_robotiq_fine_tune_start_sawyer', 'robonet_robotiq_from_scratch',
+    'robonet_robotiq_zero_shot', 'robonet_view_generalization_all_views',
+    'robonet_view_generalization_single_view')
+# the fused planner's refusals: MPPI plans at control cadence (nactions ==
+# T), the Gaussian path needs nactions * repeat == T
+MPPI_CADENCE, REPEAT_CADENCE = 'control cadence', 'T must equal nactions*repeat'
+ROBOT_TWIN_POINTS = [
+    ('robot_sawyer_human_cem', 'human', (), (), None),
+    ('robot_sawyer_registration_experiments', 'registration', ('verbose',),
+     (), None),
+    ('robot_sawyer_towel_classifier', 'classifier', (), ('state_append',),
+     None),
+    ('robot_sawyer_mixed_objects_deformable', 'pixel', (), (), None),
+    ('robot_sawyer_mixed_objects_hardobjects', 'pixel', ('verbose',), (),
+     None),
+] + [(name, 'pixel', (), (), MPPI_CADENCE) for name in ROBOT_MPPI_TWINS] + [
+    ('robonet_pixel_cost', 'pixel', (), (), REPEAT_CADENCE),
+    ('robonet_inverse_model_franka_inverse_conf', 'inverse', (), (), None),
+    ('robonet_inverse_model_multibot_one_step', 'inverse', (), (), None),
+    ('robonet_inverse_model_sawyer_one_step', 'inverse', (), (), None),
+    ('robonet_inverse_model_sawyer_two_step', 'inverse', ('replan_every',),
+     (), None),
+]
+# the weights a twin names, left out of its group's key
+WEIGHT_KEYS = ('model_path', 'gdn_path', 'classifier_path',
+               'model_params_path', 'model_restore_path')
+HUMAN_SCORE_SEED = 17
+
+
+def robot_twin_agent(config):
+    """The agent params ``run_robot`` gives a robot twin's policy: the
+    config's agent with its env class's action and state widths
+    (``ACTION_DIM``, ``STATE_DIM``) and one camera a topic (the class's
+    ``DEFAULT_CAMERA_TOPICS`` where the config names none)."""
+    env_cls, env_params = config['agent']['env']
+    if env_cls.ACTION_DIM is None or env_cls.STATE_DIM is None:
+        raise ValueError('{} states no action or state width'.format(
+            env_cls.__name__))
+    topics = env_params.get('camera_topics') or env_cls.DEFAULT_CAMERA_TOPICS
+    agent = {k: v for k, v in config['agent'].items()
+             if k not in ('type', 'env')}
+    return dict(agent, adim=env_cls.ACTION_DIM, sdim=env_cls.STATE_DIM,
+                ncam=len(topics))
+
+
+def expect_refusal(name, build, kind, *matches):
+    """``build()`` must raise ``kind`` with one of ``matches`` in its
+    message, as the twin's JAX source does as written.  Returns the
+    message."""
+    try:
+        build()
+    except kind as e:
+        if not any(m in str(e) for m in matches):
+            raise AssertionError('twin {} raised {}({!r}), not on {!r}'
+                                 .format(name, kind.__name__, str(e),
+                                         matches))
+        return str(e)
+    raise AssertionError('twin {} built as written; its JAX source raises {}'
+                         .format(name, kind.__name__))
+
+
+def build_robot_twin(name, drop, undeclared, refusal, cut=None):
+    """A robot twin's config, class, agent and policy as a user runs it:
+    where its source does not build as written (an override equal to its
+    default, a key no controller declares, a plan the fused planner
+    refuses with ``refusal``), the twin must raise the same, and is then
+    built without those keys or with ``use_fused_planner`` off; each such
+    step is printed.
+    ``cut`` updates the policy (a run at a small size)."""
+    config = twin_config(name)
+    cls = config['policy']['type']
+    agent = robot_twin_agent(config)
+    policy = dict({k: v for k, v in config['policy'].items() if k != 'type'},
+                  **(cut or {}))
+    build = lambda: cls(agent, dict(policy))
+    if drop:
+        want = 'Policy param {} override is identical to its default!' \
+            .format(drop[0])
+        expect_refusal(name, build, ValueError, want)
+        print('twin {}: as written, ValueError({!r}), as its JAX source '
+              'raises; built with {} dropped'.format(name, want,
+                                                     ', '.join(drop)))
+        policy = {k: v for k, v in policy.items() if k not in drop}
+    if undeclared:
+        expect_refusal(name, build, KeyError, undeclared[0])
+        print('twin {}: as written, KeyError on {}, which neither package\'s '
+              'controller declares; built without it'.format(
+                  name, ', '.join(undeclared)))
+        policy = {k: v for k, v in policy.items() if k not in undeclared}
+    if refusal:
+        msg = expect_refusal(name, build, ValueError, refusal)
+        print('twin {}: as written, the fused planner refuses the plan '
+              '(ValueError({!r}); the JAX package asserts); built with '
+              'use_fused_planner False: the host CEM loop'.format(name, msg))
+        policy['use_fused_planner'] = False
+    return config, cls, agent, policy
+
+
+def robot_group_key(policy, agent):
+    """Twins whose policy (but for its weights) and agent point (T, the
+    image size, the cameras, the action and state widths) agree share one
+    group."""
+    values = sorted((k, getattr(v, '__name__', repr(v)))
+                    for k, v in policy.items() if k not in WEIGHT_KEYS)
+    point = tuple(agent[k] for k in ('T', 'image_height', 'image_width',
+                                     'ncam', 'adim', 'sdim'))
+    return repr((values, point))
+
+
+def robot_twin_groups(cut=None, inverse_cut=None):
+    """Every robot twin of ``ROBOT_TWIN_POINTS`` as a user builds it
+    (``build_robot_twin``; ``cut`` and ``inverse_cut`` update the CEM and
+    the inverse-model policies), in groups of equal points
+    (``robot_group_key``) in the order of their first member: a list of
+    lists of (twin, cost, class, agent, policy)."""
+    groups = {}
+    for name, cost, drop, undeclared, refusal in ROBOT_TWIN_POINTS:
+        config, cls, agent, policy = build_robot_twin(
+            name, drop, undeclared, refusal,
+            inverse_cut if cost == 'inverse' else cut)
+        groups.setdefault(robot_group_key(policy, agent), []).append(
+            (name, cost, cls, agent, policy))
+    return list(groups.values())
+
+
+def robot_launches(cost, ncam, ctrl):
+    """Tail launches of one replan of a robot twin's built controller
+    ``ctrl`` over ``ncam`` cameras, from its hparams and whether it plans
+    fused (its sampler and cost decide: the classifier plans the folding
+    prior in the host loop): none for the inverse model; in the host CEM
+    loop one teacher-forced forward a camera and iteration over the context
+    action and the plan (MPPI's ``nactions``, else ``nactions`` x
+    ``repeat``); fused, ``cost_launches``."""
+    if cost == 'inverse':
+        return 0
+    hp = ctrl._hp.values()
+    if ctrl._fused is None:
+        mppi = hp['sampler'].__name__ == 'CorrelatedNoiseSampler'
+        steps = hp['nactions'] * (1 if mppi else hp['repeat'])
+        return ncam * hp['iterations'] * (N_CTX - 1 + steps)
+    return cost_launches(cost, hp, ncam)
+
+
+class HumanScores(object):
+    """``input()`` for ``HumanCEMController``: no to the restore question,
+    then seeded scores; ``given`` keeps them."""
+
+    def __init__(self, seed):
+        self._rng = np.random.RandomState(seed)
+        self.given = []
+
+    def __call__(self, prompt=''):
+        if prompt.startswith('restore traj'):
+            return 'n'
+        self.given.append(float(self._rng.randint(0, 10000)) / 100)
+        return str(self.given[-1])
+
+
+def robot_twin_inputs(agent, ncam):
+    """Seeded act() inputs of a robot twin at its own image size: goal
+    images, and designated and goal pixels inside the frame."""
+    h, w = agent['image_height'], agent['image_width']
+    rng = np.random.RandomState(4)
+    desig = (np.array([[[24, 32]], [[30, 20]]]) * [h / H, w / W]).astype(
+        np.int64)[:ncam]
+    goal = (np.array([[[10, 50]], [[15, 40]]]) * [h / H, w / W]).astype(
+        np.int64)[:ncam]
+    return {'desig_pix': desig, 'goal_pix': goal,
+            'goal_image': rng.rand(1, ncam, h, w, 3).astype(np.float32)}
+
+
+def drive_robot_twins(card):
+    """``main``'s phase 12: each planning twin of experiments/sawyer and
+    experiments/robonet built from its own file with its default weights
+    (the vendored exports and ``campaigns/stand_ins.py``: the registration
+    experiment's 96x128 predictor and GDN among them) at its own point, in
+    bf16 on the card; every view and net restored.  Twins whose policy but
+    for its weights and whose agent point agree form a group, which replans
+    once for all: two or more act() steps up to its first replan
+    (``drive_controller``), then ``TWIN_TIMED`` + 1 timed replans
+    (``time_controller``), every replan's tail launches as
+    ``robot_launches`` predicts and tiled on blocked masks (two packed
+    planes at 96x128 for the registration twin); the human CEM twin on
+    seeded scripted scores and a file worker; the inverse twins through
+    ``drive_inverse`` (no tail).  Returns the launches by path."""
+    import builtins
+    from visual_foresight_torch.agent.utils.file_saver import (
+        start_file_worker)
+    groups = robot_twin_groups()
+    paths, summary = {}, []
+    for members in groups:
+        name, cost, cls, agent, policy = members[0]
+        label = 'robot twin group {}'.format(' + '.join(m[0]
+                                                        for m in members))
+        # every member built and restored; the first replans for all
+        for other in members[1:]:
+            ctrl = other[2](other[3], dict(other[4]))
+            if cost == 'inverse':
+                print('twin {} controller: restored={}'.format(
+                    other[0], ctrl.predictor.restored))
+                if not ctrl.predictor.restored:
+                    raise AssertionError('twin {} did not restore'.format(
+                        other[0]))
+            else:
+                check_restored('twin ' + other[0], ctrl)
+            del ctrl
+        if cost == 'inverse':
+            paths['twin_' + name] = drive_inverse(
+                card, policy, 'twin_' + name, agent=agent, profile=False)
+            summary.append((name, len(members), None, None, 0))
+            continue
+        ncam = agent['ncam']
+        steps = max(policy.get('start_planning', 0), N_CTX - 1) + 1
+        act_kw = robot_twin_inputs(agent, ncam)
+        act_kw = {k: act_kw[k] for k in {
+            'pixel': ('desig_pix', 'goal_pix'), 'human': ('desig_pix',
+                                                          'goal_pix'),
+            'registration': ('desig_pix', 'goal_pix', 'goal_image'),
+            'classifier': ('goal_image',)}[cost]}
+        scores, worker, ask = None, None, builtins.input
+        root = tempfile.mkdtemp(prefix='chip_smoke_robot_twins_')
+        try:
+            if cost == 'human':
+                scores = HumanScores(HUMAN_SCORE_SEED)
+                builtins.input = scores
+                worker = start_file_worker()
+                worker.put(('path', root))
+                act_kw['verbose_worker'] = worker
+            paths['twin_' + name], ctrl, states = drive_controller(
+                'twin ' + name + ' (' + label + ')', agent, policy, steps,
+                cls=cls, act_kw=act_kw,
+                want=functools.partial(robot_launches, cost, ncam))
+            fused = ctrl._fused is not None
+            want = robot_launches(cost, ncam, ctrl)
+            if ctrl.device.type != 'cuda' or \
+                    ctrl.predictor._hp['dtype'] != 'bfloat16':
+                raise AssertionError('twin {} planned on {} in {}'.format(
+                    name, ctrl.device, ctrl.predictor._hp['dtype']))
+            if ctrl.predictor.n_cam != ncam:
+                raise AssertionError('twin {}: {} views for {} cameras'
+                                     .format(name, ctrl.predictor.n_cam,
+                                             ncam))
+            hp = ctrl._hp
+            rows = hp.num_samples
+            if cost == 'registration':
+                print('twin {}: registration at {}x{} (a window of {} pixels '
+                      'each side), tradeoffs {} and registered pixels {}'
+                      .format(name, agent['image_height'],
+                              agent['image_width'],
+                              5 if agent['image_height'] >= 96 else 2,
+                              np.round(ctrl.reg_tradeoff, 4).tolist(),
+                              ctrl._desig_pix.tolist()))
+            if scores is not None:
+                n = len(scores.given)
+                if n != hp.iterations * rows or not np.array_equal(
+                        ctrl.plan_stat['scores_itr{}'.format(
+                            hp.iterations - 1)],
+                        scores.given[-rows:]):
+                    raise AssertionError('twin {}: scored other than the '
+                                         'script'.format(name))
+            point = '{} x {} x {}, {}x{}, B={}, {} camera(s), {}, {}, bf16, ' \
+                '{} tiled tail launches a replan'.format(
+                    rows, hp.T, hp.iterations, agent['image_height'],
+                    agent['image_width'], rows, ncam, cost,
+                    'fused' if fused else 'host loop', want)
+            timed = 1 if cost == 'human' else TWIN_TIMED
+            p50, span = time_controller(
+                'twin_' + name + '_replan', point, ctrl, states, card,
+                timed=timed, want=want)
+            summary.append((name, len(members), p50, span, want))
+            del ctrl
+        finally:
+            builtins.input = ask
+            if worker is not None:
+                worker.close()
+            shutil.rmtree(root)
+    print('phase 12: {} robot twins built and restored in {} groups, each '
+          'group replanned once; host p50 / span ms: {} [{}]'.format(
+              len(ROBOT_TWIN_POINTS), len(groups), '; '.join(
+                  '{} ({} twins) {}'.format(
+                      n, k, 'inverse net, no tail' if p is None else
+                      '{:.1f} / {:.1f} ({} launches)'.format(p, s, w))
+                  for n, k, p, s, w in summary), card))
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4527,6 +5158,8 @@ def main():
                               num_samples=CHUNK_POLICY['num_samples']), 2)
 
     # -- 5a-d. the other samplers: the RoboNet path and the folding prior ------
+    for cut in POLICY_CUTS:
+        print('policy read from its twin, cut: ' + cut)
     paths['controller_robonet_mppi'], mppi_ctrl, mppi_states = \
         drive_controller('RoboNet MPPI fused (T 10, anchored)', AG_AGENT,
                          with_sampler(ROBONET_FUSED_POLICY, 'mppi'),
@@ -4709,6 +5342,8 @@ def main():
               for b in TWO_PLANE_BATCHES}
     two_planes = planes[REG_POLICY['num_samples']]
     general = two_planes.pop('general')
+    two_planes_96x128 = check_two_planes_96x128(gen, card)
+    report_two_plane_tiles(gen, REG96_SHAPE['b'], card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
     profile_replan(lambda: ctrl.perform_CEM(ctrl_states))
     print('profile: one ag_bench20 replan')
@@ -4750,23 +5385,35 @@ def main():
     # -- 10. the robot path: the sawyer pixel-cost twin through run_robot
     # (a fake arm, two test-pattern camera nodes, a two-view model), two
     # trajectories and a resumed third, then its first replan in f32 with
-    # the kernel and with the plain tail
-    paths.update(drive_robot(card))
+    # the kernel and with the plain tail; the RoboNet franka twin through
+    # run_robot --benchmark (host-loop MPPI, one camera), and the sawyer
+    # grasp collection twin without --benchmark (five cameras)
+    robot_paths, save_video = drive_robot(card)
+    paths.update(robot_paths)
+    paths.update(drive_robonet_robot(card, save_video))
+    paths.update(drive_robot_collection(card))
 
     # -- 11. the campaign twins: each planning twin of the benchmarks and of
     # experiments/sim built from its own file at its own operating point
     # (bf16, cuda), every view and net restored, replanned through act();
     # the random baselines' policies built and acting on the host
     paths.update(drive_twins(card))
+
+    # -- 12. the robot and RoboNet experiment twins: each built from its own
+    # file with its stand-ins at its own point (bf16, cuda, every view and
+    # net restored), one group of equal points replanned once; the
+    # registration experiment's two planes at 96x128
+    paths.update(drive_robot_twins(card))
     two_plane_paths = ['twin_' + n for n, c, _, _ in TWIN_POINTS
-                       if c == 'registration']
+                       if c == 'registration'] + [
+        'twin_' + p[0] for p in ROBOT_TWIN_POINTS if p[1] == 'registration']
     extra_path_launches = sum(
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
         (p.startswith('twin_') and p not in two_plane_paths) or
         p in ('offline_replay', 'human_cem', 'numpy_replan_200',
               'tf1_replan_200', 'visualize_predictions', 'profiled_replan',
-              'robot_sawyer_pixel_cost'))
+              'robot_sawyer_pixel_cost', 'robot_robonet_franka'))
     by_batch = lambda runs: {str(b): {k: r[k] for k in (
         'ms', 'plain_ms', 'bound_ms', 'bound_by')} for b, r in runs.items()}
 
@@ -4802,7 +5449,11 @@ def main():
             launches=sum(paths[p]['cdna_tail'] for p in two_plane_paths),
             max_abs_err=reg_err, library_ms=None,
             shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16',
-            by_batch=by_batch(planes)),
+            by_batch=by_batch(planes),
+            # the sawyer registration experiment's shape
+            at_96x128=dict(two_planes_96x128, library_ms=None,
+                           shape='B=400 96x128 C=3 P=2 blocked masks r=4 '
+                                 'bf16')),
         # the general variant: on no served path (read_tail_counts asserts
         # 0 launches on each), timed forced at the registration shape
         'general_variant': dict(

@@ -7,7 +7,8 @@ the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 The tail is held against its plain version in both mask layouts (full
 resolution and blocked) at the serving shapes (the registration
-controller's too, C=3 and P=2: two packed planes) and at shapes that stress
+controller's too, C=3 and P=2: two packed planes, at 48x64 and at the
+sawyer registration experiment's 96x128) and at shapes that stress
 the tiled variant's 8 x 64 tiles, four pixels per thread and one or two
 planes of packed channels (the general variant at block factor 3); the
 frames are random or all ones, so that a wrong halo shows at the border.  The
@@ -112,6 +113,9 @@ TAIL_CASES = [
     # (a task's start and goal registrations), C + P = 5: two packed planes
     ('registration-768-c3-p2', 'tiled',
      dict(b=768, h=48, w=64, p=2, blocks=(4, 0))),
+    # the sawyer registration experiment's: 400 samples a camera at 96x128
+    ('registration-96x128-400-c3-p2', 'tiled',
+     dict(b=400, h=96, w=128, p=2, blocks=(4, 0))),
     # two packed planes (4 < C + P <= 8) in all three layouts (13 x 10 takes
     # no blocked layout)
     ('two-planes-c3-p3-sna-off', 'tiled',

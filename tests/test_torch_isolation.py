@@ -124,7 +124,21 @@ NEW_MODULES = ('prediction.tf1_bundle', 'prediction.tf1_import',
                'campaigns.sim_2d_grasping_create_configs',
                'campaigns.sim_2d_grasping_generate_tasks',
                'campaigns.sim_ensemble_grasping',
-               'campaigns.sim_ensemble_grasping_tasks')
+               'campaigns.sim_ensemble_grasping_tasks',
+               # the robot, RoboNet and collection twins and the root tools
+               'campaigns.robot_sawyer_human_cem',
+               'campaigns.robot_sawyer_registration_experiments',
+               'campaigns.robot_sawyer_towel_classifier',
+               'campaigns.robot_sawyer_mixed_objects_deformable',
+               'campaigns.robot_sawyer_mixed_objects_hardobjects',
+               'campaigns.robonet_franka', 'campaigns.robonet_pixel_cost',
+               'campaigns.robonet_view_generalization_single_view',
+               'campaigns.robonet_inverse_model_sawyer_one_step',
+               'campaigns.collect_sim_cartgripper_grasp_r4_transport',
+               'campaigns.collect_robot_sawyer_grasp',
+               'campaigns.collect_robot_sawyer_towel_data_get_examples',
+               'tools.dataset_reader_demo', 'tools.extract_sample_trajs',
+               'tools.collect_campaign', 'tools.bench_model')
 
 
 def test_port_imports_without_the_packages_the_card_machine_lacks(tmp_path):
@@ -220,21 +234,21 @@ def test_campaign_runner_needs_a_card(campaign, flags):
         run.main([config] + flags)
 
 
-def test_robot_runner_needs_a_card():
+@pytest.mark.parametrize('twin', [
+    'robot_sawyer_pixel_cost', 'robot_sawyer_registration_experiments',
+    'robonet_franka', 'robonet_inverse_model_sawyer_one_step'])
+def test_robot_runner_needs_a_card(twin):
     # run_robot refuses before it builds the agent: no camera node, no arm
     if torch.cuda.is_available():
         pytest.skip('a CUDA card is present: the default device is valid')
     from visual_foresight_torch.sim import run, run_robot
     config = run.load_config(os.path.join(
-        REPO, 'visual_foresight_torch', 'campaigns',
-        'robot_sawyer_pixel_cost.py'))
+        REPO, 'visual_foresight_torch', 'campaigns', twin + '.py'))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         run_robot.RobotEnvironment(config, benchmark=True)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         run_robot.main([os.path.join(REPO, 'visual_foresight_torch',
-                                     'campaigns',
-                                     'robot_sawyer_pixel_cost.py'),
-                        'vestri'])
+                                     'campaigns', twin + '.py'), 'vestri'])
 
 
 @pytest.mark.parametrize('campaign,on_card', [
@@ -242,7 +256,14 @@ def test_robot_runner_needs_a_card():
     ('xz_bench20', True), ('ag_bench20', True),
     # the benchmarks' random baselines run on the host too
     ('xz_bench20_random', False), ('ag_bench20_inverse', True),
-    ('sim_2d_grasping_generate_tasks', False)])
+    ('sim_2d_grasping_generate_tasks', False),
+    # the robot twins plan on the card, the collection twins on the host
+    ('robot_sawyer_human_cem', True), ('robot_sawyer_towel_classifier', True),
+    ('robonet_pixel_cost', True), ('robonet_inverse_model_sawyer_two_step',
+                                   True),
+    ('collect_sim_cartgripper_grasp_r4_transport_scripted', False),
+    ('collect_robot_sawyer_correlated_noise_bottombias', False),
+    ('collect_robot_sawyer_towel_data_get_examples', False)])
 def test_runner_asks_for_the_card_only_for_planning_policies(campaign,
                                                              on_card):
     # random collection runs on the host, with or without a card
@@ -250,3 +271,18 @@ def test_runner_asks_for_the_card_only_for_planning_policies(campaign,
     config = run.load_config(os.path.join(
         REPO, 'visual_foresight_torch', 'campaigns', campaign + '.py'))
     assert run.plans_on_device(config['policy']['type']) == on_card
+
+
+def test_port_names_roadmap_items_by_name():
+    """A message of the port that points at a queue of ``ROADMAP.md``
+    names the item, not its number, which changes as items are struck."""
+    import glob
+    import re
+    numbered = []
+    for path in glob.glob(os.path.join(REPO, 'visual_foresight_torch', '**',
+                                       '*.py'), recursive=True) + \
+            [os.path.join(REPO, 'chip_smoke.py')]:
+        with open(path) as f:
+            numbered += [(path, m) for m in re.findall(
+                r'ROADMAP\.md queue \d+, item \d+', f.read())]
+    assert numbered == []

@@ -171,6 +171,28 @@ def test_autograsp_robot_env(cameras):
     env.close()
 
 
+@pytest.mark.parametrize('autograsp', [False, True],
+                         ids=['vanilla', 'autograsp'])
+def test_env_class_states_its_widths_and_topics(cameras, autograsp):
+    """The widths and default cameras a planner reads from the env class
+    before any robot connects: those of the built env, and the JAX
+    package's default topics."""
+    cls = (t_ag.AutograspEnv if autograsp else t_van.VanillaEnv)
+    env = cls(env_params('port', start_at_neutral=True))
+    assert (env.adim, env.sdim) == (cls.ACTION_DIM, cls.STATE_DIM) == \
+        ((4, 5) if autograsp else (5, 5))
+    env.close()
+    want = j_base.BaseRobotEnv._default_hparams(
+        object.__new__(j_base.BaseRobotEnv)).camera_topics
+    got = cls.DEFAULT_CAMERA_TOPICS
+    assert [(t.name, t.flip, t.height, t.width) for t in got] == \
+        [(t.name, t.flip, t.height, t.width) for t in want]
+    assert t_base.BaseRobotEnv.ACTION_DIM is None
+    with pytest.raises(ValueError, match='BaseRobotEnv states no action'):
+        chip_smoke.robot_twin_agent(
+            {'agent': {'env': (t_base.BaseRobotEnv, {})}})
+
+
 # -- the file worker's movies ------------------------------------------------------
 
 def test_file_worker_writes_mp4_for_mp4_names(tmp_path):

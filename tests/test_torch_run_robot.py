@@ -320,3 +320,90 @@ def test_chip_smoke_twin_run_keeps_its_own_error(run_fails):
             pytest.raises(ValueError if run_fails else Mp4Unwritable):
         chip_smoke.run_robot_twin({}, chip_smoke.ReplanClock(lambda: None))
     assert closed == ['cameras', 'worker']
+
+
+# phase 10's RoboNet and collection drives at a small size on the CPU: the
+# franka twin (host-loop MPPI, one camera) through run_robot --benchmark,
+# and the sawyer grasp collection twin (five cameras) without it
+ROBONET_CUT = {'agent': {'T': 7, 'image_height': 16, 'image_width': 24},
+               'policy': {'device': 'cpu', 'num_samples': 12,
+                          'iterations': 2, 'verbose': False,
+                          'model_path': 'no_weights',
+                          'predictor_hparams': PREDICTOR}}
+COLLECT_CUT = {'agent': {'T': 4, 'image_height': 24, 'image_width': 32},
+               'policy': {'nactions': 4}}
+
+
+@pytest.mark.parametrize('drive', ['robonet_franka', 'collect_sawyer_grasp'])
+def test_chip_smoke_robot_twin_drives_on_the_cpu(drive, monkeypatch):
+    """``chip_smoke.drive_robonet_robot``: one replan a trajectory at t=5
+    in the host loop, two trajectories, the raw folders and the stats by
+    hand; ``chip_smoke.drive_robot_collection``: one GaussianPolicy
+    trajectory, every camera's frames read back, no tail launch."""
+    monkeypatch.setattr(chip_smoke.FakeArm, 'move_s', 0.0)
+    if drive == 'robonet_franka':
+        with pytest.warns(UserWarning, match='seeded'):
+            paths = chip_smoke.drive_robonet_robot('cpu', False, ROBONET_CUT)
+        assert paths == {'robot_robonet_franka': {}}
+    else:
+        paths = chip_smoke.drive_robot_collection('cpu', COLLECT_CUT)
+        assert paths['robot_collect_sawyer_grasp'] == {
+            'cdna_tail': 0, 'cdna_tail_eff': 0, 'cdna_tail_dna': 0}
+
+
+# phase 12's twins built on the CPU: every robot twin as a user builds it, at
+# tiny predictor widths without weights; the groups of equal points and each
+# group's predicted tail launches a replan
+TWINS_CUT = {'device': 'cpu', 'model_path': 'no_weights',
+             'predictor_hparams': PREDICTOR}
+GROUP_LAUNCHES = {
+    ('robot_sawyer_human_cem',): 96,
+    ('robot_sawyer_registration_experiments',): 92,
+    ('robot_sawyer_towel_classifier',): 48,
+    ('robot_sawyer_mixed_objects_deformable',): 92,
+    ('robot_sawyer_mixed_objects_hardobjects',): 92,
+    ('robonet_baxter_fine_tune', 'robonet_baxter_fine_tune_baxter_scratch',
+     'robonet_baxter_fine_tune_sawyer_baxter_fine_tune',
+     'robonet_view_generalization_single_view'): 55,
+    ('robonet_franka',): 55,
+    ('robonet_new_bin_inlay_all_robots', 'robonet_new_bin_inlay_sawyer_only',
+     'robonet_robotiq_fine_tune_start_all',
+     'robonet_robotiq_fine_tune_start_sawyer',
+     'robonet_robotiq_from_scratch', 'robonet_robotiq_zero_shot',
+     'robonet_view_generalization_all_views'): 55,
+    ('robonet_pixel_cost',): 42,
+    ('robonet_inverse_model_franka_inverse_conf',): 0,
+    ('robonet_inverse_model_multibot_one_step',
+     'robonet_inverse_model_sawyer_one_step'): 0,
+    ('robonet_inverse_model_sawyer_two_step',): 0,
+}
+
+
+def test_chip_smoke_robot_twins_built_on_the_cpu():
+    """``chip_smoke.robot_twin_groups``: each of the 22 twins raises as its
+    source does as written, then builds; 12 groups; each group's first
+    controller built on the CPU plans the predicted launches a replan
+    (``robot_launches``: the registration twin's at 96x128, two cameras)."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        groups = chip_smoke.robot_twin_groups(TWINS_CUT, {'device': 'cpu'})
+    assert {tuple(m[0] for m in g) for g in groups} == set(GROUP_LAUNCHES)
+    assert sum(len(g) for g in groups) == 22
+    for members in groups:
+        name, cost, cls, agent, policy = members[0]
+        want = GROUP_LAUNCHES[tuple(m[0] for m in members)]
+        if cost == 'inverse':
+            # the stand-in net, at 192x256
+            ctrl = cls(agent, dict(policy))
+            assert ctrl.predictor.restored and want == 0
+            assert (agent['image_height'], agent['image_width']) == (192, 256)
+            continue
+        with pytest.warns(UserWarning, match='seeded'):
+            ctrl = cls(agent, dict(policy))
+        assert ctrl.device.type == 'cpu'
+        got = chip_smoke.robot_launches(cost, agent['ncam'], ctrl)
+        assert got == want, name
+        if cost == 'registration':
+            assert (agent['image_height'], agent['image_width'],
+                    agent['ncam'], ctrl._n_desig) == (96, 128, 2, 2)

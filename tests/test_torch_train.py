@@ -424,7 +424,7 @@ def test_trained_checkpoint_serves_from_torch_predictor(tmp_path):
 @pytest.mark.parametrize('flag,error,match', [
     (dict(data_dir='records'), FileNotFoundError,
      'no hdf5 trajectories under records'),
-    (dict(n_devices=2), NotImplementedError, 'ROADMAP.md')],
+    (dict(n_devices=2), NotImplementedError, 'ROADMAP.md queue 1, "mesh"')],
     ids=['data_dir', 'n_devices'])
 def test_unported_flags_raise(flag, error, match):
     with pytest.raises(error, match=match):

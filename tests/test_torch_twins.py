@@ -170,8 +170,8 @@ def _environ(values):
         os.environ.update(saved)
 
 
-def _load_pair(name, values):
-    source = os.path.join(REPO, TWINS[name][0])
+def _load_pair(name, values, table=None):
+    source = os.path.join(REPO, (table or TWINS)[name][0])
     with _environ(values), warnings.catch_warnings():
         warnings.simplefilter('ignore')
         return (j_run.load_config(source),
@@ -224,15 +224,15 @@ def _at(tree, path):
     return tree
 
 
-def _source_dir(name):
-    return os.path.dirname(os.path.join(REPO, TWINS[name][0]))
+def _source_dir(name, table=None):
+    return os.path.dirname(os.path.join(REPO, (table or TWINS)[name][0]))
 
 
-def _experiment_dir_paths(name, jax_cfg, twin_cfg, diffs):
+def _experiment_dir_paths(name, jax_cfg, twin_cfg, diffs, table=None):
     """The differences of ``diffs`` that are the experiment directory: a
     string under the source's directory on the JAX side, the same under
     ``runs/<twin>`` on the port's."""
-    src, own = _source_dir(name), os.path.join(RUNS, name)
+    src, own = _source_dir(name, table), os.path.join(RUNS, name)
     out = []
     for p in diffs:
         j, t = _at(jax_cfg, p), _at(twin_cfg, p)
@@ -243,31 +243,38 @@ def _experiment_dir_paths(name, jax_cfg, twin_cfg, diffs):
     return out
 
 
-@pytest.mark.parametrize('name', sorted(TWINS))
-def test_twin_tree_equals_its_source(name):
-    source, _, defaults, departs = TWINS[name]
+def check_twin_tree(name, table):
+    """The twin's tree against its source's (the module docstring), with
+    every ``VMPC_*`` variable set and with none."""
+    source, _, defaults, departs = table[name]
     names = _env_names(os.path.join(REPO, source))
     own = {d for d in departs if isinstance(d, str)}
     assert _env_names(os.path.join(CAMPAIGNS, name + '.py')) == names | own
     names |= own
     departs = {d for d in departs if not isinstance(d, str)}
     # every variable set: only the experiment directory differs
-    jax_cfg, twin_cfg = _load_pair(name, _env_values(names))
+    jax_cfg, twin_cfg = _load_pair(name, _env_values(names), table)
     diffs = set(_diff(jax_cfg, twin_cfg))
     assert ('current_dir',) in diffs or name == 'ag_bench20_random'
     diffs -= departs
-    assert diffs - set(_experiment_dir_paths(name, jax_cfg, twin_cfg,
-                                             diffs)) == set(), name
+    assert diffs - set(_experiment_dir_paths(name, jax_cfg, twin_cfg, diffs,
+                                             table)) == set(), name
     # none set: the default weights differ too, each a vendored export or
     # a stand-in
-    jax_cfg, twin_cfg = _load_pair(name, {})
+    jax_cfg, twin_cfg = _load_pair(name, {}, table)
     diffs = set(_diff(jax_cfg, twin_cfg)) - departs
-    rest = diffs - set(_experiment_dir_paths(name, jax_cfg, twin_cfg, diffs))
+    rest = diffs - set(_experiment_dir_paths(name, jax_cfg, twin_cfg, diffs,
+                                             table))
     assert rest == set(defaults), name
     for p in defaults:
         path = _at(twin_cfg, p)
         assert path.startswith((WEIGHTS, stand_ins.ROOT)), (p, path)
         assert os.path.isdir(path), path
+
+
+@pytest.mark.parametrize('name', sorted(TWINS))
+def test_twin_tree_equals_its_source(name):
+    check_twin_tree(name, TWINS)
 
 
 def _agent(config, dims):
@@ -281,7 +288,8 @@ def _cut_policy(policy, root):
     widths."""
     policy = dict(policy)
     for key in ('model_path', 'gdn_path', 'classifier_path',
-                'embedding_path', 'model_params_path'):
+                'embedding_path', 'model_params_path',
+                'model_restore_path'):
         if isinstance(policy.get(key), list):
             policy[key] = [os.path.join(root, 'm{}'.format(i))
                            for i in range(len(policy[key]))]
@@ -328,11 +336,19 @@ def _build_jax(config, dims, root):
     return _quiet(lambda: cls(_agent(config, dims), policy))
 
 
-@pytest.mark.parametrize('name', sorted(TWINS))
-def test_twin_policy_builds_as_jax_does(name, tmp_path):
-    jax_cfg, twin_cfg = _load_pair(name, {})
-    dims, root = TWINS[name][1], str(tmp_path)
-    for key in RAISES.get(name, ()):
+def check_twin_policy(name, table, root, raises=(), key_raises=(),
+                      jax_only_raises=None, fused_raises=None):
+    """The twin's policy built on the CPU beside the JAX one (the module
+    docstring).  ``raises``: the keys equal to their defaults, on which
+    both raise ``ValueError`` in turn; ``key_raises``: keys that neither
+    controller declares, on which both raise ``KeyError``;
+    ``fused_raises``: a message that the port's fused planner raises
+    ``ValueError`` with as written (the JAX package asserts), both
+    building with ``use_fused_planner`` off; ``jax_only_raises``: the
+    error the JAX policy raises where the twin builds."""
+    jax_cfg, twin_cfg = _load_pair(name, {}, table)
+    dims = table[name][1]
+    for key in raises:
         # each package raises on the same key; dropped, the next raises
         with pytest.raises(ValueError) as j_err:
             _build_jax(jax_cfg, dims, root)
@@ -342,20 +358,42 @@ def test_twin_policy_builds_as_jax_does(name, tmp_path):
             'Policy param {} override is identical to its default!'.format(
                 key))
         del jax_cfg['policy'][key], twin_cfg['policy'][key]
-    t_pol = _build_port(twin_cfg, dims, root)
-    if name in JAX_ONLY_RAISES:
-        with pytest.raises(JAX_ONLY_RAISES[name]):
+    for key in key_raises:
+        with pytest.raises(KeyError, match=key):
             _build_jax(jax_cfg, dims, root)
-        return
+        with pytest.raises(KeyError, match=key):
+            _build_port(twin_cfg, dims, root)
+        del jax_cfg['policy'][key], twin_cfg['policy'][key]
+    if fused_raises:
+        with pytest.raises(ValueError, match=fused_raises):
+            _build_port(twin_cfg, dims, root)
+        policy = _cut_policy(jax_cfg['policy'], root)
+        with pytest.raises(AssertionError, match=fused_raises):
+            _quiet(lambda: policy['type'](_agent(jax_cfg, dims), policy))
+        for cfg in (jax_cfg, twin_cfg):
+            cfg['policy']['use_fused_planner'] = False
+    t_pol = _build_port(twin_cfg, dims, root)
+    if jax_only_raises:
+        with pytest.raises(jax_only_raises):
+            _build_jax(jax_cfg, dims, root)
+        return t_pol
     j_pol = _build_jax(jax_cfg, dims, root)
     skip = {'type', 'predictor_hparams', 'model_path', 'gdn_path',
-            'classifier_path', 'embedding_path', 'model_params_path'}
+            'classifier_path', 'embedding_path', 'model_params_path',
+            'model_restore_path'}
     if hasattr(j_pol, '_hp'):
         for key in set(twin_cfg['policy']) - skip:
             j_val, t_val = getattr(j_pol._hp, key), getattr(t_pol._hp, key)
             assert _diff(j_val, t_val) == [], (key, j_val, t_val)
     if isinstance(t_pol, (CEMBaseController, InvModelBaseController)):
         assert t_pol.predictor.device.type == 'cpu'
+    return t_pol
+
+
+@pytest.mark.parametrize('name', sorted(TWINS))
+def test_twin_policy_builds_as_jax_does(name, tmp_path):
+    check_twin_policy(name, TWINS, str(tmp_path), raises=RAISES.get(name, ()),
+                      jax_only_raises=JAX_ONLY_RAISES.get(name))
 
 
 _IMPORTS = r'''
@@ -381,7 +419,14 @@ def test_twins_import_no_jax():
                           cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split()[0] == str(len(TWINS))
+    # every twin table: this module's, the robot and RoboNet experiments'
+    # and the collection configs'
+    from test_torch_twins_collect import COLLECT_TWINS
+    from test_torch_twins_robot import ROBOT_TWINS
+    tables = (TWINS, ROBOT_TWINS, COLLECT_TWINS)
+    assert not set(TWINS) & set(ROBOT_TWINS) | \
+        set(TWINS) & set(COLLECT_TWINS) | set(ROBOT_TWINS) & set(COLLECT_TWINS)
+    assert proc.stdout.split()[0] == str(sum(len(t) for t in tables))
     for path in glob.glob(os.path.join(CAMPAIGNS, '*.py')):
         with open(path) as f:
             text = f.read()
@@ -418,3 +463,52 @@ def test_stand_ins_are_the_golden_copies():
     assert restore_network(net, inverse)
     assert net.head.weight.shape == (7 * 4, 256)
     assert torch.isfinite(net.head.weight).all()
+
+
+# the config files whose dict no code of either package reads: each holds
+# a ``configuration`` dict (a predictor's or the GDN trainer's settings)
+# that only tests/test_configs.py loads; the port twins none of them
+NO_READER = (
+    'experiments/offline_exp/towel_classifier/conf.py',
+    'experiments/robonet/pixel_cost/conf.py',
+    'experiments/sawyer/mixed_objects/conf.py',
+    'experiments/sawyer/pixel_cost/conf.py',
+    'experiments/sawyer/registration_experiments/conf.py',
+    'experiments/sawyer/registration_experiments/gdnconf.py',
+    'experiments/sawyer/towel_classifier/conf.py',
+    'experiments/sim/cartgripper_2d_grasping/nce_experiments/conf.py',
+    'experiments/sim/cartgripper_2d_grasping/pixel_cost/conf.py',
+    'experiments/sim/ensemble_grasping/conf.py',
+)
+
+
+def test_every_config_has_a_twin_or_no_reader():
+    """Every ``*.py`` under ``experiments/``, ``data_collection/`` and
+    ``benchmarks/`` is the source of exactly one twin, or on ``NO_READER``:
+    a ``configuration`` dict and no ``config``, which no module of either
+    package reads."""
+    from test_torch_twins_collect import COLLECT_TWINS
+    from test_torch_twins_robot import ROBOT_TWINS
+    configs = sorted(os.path.relpath(p, REPO) for root in (
+        'experiments', 'data_collection', 'benchmarks')
+        for p in glob.glob(os.path.join(REPO, root, '**', '*.py'),
+                           recursive=True))
+    sources = [entry[0] for table in (TWINS, ROBOT_TWINS, COLLECT_TWINS)
+               for entry in table.values()]
+    assert len(sources) == len(set(sources))
+    assert not set(sources) & set(NO_READER)
+    assert sorted(sources + list(NO_READER)) == configs
+    readers = []
+    for root in ('visual_foresight_tpu', 'visual_foresight_torch'):
+        for path in glob.glob(os.path.join(REPO, root, '**', '*.py'),
+                              recursive=True):
+            with open(path) as f:
+                if re.search(r'\.configuration\b|\[.configuration.\]',
+                             f.read()):
+                    readers.append(path)
+    assert readers == []
+    for path in NO_READER:
+        with open(os.path.join(REPO, path)) as f:
+            text = f.read()
+        assert re.search(r'^configuration = \{', text, re.M), path
+        assert not re.search(r'^config = ', text, re.M), path

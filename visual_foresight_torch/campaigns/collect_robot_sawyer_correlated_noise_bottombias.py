@@ -1,0 +1,68 @@
+"""Sawyer collection with correlated, downward-biased noise, on the port.
+
+The twin of
+``data_collection/sawyer/correlated_noise_bottombias/hparams.py``: the same
+keys and values (``SamplerPolicy`` (``CorrelatedNoiseSampler`` with a -0.04
+z bias), five cameras at 240x320, T 30) and the same ``VMPC_*`` overrides,
+with the port's classes.  Its experiment directory is
+``campaigns/runs/collect_robot_sawyer_correlated_noise_bottombias/``.
+
+The arm and its cameras run on the robot's host; the policy draws on the
+host: nothing here runs on the card.
+
+Run on a machine with the arm, its cameras and ROS, in
+``visual_foresight_torch/campaigns/``::
+
+    python -m visual_foresight_torch.sim.run_robot \\
+        collect_robot_sawyer_correlated_noise_bottombias.py <robot>
+"""
+
+import os.path
+
+import numpy as np
+
+from visual_foresight_torch.agent.general_agent import GeneralAgent
+from visual_foresight_torch.envs.robot_envs.autograsp_env import AutograspEnv
+from visual_foresight_torch.envs.robot_envs.util.topic_utils import IMTopic
+from visual_foresight_torch.policy.random.sampler_policy import SamplerPolicy
+
+BASE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs',
+                        'collect_robot_sawyer_correlated_noise_bottombias')
+current_dir = BASE_DIR
+
+env_params = {
+    'robot_name': 'sawyer',
+    'email_login_creds': '.email_cred',
+    'camera_topics': [IMTopic('/front/image_raw'),
+                      IMTopic('/left/image_raw', flip=True),
+                      IMTopic('/right_side/image_raw'),
+                      IMTopic('/left_side/image_raw'),
+                      IMTopic('/right/image_raw')],
+}
+
+agent = {
+    'type': GeneralAgent,
+    'env': (AutograspEnv, env_params),
+    'data_save_dir': BASE_DIR,
+    'T': 30,
+    'image_height': 240,
+    'image_width': 320,
+    'record': BASE_DIR + '/record/',
+}
+
+policy = {
+    'type': SamplerPolicy,
+    'mean_bias': np.array([0., 0., -0.04, 0.]),
+}
+
+config = {
+    'traj_per_file': 128,
+    'current_dir': current_dir,
+    'save_data': True,
+    'save_raw_images': True,
+    'start_index': 0,
+    'end_index': 120000,
+    'agent': agent,
+    'policy': policy,
+    'ngroup': 1000,
+}

@@ -1,0 +1,73 @@
+"""Interactive towel-classifier example collection, on the port.
+
+The twin of ``data_collection/sawyer/towel_data/get_examples.py``: the same
+keys and values (``CollectExamplesPolicy`` on ``VanillaEnv``: a person
+labels positive and negative examples; five cameras at 240x320, T 30) and
+the same ``VMPC_*`` overrides, with the port's classes.  Its experiment
+directory is
+``campaigns/runs/collect_robot_sawyer_towel_data_get_examples/``.
+
+The arm and its cameras run on the robot's host; the policy draws on the
+host: nothing here runs on the card.
+
+Run on a machine with the arm, its cameras and ROS, in
+``visual_foresight_torch/campaigns/``::
+
+    python -m visual_foresight_torch.sim.run_robot \\
+        collect_robot_sawyer_towel_data_get_examples.py <robot>
+"""
+
+import os.path
+
+import numpy as np
+
+from visual_foresight_torch.agent.general_agent import GeneralAgent
+from visual_foresight_torch.envs.robot_envs.util.topic_utils import IMTopic
+from visual_foresight_torch.envs.robot_envs.vanilla_env import VanillaEnv
+from visual_foresight_torch.policy.interactive.classifier_collector import (
+    CollectExamplesPolicy)
+
+BASE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs',
+                        'collect_robot_sawyer_towel_data_get_examples')
+current_dir = BASE_DIR
+
+env_params = {
+    'robot_name': 'sawyer',
+    'lower_bound_delta': [0, 0., -0.01, 265 * np.pi / 180 - np.pi / 2, 0],
+    'upper_bound_delta': [0, -0.15, -0.01, 0., 0],
+    'normalize_actions': True,
+    'start_at_neutral': True,
+    'wait_during_resetend': True,
+    'rand_drop_reset': False,
+    'camera_topics': [IMTopic('/front/image_raw', flip=True),
+                      IMTopic('/left/image_raw'),
+                      IMTopic('/right_side/image_raw'),
+                      IMTopic('/left_side/image_raw'),
+                      IMTopic('/right/image_raw')],
+}
+
+agent = {
+    'type': GeneralAgent,
+    'env': (VanillaEnv, env_params),
+    'data_save_dir': BASE_DIR,
+    'T': 30,
+    'image_height': 240,
+    'image_width': 320,
+    'record': BASE_DIR + '/record/',
+}
+
+policy = {
+    'type': CollectExamplesPolicy,
+}
+
+config = {
+    'traj_per_file': 128,
+    'current_dir': current_dir,
+    'save_data': True,
+    'save_raw_images': True,
+    'start_index': 0,
+    'end_index': 120000,
+    'agent': agent,
+    'policy': policy,
+    'ngroup': 1000,
+}

@@ -1,0 +1,68 @@
+"""Two-camera xz-grasp collection, on the port.
+
+The twin of
+``data_collection/sim/cartgripper_xz_grasp/r5_twocam/hparams.py``: the same
+keys and values (the ``r4_flagship`` point with a second camera: records
+for the two-camera predictor and the GDN) and the same ``VMPC_*``
+overrides, with the port's classes.  Its experiment directory is
+``campaigns/runs/collect_sim_cartgripper_xz_grasp_r5_twocam/``.
+
+MuJoCo renders on the host and the policy draws on the host: nothing here
+runs on the card.
+
+Run in ``visual_foresight_torch/campaigns/``::
+
+    python -m visual_foresight_torch.sim.run \\
+        collect_sim_cartgripper_xz_grasp_r5_twocam.py [--nworkers N]
+"""
+
+import os
+import os.path
+
+from visual_foresight_torch.agent.general_agent import GeneralAgent
+from visual_foresight_torch.envs.mujoco_env.cartgripper_env.cartgripper_xz_grasp import (  # noqa: E501
+    CartgripperXZGrasp)
+from visual_foresight_torch.policy.random.gaussian import GaussianPolicy
+
+BASE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'runs',
+                        'collect_sim_cartgripper_xz_grasp_r5_twocam')
+DATA_DIR = os.environ.get('VMPC_DATA_DIR', BASE_DIR + '/data')
+current_dir = BASE_DIR
+
+env_params = {
+    'viewer_image_height': 96,
+    'viewer_image_width': 128,
+    'cube_objects': True,
+    'ncam': 2,
+}
+
+agent = {
+    'type': GeneralAgent,
+    'env': (CartgripperXZGrasp, env_params),
+    'data_save_dir': DATA_DIR,
+    'T': 30,
+    'image_height': 48,
+    'image_width': 64,
+    'gen_xml': 1,
+    'rejection_sample': 5,
+}
+
+policy = {
+    'type': GaussianPolicy,
+    'nactions': 10,
+    'action_order': ['x', 'z', 'grasp'],
+    'initial_std_lift': 0.1,
+}
+
+config = {
+    'traj_per_file': 128,
+    'current_dir': current_dir,
+    'save_data': True,
+    'seperate_good': True,
+    'save_raw_images': False,
+    'start_index': int(os.environ.get('VMPC_START_INDEX', 0)),
+    'end_index': int(os.environ.get('VMPC_END_INDEX', 100000)),
+    'agent': agent,
+    'policy': policy,
+    'ngroup': 1000,
+}

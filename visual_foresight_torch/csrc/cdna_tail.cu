@@ -935,6 +935,44 @@ cudaError_t launch(const Args& a, int variant) {
   return launch_tiled_masks<T, K, 2>(a, lg);
 }
 
+// The tiled variant's residency at a shape, for measurement: the blocks an
+// SM can hold at the dynamic shared memory its launch asks for.
+template <typename T, int K, int MP, int NP>
+cudaError_t tiled_occupancy(int c_plus_p, int* blocks, int* smem) {
+  using S = TiledShape<T, K, MP, NP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cdna_tail_tiled_kernel<T, K, MP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)S::bytes(kPack * NP));
+  if (err != cudaSuccess) return err;
+  *smem = (int)S::bytes(S::channels(c_plus_p));
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, cdna_tail_tiled_kernel<T, K, MP, NP>, kTiledThreads, *smem);
+}
+
+template <typename T, int K>
+cudaError_t tiled_occupancy_k(int C, int P, int M, int* blocks, int* smem) {
+  if (C + P > 2 * kPack) return cudaErrorInvalidValue;
+  if (C + P <= kPack)
+    return M <= 10 ? tiled_occupancy<T, K, 10, 1>(C + P, blocks, smem)
+                   : tiled_occupancy<T, K, kMaxMasks, 1>(C + P, blocks, smem);
+  return M <= 10 ? tiled_occupancy<T, K, 10, 2>(C + P, blocks, smem)
+                 : tiled_occupancy<T, K, kMaxMasks, 2>(C + P, blocks, smem);
+}
+
+template <typename T>
+cudaError_t tiled_occupancy_t(int C, int P, int K, int M, int* blocks, int* smem) {
+  switch (K) {
+    case 3:
+      return tiled_occupancy_k<T, 3>(C, P, M, blocks, smem);
+    case 5:
+      return tiled_occupancy_k<T, 5>(C, P, M, blocks, smem);
+    case 7:
+      return tiled_occupancy_k<T, 7>(C, P, M, blocks, smem);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t dispatch_k(int K, const Args& a, int variant) {
   switch (K) {
@@ -1025,6 +1063,20 @@ extern "C" int cdna_tail_forward(const void* prev, const void* first,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)dispatch_k<float>(K, a, variant);
   if (dtype == 1) return (int)dispatch_k<__nv_bfloat16>(K, a, variant);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Plain C entry point of the tiled variant's residency: the blocks of 128
+// threads an SM holds at C frame and P distribution channels, K and M, and
+// the dynamic shared memory of one block, in bytes.  dtype as above.
+// Returns the cudaError_t of the query (0 on success).
+extern "C" int cdna_tail_tiled_occupancy(int C, int P, int K, int M, int dtype,
+                                         int* blocks, int* smem) {
+  if (C < 1 || C > kMaxChannels || P < 0 || P > kMaxChannels || M < 1 ||
+      M > kMaxMasks)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)tiled_occupancy_t<float>(C, P, K, M, blocks, smem);
+  if (dtype == 1) return (int)tiled_occupancy_t<__nv_bfloat16>(C, P, K, M, blocks, smem);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,15 +10,16 @@ import logging
 import numpy as np
 
 from visual_foresight_torch.envs.util.action_util import autograsp_dynamics
-from .base_env import BaseRobotEnv
+from .base_env import _QPOS_DIM, BaseRobotEnv
 
 
 class AutograspEnv(BaseRobotEnv):
+    ACTION_DIM, STATE_DIM = 4, _QPOS_DIM
+
     def __init__(self, env_params, _=None):
         assert 'mode_rel' not in env_params, 'autograsp sets mode_rel'
         self._hyper = copy.deepcopy(env_params)
         BaseRobotEnv.__init__(self, self._hyper)
-        self._adim, self._sdim = 4, self._base_sdim
 
     def _init_dynamics(self):
         self._gripper_closed = False

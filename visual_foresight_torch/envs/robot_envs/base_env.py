@@ -55,8 +55,14 @@ class BaseRobotEnv(BaseEnv):
     ``_next_qpos`` (action -> absolute target qpos) and optionally
     ``_init_dynamics`` (per-rollout state); read ``_previous_target_qpos``,
     ``_low_bound`` / ``_high_bound``, ``_base_adim`` / ``_base_sdim`` and
-    ``_last_obs``; set ``_adim`` / ``_sdim``.
+    ``_last_obs``; state ``ACTION_DIM`` / ``STATE_DIM``.
     """
+    # the action and state widths of a subclass, which a planner reads
+    # before any robot is connected
+    ACTION_DIM = STATE_DIM = None
+    # the cameras of an env config that names none
+    DEFAULT_CAMERA_TOPICS = (IMTopic('/camera0/image_raw', flip=True),
+                             IMTopic('/camera1/image_raw'))
 
     def __init__(self, env_params, _=None):
         self._hp = self._default_hparams()
@@ -76,7 +82,7 @@ class BaseRobotEnv(BaseEnv):
         self._connect_cameras()
 
         self._base_adim = self._base_sdim = _QPOS_DIM
-        self._adim = self._sdim = None
+        self._adim, self._sdim = self.ACTION_DIM, self.STATE_DIM
         self.mode_rel = np.array(self._hp.mode_rel)
         self._cleanup_rate = self._hp.cleanup_rate
         self._duration = self._hp.duration
@@ -140,8 +146,7 @@ class BaseRobotEnv(BaseEnv):
             'email_login_creds': '',
             'log_file': '',
             'gripper_attached': 'wsg-50',
-            'camera_topics': [IMTopic('/camera0/image_raw', flip=True),
-                              IMTopic('/camera1/image_raw')],
+            'camera_topics': list(self.DEFAULT_CAMERA_TOPICS),
             'opencv_tracking': False,
             'save_video': False,
             'start_at_neutral': False,

@@ -4,14 +4,15 @@ The port's copy of ``visual_foresight_tpu/envs/robot_envs/vanilla_env.py``."""
 
 import copy
 
-from .base_env import BaseRobotEnv
+from .base_env import _QPOS_DIM, BaseRobotEnv
 
 
 class VanillaEnv(BaseRobotEnv):
+    ACTION_DIM = STATE_DIM = _QPOS_DIM
+
     def __init__(self, env_params, _=None):
         self._hyper = copy.deepcopy(env_params)
         BaseRobotEnv.__init__(self, env_params)
-        self._adim, self._sdim = self._base_adim, self._base_sdim
 
     def _next_qpos(self, action):
         assert action.shape[0] == self._base_adim, 'action must be 5-dim'

@@ -430,7 +430,7 @@ def make_trainer(args, device=None):
     ``device`` (default ``args.device``).  ``train`` runs on this."""
     if args.n_devices > 1:
         raise NotImplementedError('--n_devices > 1 is not ported yet: mesh '
-                                  '(ROADMAP.md queue 1, item 5)')
+                                  '(ROADMAP.md queue 1, "mesh")')
     device = resolve_device(device or args.device)
     model = build_model(args)
     init_params(model, seed=0)

@@ -275,6 +275,19 @@
    from its policy (``robot_launches``), tiled on blocked masks, two planes
    at 96x128 for the registration twin; the human CEM on seeded scripted
    scores and a file worker; the inverse twins (192x256) without a tail.
+14. the mesh (``main``'s phase 13, ``drive_mesh``): the flagship's replan
+   (``parallel/flagship_check.py``: 48x64, M=200, 2 iterations, bf16, the
+   restored flagship) unsharded, then over the card repeated 2 and 4 times
+   (``Mesh((cuda:0,) * n)``, the counterpart of the JAX tests' virtual CPU
+   mesh) and over ``make_mesh()`` (every card): launches ``1 + 2 x 15 x
+   n`` (the context once, every model step once a share), CUDA-event spans,
+   each held against unsharded (``check_sharded_replan``: the first
+   iteration's scores at JAX's flagship tolerance and the best plans, in
+   bf16 where its elites and scores agree, else both again in f32); 3
+   flagship train steps at batch
+   16 in f32 over the card twice (``--n_devices 2 --device cuda:0``)
+   against one, at the port's train-step tolerances; and
+   ``tools/dryrun_multichip.py`` at n = 4.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -5084,6 +5097,268 @@ def drive_robot_twins(card):
     return paths
 
 
+# -- the mesh: the flagship's replan and train steps over several devices --
+
+# the flagship replan of parallel/flagship_check.py (48x64, M=200, bf16)
+# over the card repeated 2 and 4 times (the counterpart of the JAX tests'
+# virtual CPU mesh) and over make_mesh() (every card of the machine)
+MESH_ITERS, MESH_REPEATS, MESH_TIMED = 2, (2, 4), 3
+# JAX's flagship mesh tolerances (tests/test_flagship_mesh.py:65-68): the
+# first iteration's scores, from the same draws; the best plans, where the
+# elites agree
+MESH_SCORE_RTOL = MESH_SCORE_ATOL = 1e-3
+MESH_ACTION_ATOL = 1e-4
+# 3 flagship train steps at batch 16 over the card twice against one, in
+# f32 (TF32 off) at the port's train-step tolerances
+# (tests/test_torch_train.py:22-27): losses rtol 1e-5, the gradients' global
+# norm 1e-4, parameters 2e-3 of each leaf's largest change
+MESH_TRAIN_STEPS, MESH_TRAIN_DEVICES = 3, 2
+MESH_LOSS_RTOL, MESH_NORM_RTOL, MESH_PARAM_TOL = 1e-5, 1e-4, 2e-3
+DRYRUN_DEVICES = 4
+
+
+def mesh_launches(shares, iterations=MESH_ITERS, steps=T):
+    """Tail launches of a replan over ``shares`` devices: the context step
+    once, at batch 1 on the lead device, then every model step once a
+    share."""
+    return 1 + iterations * steps * shares
+
+
+def event_span(fn):
+    """(``fn()``, its CUDA-event span in ms)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def flagship_runner():
+    """``replan(mesh, dtype)``: one flagship replan
+    (``parallel/flagship_check.py``, M=200, ``MESH_ITERS`` iterations, seed
+    0) over ``mesh`` (None: unsharded) on the card, on the flagship restored
+    once a dtype; raises where it does not restore."""
+    from visual_foresight_torch.parallel.flagship_check import (
+        flagship_replan, load_flagship_predictor)
+    predictors = {}
+
+    def replan(mesh, dtype='bfloat16'):
+        if dtype not in predictors:
+            predictor = load_flagship_predictor(num_samples=M, device='cuda',
+                                                dtype=dtype)
+            if not predictor.restored:
+                raise AssertionError('the flagship did not restore')
+            predictors[dtype] = predictor
+        return flagship_replan(mesh=mesh, num_samples=M,
+                               iterations=MESH_ITERS,
+                               predictor=predictors[dtype], device='cuda')[0]
+    replan.predictors = predictors
+    return replan
+
+
+def elite_orders(result, k=10):
+    """Each iteration's ``k`` elite indices, best first."""
+    return [torch.sort(s.float(), stable=True).indices[:k].tolist()
+            for s in result['scores_per_itr']]
+
+
+def sharded_errors(got, plain):
+    """(whether every iteration kept the same elites in the same order,
+    whether the first iteration's scores agree within JAX's flagship
+    tolerance, their largest difference, the best plans' largest
+    difference) of two flagship replans."""
+    s_got = got['scores_per_itr'][0].float()
+    s_plain = plain['scores_per_itr'][0].float()
+    diff = (s_got - s_plain).abs()
+    scores_ok = bool((diff <= MESH_SCORE_ATOL +
+                      MESH_SCORE_RTOL * s_plain.abs()).all())
+    act = float((got['best_actions'] - plain['best_actions']).abs().max())
+    return (elite_orders(got) == elite_orders(plain), scores_ok,
+            float(diff.max()), act)
+
+
+def check_sharded_replan(label, got, plain, replan, mesh):
+    """Hold ``got`` (the bf16 flagship replan over ``mesh``) against
+    ``plain`` (unsharded): the first iteration's scores, drawn alike, within
+    JAX's flagship tolerance, and with the same elites in the same order,
+    the best plans within ``MESH_ACTION_ATOL``.  cuDNN may choose other
+    algorithms at B/n, whose bf16 roundings differ through the recurrent
+    steps; where the bf16 elites or scores differ, both run again in f32
+    (TF32 off) through ``replan(mesh, dtype)`` and are held to the same
+    bounds.  Prints which case applied; returns (case, largest
+    first-iteration score difference, largest best-plan difference) of the
+    case held."""
+    same, scores_ok, score_err, act_err = sharded_errors(got, plain)
+    print('{}: bf16: elites equal {}, first iteration max score diff {:.3e} '
+          '(within rtol {} + atol {}: {}), best plans max diff {:.3e}'.format(
+              label, same, score_err, MESH_SCORE_RTOL, MESH_SCORE_ATOL,
+              scores_ok, act_err))
+    case = 'bf16'
+    if not (same and scores_ok):
+        case = 'f32 (the bf16 {} differ)'.format(
+            'elites' if not same else 'scores')
+        same, scores_ok, score_err, act_err = sharded_errors(
+            replan(mesh, 'float32'), replan(None, 'float32'))
+        print('{}: f32: elites equal {}, first iteration max score diff '
+              '{:.3e} (within: {}), best plans max diff {:.3e}'.format(
+                  label, same, score_err, scores_ok, act_err))
+    print('{}: held in {}'.format(label, case))
+    if not scores_ok:
+        raise AssertionError('{}: the sharded scores disagree'.format(label))
+    if not act_err <= MESH_ACTION_ATOL:
+        raise AssertionError('{}: the best plans disagree'.format(label))
+    return case, score_err, act_err
+
+
+def drive_mesh_replans(card):
+    """The flagship replan unsharded, then over the card repeated 2 and 4
+    times and over ``make_mesh()``: each run once untimed (cuDNN's first
+    choices at B/n), then ``MESH_TIMED`` times between CUDA events with its
+    launches counted (``mesh_launches`` a replan: tiled, on blocked masks),
+    and held against unsharded (``check_sharded_replan``).  Returns the
+    launches by path."""
+    from visual_foresight_torch.parallel.mesh import Mesh, make_mesh
+    replan = flagship_runner()
+    lead = torch.device('cuda', 0)
+    where = '(flagship, 48x64, M=200, {} iterations, bf16, {} replans) [{}]' \
+        .format(MESH_ITERS, MESH_TIMED, card)
+    meshes = [('unsharded', None)] + [
+        ('x{}'.format(n), Mesh((lead,) * n)) for n in MESH_REPEATS] + [
+        ('make_mesh', make_mesh())]
+    paths, plain = {}, None
+    for name, mesh in meshes:
+        replan(mesh)
+        reset_tail_counts()
+        runs = [event_span(lambda: replan(mesh)) for _ in range(MESH_TIMED)]
+        label = 'flagship replan {}'.format(
+            'unsharded' if mesh is None else 'over {} ({})'.format(
+                name, ', '.join(str(d) for d in mesh.devices)))
+        paths['mesh_flagship_' + name] = read_tail_counts(
+            label, MESH_TIMED * mesh_launches(1 if mesh is None
+                                              else mesh.size),
+            replan.predictors['bfloat16']._hp)
+        spans = [span for _, span in runs]
+        print('mesh_flagship_{}_span_ms={:.3f} median, {} {}'.format(
+            name, float(np.median(spans)),
+            ' '.join('{:.3f}'.format(x) for x in spans), where))
+        if mesh is None:
+            plain = runs[0][0]
+        else:
+            check_sharded_replan(label, runs[0][0], plain, replan, mesh)
+    return paths
+
+
+def drive_mesh_training(card):
+    """``train()`` at the flagship's width, f32, batch 16 from synthetic
+    batches: ``MESH_TRAIN_STEPS`` steps with ``--n_devices``
+    ``MESH_TRAIN_DEVICES`` over the card repeated (``--device cuda:0``)
+    against the same steps on one: 14 forward and 14 backward tail launches
+    a step a share, no plain version, losses, gradient norms and parameters
+    at the port's train-step tolerances.  Returns the launches by path."""
+    from visual_foresight_torch.models.convert import flatten_flax
+    from visual_foresight_torch.training import train_predictor as ttrain
+    config = os.path.join(WEIGHTS, 'model_config.json')
+    runs, paths = {}, {}
+    for n in (1, MESH_TRAIN_DEVICES):
+        args = train_args(config, batch_size=TRAIN_BATCH,
+                          steps=MESH_TRAIN_STEPS, log_every=1, n_devices=n,
+                          device='cuda:0')
+        args.bf16 = False
+        model_steps = args.sequence_length - 1
+        reset_train_counts()
+        with PlainCalls() as plain:
+            (history, trainer), span = event_span(lambda: ttrain.train(args))
+        path = 'mesh_train_{}'.format(n)
+        paths[path] = read_train_counts(
+            'flagship training, f32, over {}'.format(', '.join(
+                str(d) for d in trainer.mesh.devices)),
+            MESH_TRAIN_STEPS, model_steps * n)
+        if plain.calls:
+            raise AssertionError('{} called a plain version'.format(path))
+        print('{}_span_ms={:.3f} ({} steps at batch {}, f32, the build of '
+              'the model included) [{}]'.format(path, span, MESH_TRAIN_STEPS,
+                                                TRAIN_BATCH, card))
+        runs[n] = (history, flatten_flax(ttrain.params_to_flax(
+            trainer.model.state_dict())))
+        time_train_steps(
+            trainer, ttrain.synthetic_batches(args, seed=1),
+            MESH_TRAIN_STEPS, path + '_step', '(xz_flagship full width, f32, '
+            'batch {} over {} share(s), 14 model steps) [{}]'.format(
+                TRAIN_BATCH, n, card))
+        del trainer
+    init = ttrain.build_model(args)
+    ttrain.init_params(init, seed=0)
+    init = flatten_flax(ttrain.params_to_flax(init.state_dict()))
+    (h1, p1), (hn, pn) = runs[1], runs[MESH_TRAIN_DEVICES]
+    loss_err = max(abs(a['loss'] - b['loss']) / abs(a['loss'])
+                   for a, b in zip(h1, hn))
+    norm_err = max(abs(a['grad_norm'] - b['grad_norm']) / abs(a['grad_norm'])
+                   for a, b in zip(h1, hn))
+    param_err = max(float(np.abs(pn[k] - p1[k]).max()) / max(
+        float(np.abs(p1[k] - init[k]).max()), 1e-30) for k in p1)
+    print('mesh train steps over {} against one: losses max rel diff {:.3e} '
+          '(rtol {}), gradient norms {:.3e} (rtol {}), parameters max diff '
+          '{:.3e} of their leaf\'s largest change (tol {})'.format(
+              MESH_TRAIN_DEVICES, loss_err, MESH_LOSS_RTOL, norm_err,
+              MESH_NORM_RTOL, param_err, MESH_PARAM_TOL))
+    if len(hn) != MESH_TRAIN_STEPS or not loss_err <= MESH_LOSS_RTOL or \
+            not norm_err <= MESH_NORM_RTOL or not param_err <= MESH_PARAM_TOL:
+        raise AssertionError('the sharded train steps disagree')
+    return paths
+
+
+def drive_dryrun(card):
+    """``tools/dryrun_multichip.py`` at n = ``DRYRUN_DEVICES`` on the card:
+    a sharded train step of the small classic model (5 model steps a share,
+    forward and backward, full-resolution masks), its sharded replan (1 +
+    2 x 6 steps a share) and the flagship's (1 + 15 a share, blocked), all
+    tiled, no plain version.  Returns the launches."""
+    from visual_foresight_torch.ops.cdna_tail import (
+        fused_warp_composite, fused_warp_composite_backward,
+        fused_warp_composite_dna, fused_warp_composite_eff)
+    from visual_foresight_torch.tools import dryrun_multichip
+    n = DRYRUN_DEVICES
+    train, small = 5 * n, mesh_launches(n, 2, 6)
+    flag = mesh_launches(n, 1)
+    reset_train_counts()
+    with PlainCalls() as plain:
+        _, span = event_span(lambda: dryrun_multichip.run(n, 'cuda'))
+    fwd, bwd = fused_warp_composite.launches, \
+        fused_warp_composite_backward.launches
+    by_variant = dict(fused_warp_composite.launches_by_variant)
+    blocked = fused_warp_composite.blocked_launches
+    print('dryrun_multichip({}): {} forward tail launches (expected {} = {} '
+          'train + {} small replan + {} flagship), by variant {}, {} on '
+          'blocked masks (expected {}); {} backward (expected {}); plain '
+          'calls {}; span {:.3f} ms (the models\' builds and the flagship\'s '
+          'restore included) [{}]'.format(
+              n, fwd, train + small + flag, train, small, flag, by_variant,
+              blocked, flag, bwd, train, plain.calls, span, card))
+    if fwd != train + small + flag or bwd != train or blocked != flag or \
+            by_variant['tiled'] != fwd or plain.calls or \
+            fused_warp_composite_eff.launches or \
+            fused_warp_composite_dna.launches:
+        raise AssertionError('dryrun_multichip did not run the kernels as '
+                             'expected')
+    return {'dryrun_multichip_{}'.format(n): {
+        'cdna_tail': fwd, 'cdna_tail_bwd': bwd, 'cdna_tail_eff': 0,
+        'cdna_tail_dna': 0}}
+
+
+def drive_mesh(card):
+    """Phase 13: the mesh replans, the sharded train steps and the dry
+    run; returns the launches by path."""
+    t0 = time.time()
+    paths = drive_mesh_replans(card)
+    paths.update(drive_mesh_training(card))
+    paths.update(drive_dryrun(card))
+    print('phase 13 (mesh) took {:.1f} s'.format(time.time() - t0))
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -5404,6 +5679,11 @@ def main():
     # net restored), one group of equal points replanned once; the
     # registration experiment's two planes at 96x128
     paths.update(drive_robot_twins(card))
+    # -- 13. the mesh: the flagship's replan over the card repeated 2 and 4
+    # times and over make_mesh(), each against unsharded; 3 train steps at
+    # batch 16 over the card twice against one; the dry run at n = 4
+    paths.update(drive_mesh(card))
+
     two_plane_paths = ['twin_' + n for n, c, _, _ in TWIN_POINTS
                        if c == 'registration'] + [
         'twin_' + p[0] for p in ROBOT_TWIN_POINTS if p[1] == 'registration']
@@ -5411,6 +5691,7 @@ def main():
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
         (p.startswith('twin_') and p not in two_plane_paths) or
+        p.startswith(('mesh_flagship_', 'dryrun_multichip_')) or
         p in ('offline_replay', 'human_cem', 'numpy_replan_200',
               'tf1_replan_200', 'visualize_predictions', 'profiled_replan',
               'robot_sawyer_pixel_cost', 'robot_robonet_franka'))
@@ -5432,7 +5713,8 @@ def main():
         # CEM), phase 9's serving paths (the TF1 and numpy replans,
         # visualize_predictions, the profiled replan), phase 10's robot
         # twin and phase 11's campaign twins but the registration ones
-        # (two planes, counted there); training paths are in
+        # (two planes, counted there), phase 13's mesh replans and its dry
+        # run (its train step's forward too); training paths are in
         # launches_by_path alone
         'launches': paths['controller']['cdna_tail'] + extra_path_launches,
         'launches_by_path': by_path('cdna_tail'),
@@ -5488,7 +5770,11 @@ def main():
         'replaces': 'visual_foresight_tpu/ops/pallas_cdna.py:71',
         'gradient_of': 'visual_foresight_tpu/ops/cdna_warp.py:86 and :123, '
                        'differentiated by XLA in the JAX trainer',
-        'launches': paths['train_xz_flagship']['cdna_tail_bwd'],
+        # the flagship's training, phase 13's sharded and unsharded steps
+        # and the dry run's
+        'launches': paths['train_xz_flagship']['cdna_tail_bwd'] + sum(
+            n['cdna_tail_bwd'] for p, n in paths.items()
+            if p.startswith(('mesh_train_', 'dryrun_multichip_'))),
         'launches_by_path': by_path('cdna_tail_bwd'),
         'max_abs_err': bwd_abs, 'max_rel_err': bwd_rel,
         'ms': bwd[TRAIN_BATCH]['ms'], 'plain_ms': bwd[TRAIN_BATCH]['plain_ms'],

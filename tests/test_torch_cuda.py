@@ -24,6 +24,11 @@ SNA on and off, K 3 to 7, both types, all four gradients; two launches must
 give the same bits, and the autograd node on the card must give what
 autograd of the plain version gives.
 
+The mesh: the tiled tail and its backward on ``cuda:1`` after ``cuda:0``
+(the shared-memory opt-in is kept per device; skips with fewer than two
+cards), and the flagship's replan over the card repeated twice against
+unsharded (``chip_smoke.check_sharded_replan``).
+
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
 the backward's gradients relative to each gradient's largest magnitude (a
@@ -566,3 +571,57 @@ def test_robot_twin_episode_on_card(tmp_path):
     assert log.launches == [per_replan] * 2 and per_replan == 92
     chip_smoke.check_robot_trajs(str(tmp_path / 'result'), (0,), clicks,
                                  config['agent']['T'], True)
+
+
+@pytest.mark.cuda
+def test_tiled_tail_and_backward_on_a_second_card():
+    """The tiled tail (53,648 bytes of shared memory a block at the serving
+    shape: above the 48 KB that needs a per-device opt-in) and its backward
+    on ``cuda:1`` after ``cuda:0`` in one process, each against its plain
+    version on that card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA cards')
+    for index in (0, 1):
+        device = torch.device('cuda', index)
+        gen = torch.Generator(device=device).manual_seed(index)
+        with torch.cuda.device(device):
+            args = _tail_args(gen, torch.bfloat16, 200, 48, 64,
+                              mask_block=4)
+            got = fused_warp_composite(*args, sna=True, mask_block=4)
+            want = fused_warp_composite_reference(*args, sna=True,
+                                                  mask_block=4)
+            bwd = _bwd_args(gen, torch.bfloat16, 16, 48, 64, mask_block=4)
+            g_got = fused_warp_composite_backward(*bwd, sna=True,
+                                                  mask_block=4)
+            g_want = fused_warp_composite_backward_reference(
+                *bwd, sna=True, mask_block=4)
+            torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            assert g.device == device
+            assert float((g.float() - r.float()).abs().max()) <= \
+                TOL[torch.bfloat16]
+        for g, r in zip(g_got, g_want):
+            assert g.device == device
+            assert _rel_err(g, r) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_sharded_flagship_replan_on_one_card():
+    """The flagship's replan (48x64, M=200, bf16, restored) over the card
+    repeated twice equals the unsharded replan as ``chip_smoke.py``'s phase
+    13 holds it: the first iteration's scores at JAX's flagship tolerance
+    and the best plans, in bf16 where its elites and scores agree, else
+    both again in f32."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import chip_smoke
+    from visual_foresight_torch.parallel.mesh import Mesh
+    replan = chip_smoke.flagship_runner()
+    mesh = Mesh((torch.device('cuda', 0),) * 2)
+    plain = replan(None)
+    before = fused_warp_composite.launches
+    got = replan(mesh)
+    assert fused_warp_composite.launches - before == \
+        chip_smoke.mesh_launches(2)
+    chip_smoke.check_sharded_replan('flagship over cuda:0 twice', got, plain,
+                                    replan, mesh)

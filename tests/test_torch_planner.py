@@ -421,14 +421,17 @@ def test_replan_argument_checks():
         run(make(), 6, [latent_model])
 
 
-@pytest.mark.parametrize('mode', [{'mesh': 'any'}])
+@pytest.mark.parametrize('mode', [{'donate_dist': False}])
 def test_unported_planner_modes_raise(mode):
-    """Sample-axis sharding over a mesh is the one mode not ported (the
-    others are held against JAX in ``tests/test_torch_planner_samplers.py``)."""
+    """Keeping the sampling distribution's buffers (``donate_dist`` off) is
+    the one option not ported (the modes are held against JAX in
+    ``tests/test_torch_planner_samplers.py``, the mesh in
+    ``tests/test_torch_mesh.py``)."""
     spec = tgauss.make_action_spec(dict(HP, action_order=['x', 'z', 'grasp']),
                                    3)
     with pytest.raises(NotImplementedError):
         FusedCEMPlanner(spec, 8, k_elite=2, device='cpu', **mode)
     # the values that leave the modes off are accepted
     FusedCEMPlanner(spec, 8, k_elite=2, device='cpu', stochastic_k=1,
-                    rejection_rounds=0, mppi=None, mesh=None)
+                    rejection_rounds=0, mppi=None, mesh=None,
+                    donate_dist=True)

@@ -423,12 +423,19 @@ def test_trained_checkpoint_serves_from_torch_predictor(tmp_path):
 # none, the RoboNet reader raises as JAX's discover does
 @pytest.mark.parametrize('flag,error,match', [
     (dict(data_dir='records'), FileNotFoundError,
-     'no hdf5 trajectories under records'),
-    (dict(n_devices=2), NotImplementedError, 'ROADMAP.md queue 1, "mesh"')],
-    ids=['data_dir', 'n_devices'])
+     'no hdf5 trajectories under records')], ids=['data_dir'])
 def test_unported_flags_raise(flag, error, match):
     with pytest.raises(error, match=match):
         ttrain.train(_args(steps=1, **flag))
+
+
+def test_n_devices_trains_on_the_cpu():
+    """``--n_devices 2 --device cpu`` splits the batch over two entries
+    of the CPU and trains (``tests/test_torch_mesh.py`` holds it against
+    one device and JAX)."""
+    history, trainer = ttrain.train(_args(steps=2, log_every=1, n_devices=2))
+    assert trainer.mesh.size == 2 and len(history) == 2
+    assert all(np.isfinite(h['loss']) for h in history)
 
 
 def test_trainer_needs_a_card_unless_told_cpu():

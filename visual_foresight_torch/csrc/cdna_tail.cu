@@ -897,14 +897,10 @@ cudaError_t launch_general(const Args& a) {
 template <typename T, int K, int MP, int NP>
 cudaError_t launch_tiled(const Args& a, int lg) {
   using S = TiledShape<T, K, MP, NP>;
-  static bool attribute_set = false;   // above 48 KB shared memory is opt-in
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cdna_tail_tiled_kernel<T, K, MP, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)S::bytes(kPack * NP));
-    if (err != cudaSuccess) return err;
-    attribute_set = true;
-  }
+  static SmemOptIn opt_in;   // above 48 KB shared memory is opt-in, per device
+  const cudaError_t err =
+      opt_in.ensure(cdna_tail_tiled_kernel<T, K, MP, NP>, S::bytes(kPack * NP));
+  if (err != cudaSuccess) return err;
   const int tiles_y = (a.H + kTileH - 1) / kTileH;
   if (tiles_y > 65535) return cudaErrorInvalidValue;
   const dim3 grid((a.W + kTileW - 1) / kTileW, tiles_y, a.B);
@@ -997,15 +993,10 @@ struct EffArgs {
 template <typename T, typename TM, int K, int NP, bool kDna>
 cudaError_t launch_eff(const EffArgs& a) {
   using S = EffShape<T, TM, K, NP>;
-  static bool attribute_set = false;   // above 48 KB shared memory is opt-in
-  if (!attribute_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cdna_tail_eff_kernel<T, TM, K, NP, kDna>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)S::bytes(kDna ? kMaxMasks + 2 : 2));
-    if (err != cudaSuccess) return err;
-    attribute_set = true;
-  }
+  static SmemOptIn opt_in;   // above 48 KB shared memory is opt-in, per device
+  const cudaError_t err = opt_in.ensure(cdna_tail_eff_kernel<T, TM, K, NP, kDna>,
+                                        S::bytes(kDna ? kMaxMasks + 2 : 2));
+  if (err != cudaSuccess) return err;
   const int tiles_y = (a.H + kTileH - 1) / kTileH;
   if (tiles_y > 65535) return cudaErrorInvalidValue;
   const dim3 grid((a.W + kTileW - 1) / kTileW, tiles_y, a.B);

@@ -564,14 +564,9 @@ int launch(const BwdArgs& a) {
   const int tiles_x = (a.W + kTileW - 1) / kTileW, tiles_y = (a.H + kTileH - 1) / kTileH;
   if (tiles_y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = S::bytes(a.M + (a.sna ? 2 : 1), a.r);
-  static size_t allowed = 0;   // above 48 KB shared memory is opt-in
-  if (smem > allowed) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cdna_tail_bwd_tile_kernel<T, K, MP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    allowed = smem;
-  }
+  static SmemOptIn opt_in;   // above 48 KB shared memory is opt-in, per device
+  const cudaError_t set = opt_in.ensure(cdna_tail_bwd_tile_kernel<T, K, MP>, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
   float* part = a.g_kernels ? static_cast<float*>(a.partials) : nullptr;
   cdna_tail_bwd_tile_kernel<T, K, MP><<<dim3(tiles_x, tiles_y, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.grad), static_cast<const T*>(a.prev),

@@ -2,7 +2,8 @@
 // (sm_90a), shared by the CDNA tail's forward (cdna_tail.cu) and backward
 // (cdna_tail_bwd.cu) kernels: 16-byte cp.async copies, bulk copies by the
 // copy engine (cp.async.bulk) completing on an mbarrier, bulk stores, and
-// the geometry of an NHWC window.  Each kernel source is its own library,
+// the geometry of an NHWC window, and the host side's per-device opt-in to
+// more than 48 KB of shared memory.  Each kernel source is its own library,
 // so the helpers sit in an unnamed namespace of each.
 
 #pragma once
@@ -10,9 +11,41 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
 #include <type_traits>
 
 namespace {
+
+// Opting a kernel into more than 48 KB of dynamic shared memory
+// (cudaFuncSetAttribute) is a setting of the current device's context, not
+// of the process: a launch on a second card needs its own.  One SmemOptIn a
+// kernel instantiation (a function-local static) records, for each device,
+// the largest size set there; the lock keeps two host threads from setting
+// a smaller size over a larger one, and a failed setting is returned.
+class SmemOptIn {
+ public:
+  template <typename Kernel>
+  cudaError_t ensure(Kernel* kernel, size_t bytes) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (allowed_[dev].load(std::memory_order_acquire) >= bytes) return cudaSuccess;
+    std::lock_guard<std::mutex> lock(mutex_);
+    if (allowed_[dev].load(std::memory_order_relaxed) >= bytes) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    allowed_[dev].store(bytes, std::memory_order_release);
+    return cudaSuccess;
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::atomic<size_t> allowed_[kMaxDevices] = {};
+  std::mutex mutex_;
+};
 
 // floor(x / d) for 0 <= x < 2^22 and 0 < d < 2^11, given inv = 1.f / d: the
 // quotient of x + 0.5 is at least 0.5 / d away from an integer, more than

@@ -1,9 +1,9 @@
 """CEM replanning on the device (PyTorch).
 
-Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner`` in
-every mode but ``mesh``: encode the context once at batch 1 and broadcast
-the carry over the samples (or over one chunk of them), then for each
-iteration sample plans, roll them out, score them, take the elites and
+Counterpart of ``visual_foresight_tpu/planners/cem.py::FusedCEMPlanner``:
+encode the context once at batch 1 and broadcast the carry over the samples
+(over one chunk of them, or over each device's share of a mesh), then for
+each iteration sample plans, roll them out, score them, take the elites and
 refit.  The plans come from the Gaussian sampler (with its options), from
 MPPI's AR(1)-correlated noise around a soft elite-weighted mean, or from the
 folding prior; the autograsp latch and the AutograspEpsilon gripper derive a
@@ -16,13 +16,15 @@ import torch
 
 from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.cdna import broadcast_carry
+from visual_foresight_torch.parallel.mesh import (gather, replicate,
+                                                  shard_bounds)
 from visual_foresight_torch.planners import costs as cost_lib
 from visual_foresight_torch.planners.gaussian import (
     ActionSpec, ag_epsilon_transform, autograsp_gripper_latch,
     autograsp_gripper_resample, fit_elites, folding_sample, sample_actions)
 
 # the JAX planner's other arguments, at the values that leave them off
-_UNPORTED_DEFAULTS = {'mesh': None, 'donate_dist': True}
+_UNPORTED_DEFAULTS = {'donate_dist': True}
 
 
 def _lowest(scores, k):
@@ -82,15 +84,23 @@ class FusedCEMPlanner:
         visualisation rollouts are re-rolled for the ``n_vis`` elites alone
     :param stochastic_penalty: with ``stochastic_k`` > 1, select elites among
         the unique plans on mean + penalty * std of their copies' scores
+    :param mesh: a ``parallel.mesh.Mesh``: the samples are split into one
+        share a device (``num_samples`` must divide over it; a warm start's
+        smaller count that does not is split unevenly, as XLA pads it) and
+        each share is rolled out and scored on its device; the draws, the
+        elites, the refit and the videos stay on the lead device, so the
+        replan is draw for draw the unsharded one.  Not with
+        ``sample_chunk``.  A custom ``cost_fn`` runs on each share's device
+        with its ``cost_ctx`` copied there
     :param device: where the replan runs ('cuda' unless the caller asks for
-        the CPU)
+        the CPU); with a mesh, its lead device
 
     With a latent model (``latent_dim`` > 0) each rollout draws one latent
     per sample, shared by all cameras: one draw per iteration, one per chunk
     in chunked mode, and one more for the chunked visualisation re-roll.
 
-    The JAX planner's ``mesh`` sharding (``_UNPORTED_DEFAULTS``) is not
-    ported: any value but ``None`` raises ``NotImplementedError``.
+    The JAX planner's ``donate_dist`` (``_UNPORTED_DEFAULTS``) is not
+    ported: any value but ``True`` raises ``NotImplementedError``.
     """
 
     def __init__(self, spec: ActionSpec, num_samples: int,
@@ -102,7 +112,7 @@ class FusedCEMPlanner:
                  mppi=None, autograsp=None, stochastic_k: int = 1,
                  discrete_dims=(), ag_epsilon=None, folding=None,
                  sample_chunk: int = 0, stochastic_penalty: float = 0.0,
-                 device='cuda', **modes):
+                 mesh=None, device='cuda', **modes):
         unknown = sorted(set(modes) - set(_UNPORTED_DEFAULTS))
         if unknown:
             raise TypeError('unexpected arguments {}'.format(unknown))
@@ -139,7 +149,15 @@ class FusedCEMPlanner:
             raise ValueError('folding is its own sampling mode')
         if self._folding and spec.adim != 4:
             raise ValueError('the folding prior needs 4 base action dims')
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is not None and num_samples % mesh.size:
+            raise ValueError('num_samples must divide over the mesh\'s {} '
+                             'devices'.format(mesh.size))
+        if mesh is not None and sample_chunk:
+            raise ValueError('sample_chunk and a mesh are separate regimes '
+                             '(shard large sample counts over devices)')
+        self.device = mesh.lead if mesh is not None else \
+            resolve_device(device)
         if self._mppi:
             # made once: a tensor made from host data in the replan would
             # wait for the device before each iteration
@@ -175,17 +193,49 @@ class FusedCEMPlanner:
         return self._mppi is not None
 
     @staticmethod
-    def _encode_contexts(models, images, states, distribs, context_actions,
-                         num_samples):
-        """Consume the context once per camera at batch 1 and broadcast the
-        carry across the samples."""
-        carries = []
-        for c, model in enumerate(models):
-            carry1 = model.encode_context(images[c][None],
-                                          context_actions[None],
-                                          states[None], distribs[c][None])
-            carries.append(broadcast_carry(carry1, num_samples))
-        return carries
+    def _encode_contexts(models, images, states, distribs, context_actions):
+        """Consume the context once per camera at batch 1: the carries to
+        broadcast across the samples."""
+        return [model.encode_context(images[c][None], context_actions[None],
+                                     states[None], distribs[c][None])
+                for c, model in enumerate(models)]
+
+    def _shards(self, models, carries1, cost_ctx, M, rows):
+        """The rollout's shares: (lo, hi, device, models, carries, cost
+        context) for each device with samples, the carries broadcast to
+        ``rows`` samples (the chunk) or to the share's ``hi - lo``."""
+        if self._mesh is None:
+            return [(0, M, self.device, models,
+                     [broadcast_carry(c, rows or M) for c in carries1],
+                     cost_ctx)]
+        reps = [replicate(self._mesh, m) for m in models]
+        carry_reps = [replicate(self._mesh, c) for c in carries1]
+        ctx_reps = replicate(self._mesh, cost_ctx)
+        return [(lo, hi, self._mesh.devices[i], [r[i] for r in reps],
+                 [broadcast_carry(c[i], hi - lo) for c in carry_reps],
+                 ctx_reps[i])
+                for i, (lo, hi) in enumerate(shard_bounds(self._mesh, M))
+                if hi > lo]
+
+    def _roll_and_score(self, shards, plan, latent, keep):
+        """Roll and score every share; returns the (M,) scores and, with
+        ``keep``, the time-major compute-dtype videos and the distributions
+        of all samples (else None), on the lead device."""
+        scores, videos, distribs = [], [], []
+        for lo, hi, dev, models, carries, cost_ctx in shards:
+            gi, gd, gtm = self._rollout(
+                models, carries, plan[lo:hi].to(dev),
+                None if latent is None else latent[lo:hi].to(dev))
+            scores.append(self._score(gi, gd, cost_ctx))
+            videos.append(gtm if keep else None)
+            distribs.append(gd if keep else None)
+            del gi, gd, gtm
+
+        def whole(pieces, dim=0):
+            if len(pieces) == 1 or pieces[0] is None:
+                return pieces[0]
+            return gather(self._mesh, pieces, dim)
+        return whole(scores), whole(videos, dim=1), whole(distribs)
 
     @staticmethod
     def _rollout(models, carries, plan, latent=None):
@@ -416,10 +466,10 @@ class FusedCEMPlanner:
         # for warm-start sample counts the chunk does not divide)
         chunk = self._chunk
         use_chunk = bool(chunk) and M > chunk and M % chunk == 0
-        carries = self._encode_contexts(models, context_images,
-                                        context_states, context_distribs,
-                                        context_actions,
-                                        chunk if use_chunk else M)
+        shards = self._shards(models, self._encode_contexts(
+            models, context_images, context_states, context_distribs,
+            context_actions), cost_ctx, M, chunk if use_chunk else 0)
+        carries = shards[0][4]
         sigma_prev = sigma
         mppi_cov = None
         grip_elites = None      # autograsp, no_refit False: last elites
@@ -441,9 +491,9 @@ class FusedCEMPlanner:
                     del gi, gd
                 scores = torch.cat(chunk_scores)
             else:
-                gen_images, gen_distribs, gen_images_tm = self._rollout(
-                    models, carries, plan, draw_latent(given, M))
-                scores = self._score(gen_images, gen_distribs, cost_ctx)
+                scores, gen_images_tm, gen_distribs = self._roll_and_score(
+                    shards, plan, draw_latent(given, M),
+                    keep=itr == self._iterations - 1 and self._n_vis > 0)
 
             if self._stoch_penalty:
                 # aggregate the copies of each unique plan: mean + penalty *

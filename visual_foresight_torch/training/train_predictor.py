@@ -26,13 +26,19 @@ there (``data/fused_ingest.py::device_ingest``).  A directory without
 ``manifest.pkl`` holds HDF5 trajectories, read by
 ``data/robonet_reader.py``.
 
+With ``--n_devices`` > 1 the batch is split over a mesh of that many
+devices of ``--device`` (``parallel/mesh.py``), as the JAX trainer shards
+it: every replica computes its share's loss terms, the lead device sums
+them, weighted by the shares' sizes, into the global batch's loss, and the
+gradients come back summed onto the lead's parameters, which take the
+step and are copied back to the replicas.  ``--device cuda`` takes the
+first cards, ``--device cuda:0`` (or ``cpu``) repeats one device, whose
+shares then run in turn.
+
 CLI (``--device cpu`` runs the plain PyTorch path on the CPU)::
 
     python -m visual_foresight_torch.training.train_predictor \\
         --model_dir <ckpt dir> [--data_dir <records>] [--steps N] ...
-
-Training over several cards (``--n_devices`` > 1) is not ported yet and
-raises.
 """
 
 import argparse
@@ -56,6 +62,8 @@ from visual_foresight_torch.models.convert import (flatten_flax,
 from visual_foresight_torch.models.latent import (PosteriorEncoder,
                                                   kl_to_standard_normal,
                                                   reparameterize)
+from visual_foresight_torch.parallel.mesh import (make_mesh, replicate,
+                                                  shard_batch)
 from visual_foresight_torch.prediction.predictor import PARAMS_FILE
 
 OPT_FILE = 'opt_state.npz'
@@ -228,66 +236,154 @@ def make_loss_fn(model, n_context, state_weight=1e-4, l1_weight=0.0,
     'states' (B, T+1, sdim)) and the step (for the schedules); the
     scheduled-sampling mask and the latent noise are drawn from
     ``generator`` unless given (``gt_mask`` (B, T), ``eps`` (B,
-    latent_dim)).  Returns (loss, metrics), 0-d tensors."""
-    def loss_fn(batch, step, generator=None, gt_mask=None, eps=None):
+    latent_dim)).  Returns (loss, metrics), 0-d tensors.
+
+    Its parts, for a batch split over devices: ``loss_fn.draws(batch, step,
+    generator, gt_mask, eps)`` makes the whole batch's draws as
+    ``loss_fn`` makes them; ``loss_fn.terms(model, posterior, batch,
+    gt_mask, eps)`` the batch means of one share (linear in the samples);
+    ``loss_fn.combine(terms, step)`` the loss and metrics of the terms."""
+    def draws(batch, step, generator, gt_mask=None, eps=None):
+        images = batch['images']
+        b, tp1 = images.shape[:2]
+        if gt_mask is None:
+            gt_mask = scheduled_sampling_mask(generator, step, tp1 - 1, b,
+                                              n_context, k=ss_k,
+                                              device=images.device)
+        if eps is None and model.latent_dim and generator is not None:
+            eps = torch.randn((b, model.latent_dim), generator=generator,
+                              device=images.device)
+        return gt_mask, eps
+
+    def terms(model, posterior, batch, gt_mask, eps):
         images = batch['images']
         if images.dtype == torch.uint8:
             images = device_ingest(images, torch.float32)
         actions, states = batch['actions'], batch['states']
-        b, tp1 = images.shape[:2]
-        t = tp1 - 1
-        if gt_mask is None:
-            gt_mask = scheduled_sampling_mask(generator, step, t, b,
-                                              n_context, k=ss_k,
-                                              device=images.device)
-
         kl = None
         if posterior is not None:
             mu, log_var = posterior(images)
-            z = reparameterize(generator, mu, log_var, eps)
+            z = reparameterize(None, mu, log_var, eps)
             out = model(images, actions, states, gt_mask=gt_mask, latent=z)
             kl = kl_to_standard_normal(mu, log_var)
         else:
-            out = model(images, actions, states,
-                        generator=generator if eps is None else None,
-                        gt_mask=gt_mask, latent=eps)
+            out = model(images, actions, states, gt_mask=gt_mask, latent=eps)
         pred = out['gen_images']          # (B, T, H, W, C) predicts 1..T
         target = images[:, 1:]
-        l2 = torch.mean((pred - target).square())
+        result = {'img_l2': torch.mean((pred - target).square()),
+                  'state_l2': torch.mean(
+                      (out['gen_states'] - states[:, 1:]).square())}
+        if l1_weight:
+            result['l1'] = torch.mean((pred - target).abs())
+        if kl is not None:
+            result['kl'] = kl
+        return result
+
+    def combine(t, step):
+        l2, state_l2 = t['img_l2'], t['state_l2']
         loss = l2
         if l1_weight:
-            loss = loss + l1_weight * torch.mean((pred - target).abs())
-        state_l2 = torch.mean((out['gen_states'] - states[:, 1:]).square())
+            loss = loss + l1_weight * t['l1']
         loss = loss + state_weight * state_l2
-
         metrics = {'loss': loss, 'img_l2': l2, 'state_l2': state_l2,
                    'psnr': -10.0 * torch.log10(torch.clamp(l2, min=1e-10))}
-        if kl is not None:
+        if 'kl' in t:
             # free bits: KL below the floor costs nothing, so early
             # reconstruction learning cannot collapse the posterior
+            kl = t['kl']
             beta = float(kl_beta_schedule(step, kl_beta, *kl_anneal))
             loss = loss + beta * torch.clamp(kl - kl_free_nats, min=0.0)
             metrics.update({'loss': loss, 'kl': kl,
                             'kl_beta': torch.full_like(kl, beta)})
         return loss, metrics
+
+    def loss_fn(batch, step, generator=None, gt_mask=None, eps=None):
+        gt_mask, eps = draws(batch, step, generator, gt_mask, eps)
+        return combine(terms(model, posterior, batch, gt_mask, eps), step)
+    loss_fn.draws, loss_fn.terms, loss_fn.combine = draws, terms, combine
     return loss_fn
 
 
-def make_train_step(model, tx, n_context, **loss_kwargs):
+def make_train_step(model, tx, n_context, mesh=None, **loss_kwargs):
     """``train_step(batch, step, generator=None, gt_mask=None, eps=None)``:
     one update of ``tx`` (a :class:`ClippedAdamW` over the model's and the
     posterior's parameters); returns the metrics, ``grad_norm`` the global
-    norm of the unclipped gradients."""
+    norm of the unclipped gradients.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``, the model on its lead device)
+    the batch, given whole on the lead, is split over the mesh after the
+    draws are made for all of it; the loss is the shares' terms weighted by
+    their sizes (the global batch's mean, as JAX differentiates it), the
+    gradients are summed onto the lead's parameters, and after the step the
+    replicas on other devices take the lead's parameters."""
     loss_fn = make_loss_fn(model, n_context, **loss_kwargs)
+    posterior = loss_kwargs.get('posterior')
+    replicas = []     # per device of the mesh: (model, posterior)
+    copies = []       # the replicas that are copies, each once
+
+    def sharded_loss(batch, step, generator, gt_mask, eps):
+        gt_mask, eps = loss_fn.draws(batch, step, generator, gt_mask, eps)
+        if not replicas:
+            # built at the first step, after any restore into the lead's
+            replicas.extend(zip(replicate(mesh, model), replicate(
+                mesh, posterior) if posterior is not None else
+                [None] * mesh.size))
+            copies.extend({id(m): (m, post) for m, post in replicas
+                           if m is not model}.values())
+        shares = shard_batch(mesh, dict(batch, gt_mask=gt_mask, eps=eps))
+        total = {}
+        for (m, post), share in zip(replicas, shares):
+            weight = share['gt_mask'].shape[0] / gt_mask.shape[0]
+            part = loss_fn.terms(m, post, share, share.pop('gt_mask'),
+                                 share.pop('eps'))
+            for k, v in part.items():
+                v = weight * v.to(mesh.lead)
+                total[k] = v if k not in total else total[k] + v
+        return loss_fn.combine(total, step)
 
     def train_step(batch, step, generator=None, gt_mask=None, eps=None):
         tx.zero_grad()
-        loss, metrics = loss_fn(batch, step, generator, gt_mask, eps)
+        if mesh is None:
+            loss, metrics = loss_fn(batch, step, generator, gt_mask, eps)
+        else:
+            for m, post in copies:
+                for p in _replica_params(m, post):
+                    p.grad = None
+            loss, metrics = sharded_loss(batch, step, generator, gt_mask,
+                                         eps)
         loss.backward()
+        if mesh is not None:
+            _sum_grads(copies, tx.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics['grad_norm'] = tx.step()
+        if mesh is not None:
+            _copy_params(tx.params, copies)
         return metrics
     return train_step
+
+
+def _replica_params(model, posterior):
+    return [p for _, p in _named_params(model, posterior)]
+
+
+@torch.no_grad()
+def _sum_grads(replicas, params):
+    """Add each replica's gradients into the lead's ``params`` (in the
+    order of ``_named_params``)."""
+    for m, post in replicas:
+        for lead, p in zip(params, _replica_params(m, post)):
+            if p.grad is None:
+                continue
+            g = p.grad.to(lead.device)
+            lead.grad = g if lead.grad is None else lead.grad + g
+
+
+@torch.no_grad()
+def _copy_params(params, replicas):
+    """Copy the lead's ``params`` into every replica."""
+    for m, post in replicas:
+        for lead, p in zip(params, _replica_params(m, post)):
+            p.copy_(lead)
 
 
 def build_model(args):
@@ -421,17 +517,19 @@ def model_config_dict(args):
 
 
 Trainer = collections.namedtuple(
-    'Trainer', 'model posterior tx train_step generator device')
+    'Trainer', 'model posterior tx train_step generator device mesh')
 
 
 def make_trainer(args, device=None):
     """Model (and posterior) seeded as the JAX trainer seeds them (model 0,
-    posterior 1; other draws), the optimizer and the train step, on
-    ``device`` (default ``args.device``).  ``train`` runs on this."""
-    if args.n_devices > 1:
-        raise NotImplementedError('--n_devices > 1 is not ported yet: mesh '
-                                  '(ROADMAP.md queue 1, "mesh")')
-    device = resolve_device(device or args.device)
+    posterior 1; other draws), the optimizer and the train step, on the
+    lead device of the mesh of ``--n_devices`` devices of ``device``
+    (default ``args.device``), the batch split over the mesh where it has
+    more than one.  ``train`` runs on this."""
+    # -1 (or 0): every device, one where the device is named
+    mesh = make_mesh(args.n_devices if args.n_devices > 0 else None,
+                     device=device or args.device)
+    device = mesh.lead
     model = build_model(args)
     init_params(model, seed=0)
     model.to(device)
@@ -454,9 +552,10 @@ def make_trainer(args, device=None):
                            l1_weight=args.l1_weight, ss_k=args.ss_k,
                            posterior=posterior, kl_beta=args.kl_beta,
                            kl_anneal=kl_anneal,
-                           kl_free_nats=args.kl_free_nats)
+                           kl_free_nats=args.kl_free_nats,
+                           mesh=mesh if mesh.size > 1 else None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    return Trainer(model, posterior, tx, step, gen, device)
+    return Trainer(model, posterior, tx, step, gen, device, mesh)
 
 
 def _named_params(model, posterior=None):
@@ -495,6 +594,7 @@ def train(args):
 
     n_params = sum(p.numel() for _, p in _named_params(model, posterior))
     print('model params:', n_params)
+    print('mesh devices:', ', '.join(str(d) for d in trainer.mesh.devices))
 
     t0 = time.time()
     history = []
@@ -647,7 +747,9 @@ def build_argparser():
                         'engine (fused) or the threaded Python reader')
     p.add_argument('--loader_threads', type=int, default=2)
     p.add_argument('--n_devices', type=int, default=-1,
-                   help='more than 1 is not ported yet (raises)')
+                   help='split the batch over this many devices of '
+                        '--device (-1: every one; cuda:0 or cpu repeat '
+                        'one)')
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--log_every', type=int, default=20)
     p.add_argument('--ckpt_every', type=int, default=0)

@@ -288,6 +288,17 @@
    16 in f32 over the card twice (``--n_devices 2 --device cuda:0``)
    against one, at the port's train-step tolerances; and
    ``tools/dryrun_multichip.py`` at n = 4.
+15. the checkpoints (``main``'s phase 14, ``drive_checkpoints``): the
+   port's zstd decoder (``native/zstd_decode.cpp``) built and timed on the
+   flagship's chunks; ``benchmarks/models/xz_flagship`` and ``ag_r5f_v2``
+   restored on the card from their orbax step directories (OCDBT, zarr,
+   zstd: ``prediction/checkpoints.py``), each restore timed and equal bit
+   for bit to the numpy export's; a 200 x 15 x 3 bf16 replan from each
+   orbax restore and from its numpy twin on the same draws, scores and
+   elites equal, 46 tiled launches each; 3 f32 flagship train steps at
+   batch 16 saving under ``build/``, the written ``step_3/`` read back
+   equal to the trained state (parameters, optax count and moments), and
+   one step resumed from it.
 
 Every predictor must restore the numpy weights (``restored=True``); a
 predictor on seeded weights raises.  It prints one JSON line describing the
@@ -1157,23 +1168,25 @@ def check_probe(gen):
     return launches, err
 
 
-def replan_200(predictor):
+def replan_200(predictor, name='xz_flagship'):
     """``replan(images, states, **noise)``: one 200 x 15 x 3 replan of
-    ``FusedCEMPlanner`` on ``predictor`` (the flagship's action spec, a goal
-    pixel and a point distribution)."""
+    ``FusedCEMPlanner`` on ``predictor`` (the action spec of the checkpoint
+    ``name`` at the predictor's ``adim``, a goal pixel and a point
+    distribution)."""
     from visual_foresight_torch.planners.cem import FusedCEMPlanner
     from visual_foresight_torch.planners.costs import distance_grid
     from visual_foresight_torch.planners.gaussian import (initial_mean,
                                                           initial_sigma,
                                                           make_action_spec)
-    spec = make_action_spec(dict(SPEC_HP['xz_flagship'], nactions=NACT,
-                                 repeat=REPEAT), 3)
+    adim = predictor._hp['adim']
+    spec = make_action_spec(dict(SPEC_HP[name], nactions=NACT,
+                                 repeat=REPEAT), adim)
     planner = FusedCEMPlanner(spec, M, iterations=ITERS, k_elite=10,
                               finalweight=10.0, action_bound=True,
                               n_vis=10, device='cuda')
     distribs = np.zeros((1, N_CTX, H, W, P), np.float32)
     distribs[:, :, 24, 32, 0] = 1.0
-    ctx_actions = np.zeros((N_CTX - 1, 3), np.float32)
+    ctx_actions = np.zeros((N_CTX - 1, adim), np.float32)
     grids = distance_grid([[[10.0, 50.0]]], H, W, device='cuda')
     mean0 = initial_mean(spec, device='cuda')
     sigma0 = initial_sigma(spec, device='cuda')
@@ -2495,13 +2508,32 @@ def probe_host():
     headers = {h: 'not probed' if cxx is None else
                ('missing' if h in missing else 'found')
                for h in fused_ingest.HEADERS}
-    print('host ingest probe: g++ {}; {}; {}; CRC32C in use: {}'.format(
-        cxx or 'not on the PATH',
-        '; '.join('{} {}'.format(h, v) for h, v in headers.items()),
-        '; '.join('{} {}'.format(m, v) for m, v in imports.items()),
-        'the numpy fallback' if crc32c_impl() is crc32c_numpy
-        else 'google_crc32c'))
+    print('host ingest probe: g++ {}; {}; {}; CRC32C in use: {}; {} (for '
+          'information: the port decodes zstd with its own decoder)'.format(
+              cxx or 'not on the PATH',
+              '; '.join('{} {}'.format(h, v) for h, v in headers.items()),
+              '; '.join('{} {}'.format(m, v) for m, v in imports.items()),
+              'the numpy fallback' if crc32c_impl() is crc32c_numpy
+              else 'google_crc32c', probe_zstd(cxx)))
     return missing
+
+
+def probe_zstd(cxx):
+    """Whether this machine has ``zstd.h`` (found by ``cxx``) and
+    ``libzstd.so.1`` (dlopen): for information only."""
+    import ctypes
+    header = 'not probed'
+    if cxx is not None:
+        proc = subprocess.run([cxx, '-fsyntax-only', '-x', 'c++', '-'],
+                              input='#include <zstd.h>\n',
+                              capture_output=True, text=True, check=False)
+        header = 'missing' if proc.returncode else 'found'
+    try:
+        ctypes.CDLL('libzstd.so.1')
+        lib = 'loads'
+    except OSError:
+        lib = 'missing'
+    return 'zstd.h {}; libzstd.so.1 {}'.format(header, lib)
 
 
 def write_records(root):
@@ -5359,6 +5391,202 @@ def drive_mesh(card):
     return paths
 
 
+# -- the checkpoints: the JAX package's orbax step directories on the card --
+CKPT_DIR = os.path.join(REPO, 'build', 'chip_smoke_checkpoints')
+CKPT_MODELS = ('xz_flagship', 'ag_r5f_v2')
+CKPT_TRAIN_STEPS = 3
+
+
+def time_decoder(step_dir, card):
+    """The decoder's build (or load) time and its rate on the zstd chunks
+    of the orbax step directory ``step_dir``."""
+    from visual_foresight_torch.ops import _build
+    from visual_foresight_torch.utils import ocdbt, zstd
+    so = _build.host_library_path(zstd.SOURCE)
+    cached = so.is_file()
+    t0 = time.perf_counter()
+    zstd.library()
+    build_s = time.perf_counter() - t0
+    reader = ocdbt.OcdbtReader(step_dir)
+    frames = [reader.read(k) for k in reader.keys()
+              if not k.endswith('.zarray')]
+    zstd.decompress(frames[0])                               # warm
+    t0 = time.perf_counter()
+    out = sum(len(zstd.decompress(f)) for f in frames)
+    decode_s = time.perf_counter() - t0
+    print('checkpoints: zstd decoder {} in {:.3f} s ({}); {} chunks, {} '
+          'bytes compressed to {} decoded in {:.4f} s: {:.1f} MB/s decoded '
+          '(host) [{}]'.format('loaded' if cached else 'built with g++',
+                              build_s, so.name, len(frames),
+                              sum(len(f) for f in frames), out, decode_s,
+                              out / decode_s / 1e6, card))
+    return build_s, out / decode_s / 1e6
+
+
+def restore_orbax(name, card):
+    """``TorchPredictor`` on the card restored from
+    ``benchmarks/models/<name>``'s orbax step directory (timed around
+    ``load_view``, and the whole restore), its state held bit for bit
+    against the numpy export's restore.  Returns (orbax predictor, numpy
+    predictor, load seconds)."""
+    import contextlib
+    import io
+    from visual_foresight_torch.prediction import predictor as t_predictor
+    model_dir = os.path.join(REPO, 'benchmarks', 'models', name)
+    load_view, loads = t_predictor.load_view, []
+
+    def timed_load_view(*args):
+        t0 = time.perf_counter()
+        out = load_view(*args)
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), mock.patch.object(
+            t_predictor, 'load_view', timed_load_view):
+        orbax = restored_predictor('bfloat16', weights=model_dir)
+    whole = time.perf_counter() - t0
+    sys.stdout.write(log.getvalue())
+    if 'restored predictor params from {}'.format(os.path.join(
+            model_dir, 'view0', 'step_')) not in log.getvalue() or \
+            len(loads) != 1:
+        raise AssertionError('{} was not restored from its orbax step '
+                             'directory'.format(name))
+    numpy_pred = restored_predictor(
+        'bfloat16', weights=os.path.join(os.path.dirname(WEIGHTS), name))
+    ref = numpy_pred.models[0].state_dict()
+    got = orbax.models[0].state_dict()
+    if got.keys() != ref.keys() or not all(torch.equal(got[k], ref[k])
+                                           for k in ref):
+        raise AssertionError('the orbax restore of {} differs from the '
+                             'numpy export'.format(name))
+    print('checkpoints: {} restored on the card from its orbax step '
+          'directory in {:.3f} s (load_view: OCDBT, zarr, zstd and the '
+          'load; the predictor built and restored in {:.3f} s), equal bit '
+          'for bit to the numpy export [{}]'.format(name, loads[0], whole,
+                                                    card))
+    return orbax, numpy_pred, loads[0]
+
+
+def replan_orbax_and_numpy(name, orbax, numpy_pred):
+    """A 200 x 15 x 3 bf16 replan from the orbax restore and from the numpy
+    one on the same context and draws: scores, elites and plans equal, 46
+    tiled launches each.  Returns the launches by path."""
+    rng = np.random.RandomState(14)
+    images = rng.rand(1, N_CTX, H, W, 3).astype(np.float32)
+    states = (rng.randn(N_CTX, orbax._hp['sdim']) * 0.05).astype(np.float32)
+    outs, paths = {}, {}
+    for source, pred in (('orbax', orbax), ('numpy', numpy_pred)):
+        replan = replan_200(pred, name)
+        reset_tail_counts()
+        outs[source] = replan(
+            images, states,
+            generator=torch.Generator(device='cuda').manual_seed(5))
+        torch.cuda.synchronize()
+        paths['checkpoint_{}_{}_replan_200'.format(source, name)] = \
+            read_tail_counts('200-sample replan of {} on the {} restore'
+                             .format(name, source), LAUNCHES_PER_REPLAN,
+                             pred._hp)
+    for key in ('best_actions', 'best_scores', 'scores_per_itr'):
+        if not torch.equal(outs['orbax'][key], outs['numpy'][key]):
+            raise AssertionError('{}: the orbax-served replan\'s {} differ '
+                                 'from the numpy one\'s'.format(name, key))
+    order = lambda out: torch.argsort(out['scores_per_itr'], dim=1,
+                                      stable=True)[:, :10]
+    if not torch.equal(order(outs['orbax']), order(outs['numpy'])):
+        raise AssertionError('{}: the elites differ'.format(name))
+    if not bool(torch.isfinite(outs['orbax']['scores_per_itr']).all()):
+        raise AssertionError('{}: scores not finite'.format(name))
+    print('checkpoints: {} 200 x 15 x 3 bf16 replan from the orbax restore '
+          'equals the numpy one\'s (scores, elites, plans) bit for bit, {} '
+          'launches each; best score {:.4f}'.format(
+              name, LAUNCHES_PER_REPLAN,
+              float(outs['orbax']['best_scores'][0])))
+    return paths
+
+
+def train_and_resume(card):
+    """``CKPT_TRAIN_STEPS`` f32 flagship train steps at batch 16 with
+    ``--model_dir`` under ``build/``: the written ``view0/step_3`` and
+    ``opt/step_3`` read back with the port's reader equal the trained
+    parameters and optax's count and moments; then one step resumed from
+    them.  Returns the launches of the resumed step."""
+    from visual_foresight_torch.models.convert import params_from_flax
+    from visual_foresight_torch.prediction import checkpoints
+    from visual_foresight_torch.training.train_predictor import (
+        _state_from_optax, build_argparser, train)
+    root = os.path.join(CKPT_DIR, 'train')
+    shutil.rmtree(root, ignore_errors=True)
+    argv = [a for a in config_argv(os.path.join(WEIGHTS, 'model_config.json'),
+                                   batch_size=TRAIN_BATCH, log_every=1,
+                                   model_dir=root) if a != '--bf16']
+    parse = lambda steps, *more: build_argparser().parse_args(
+        argv + ['--steps', str(steps), *more])
+    t0 = time.perf_counter()
+    history, trainer = train(parse(CKPT_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step = 'step_{}'.format(CKPT_TRAIN_STEPS)
+    t0 = time.perf_counter()
+    tree = checkpoints.restore_params(os.path.join(root, 'view0'))
+    opt = checkpoints.restore_params(os.path.join(root, 'opt'))
+    read_s = time.perf_counter() - t0
+    state = params_from_flax(tree)
+    own = trainer.model.state_dict()
+    if state.keys() != own.keys() or not all(
+            np.array_equal(state[k], own[k].cpu().numpy()) for k in own):
+        raise AssertionError('view0/{} differs from the trained '
+                             'parameters'.format(step))
+    saved = _state_from_optax(opt, {'model': trainer.model,
+                                    'posterior': None})
+    live = trainer.tx.state()
+    if not saved['count'] == live['count'] == CKPT_TRAIN_STEPS or not all(
+            np.array_equal(saved[m][n], live[m][n].cpu().numpy())
+            for m in ('mu', 'nu') for n in live[m]):
+        raise AssertionError('opt/{} differs from the trained optimizer '
+                             'state'.format(step))
+    reset_train_counts()
+    resumed, _ = train(parse(CKPT_TRAIN_STEPS + 1, '--resume'))
+    torch.cuda.synchronize()
+    launches = read_train_counts('train_checkpoint_resume', 1, T - 1)
+    if [h['step'] for h in resumed] != [CKPT_TRAIN_STEPS] or not all(
+            np.isfinite([h[k] for k in h]).all() for h in resumed):
+        raise AssertionError('the resumed run did not take step {} with '
+                             'finite metrics'.format(CKPT_TRAIN_STEPS))
+    print('checkpoints: {} f32 flagship train steps at batch {} in {:.1f} s '
+          'wrote view0/{} and opt/{}; read back with the port\'s reader in '
+          '{:.3f} s, equal to the trained parameters and optax state (count '
+          '{}); one step resumed from them, loss {:.5f} [{}]'.format(
+              CKPT_TRAIN_STEPS, TRAIN_BATCH, wall, step, step, read_s,
+              saved['count'], resumed[0]['loss'], card))
+    shutil.rmtree(root)
+    return launches
+
+
+def drive_checkpoints(card):
+    """Phase 14: the decoder built and timed, both vendored orbax
+    checkpoints restored and replanned on the card against their numpy
+    twins, and a short flagship run saved, read back and resumed.  Returns
+    the launches by path."""
+    from visual_foresight_torch.prediction import checkpoints
+    t0 = time.perf_counter()
+    build_s, rate = time_decoder(checkpoints.latest_checkpoint(os.path.join(
+        REPO, 'benchmarks', 'models', 'xz_flagship', 'view0')), card)
+    paths, loads = {}, {}
+    for name in CKPT_MODELS:
+        orbax, numpy_pred, loads[name] = restore_orbax(name, card)
+        paths.update(replan_orbax_and_numpy(name, orbax, numpy_pred))
+        del orbax, numpy_pred
+    paths['train_checkpoint_resume'] = train_and_resume(card)
+    print('checkpoints: phase 14 in {:.1f} s: decoder {:.3f} s, {:.1f} MB/s; '
+          'restores {} [{}]'.format(
+              time.perf_counter() - t0, build_s, rate,
+              ', '.join('{} {:.3f} s'.format(k, v) for k, v in loads.items()),
+              card))
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -5683,6 +5911,10 @@ def main():
     # times and over make_mesh(), each against unsharded; 3 train steps at
     # batch 16 over the card twice against one; the dry run at n = 4
     paths.update(drive_mesh(card))
+    # -- 14. the checkpoints: the decoder built, both vendored orbax step
+    # directories restored on the card against the numpy exports and
+    # replanned against them, a short run saved, read back and resumed
+    paths.update(drive_checkpoints(card))
 
     two_plane_paths = ['twin_' + n for n, c, _, _ in TWIN_POINTS
                        if c == 'registration'] + [
@@ -5691,7 +5923,8 @@ def main():
         n['cdna_tail'] for p, n in paths.items()
         if p == 'verbose_dump_xz_bench20' or p.startswith('campaign_') or
         (p.startswith('twin_') and p not in two_plane_paths) or
-        p.startswith(('mesh_flagship_', 'dryrun_multichip_')) or
+        p.startswith(('mesh_flagship_', 'dryrun_multichip_',
+                      'checkpoint_')) or
         p in ('offline_replay', 'human_cem', 'numpy_replan_200',
               'tf1_replan_200', 'visualize_predictions', 'profiled_replan',
               'robot_sawyer_pixel_cost', 'robot_robonet_franka'))
@@ -5714,8 +5947,8 @@ def main():
         # visualize_predictions, the profiled replan), phase 10's robot
         # twin and phase 11's campaign twins but the registration ones
         # (two planes, counted there), phase 13's mesh replans and its dry
-        # run (its train step's forward too); training paths are in
-        # launches_by_path alone
+        # run (its train step's forward too), phase 14's orbax and numpy
+        # replans; training paths are in launches_by_path alone
         'launches': paths['controller']['cdna_tail'] + extra_path_launches,
         'launches_by_path': by_path('cdna_tail'),
         'max_abs_err': err_bf16, 'ms': tail['blocked_ms'],
@@ -5771,10 +6004,11 @@ def main():
         'gradient_of': 'visual_foresight_tpu/ops/cdna_warp.py:86 and :123, '
                        'differentiated by XLA in the JAX trainer',
         # the flagship's training, phase 13's sharded and unsharded steps
-        # and the dry run's
+        # and the dry run's, phase 14's resumed step
         'launches': paths['train_xz_flagship']['cdna_tail_bwd'] + sum(
             n['cdna_tail_bwd'] for p, n in paths.items()
-            if p.startswith(('mesh_train_', 'dryrun_multichip_'))),
+            if p.startswith(('mesh_train_', 'dryrun_multichip_',
+                             'train_checkpoint_'))),
         'launches_by_path': by_path('cdna_tail_bwd'),
         'max_abs_err': bwd_abs, 'max_rel_err': bwd_rel,
         'ms': bwd[TRAIN_BATCH]['ms'], 'plain_ms': bwd[TRAIN_BATCH]['plain_ms'],

@@ -27,7 +27,9 @@ autograd of the plain version gives.
 The mesh: the tiled tail and its backward on ``cuda:1`` after ``cuda:0``
 (the shared-memory opt-in is kept per device; skips with fewer than two
 cards), and the flagship's replan over the card repeated twice against
-unsharded (``chip_smoke.check_sharded_replan``).
+unsharded (``chip_smoke.check_sharded_replan``).  The checkpoints: each
+vendored orbax step directory restored on the card and replanned against
+its numpy export (``chip_smoke.restore_orbax``).
 
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
@@ -625,3 +627,20 @@ def test_sharded_flagship_replan_on_one_card():
         chip_smoke.mesh_launches(2)
     chip_smoke.check_sharded_replan('flagship over cuda:0 twice', got, plain,
                                     replan, mesh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', ['xz_flagship', 'ag_r5f_v2'])
+def test_orbax_restored_replan_equals_the_numpy_one_on_card(name):
+    """``benchmarks/models/<name>`` restored on the card from its orbax
+    step directory (the port's OCDBT, zarr and zstd readers) equals the
+    numpy export's restore bit for bit, and its 200 x 15 x 3 bf16 replan
+    equals the numpy-served one on the same draws, 46 tiled launches each
+    (``chip_smoke.py``'s phase 14)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import chip_smoke
+    orbax, numpy_pred, _ = chip_smoke.restore_orbax(name, 'card')
+    paths = chip_smoke.replan_orbax_and_numpy(name, orbax, numpy_pred)
+    assert [n['cdna_tail'] for n in paths.values()] == \
+        [chip_smoke.LAUNCHES_PER_REPLAN] * 2

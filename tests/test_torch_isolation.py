@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``visual_foresight_torch``
 and ``chip_smoke`` pulls in neither JAX nor the JAX package (nor ``h5py``,
-``cv2``, ``google_crc32c``, ``mujoco``, ``imageio`` or ``matplotlib``, which
-the card machine may lack; every module imports with those and
-``ml_dtypes`` blocked), and its entry points (the predictor, the
+``cv2``, ``google_crc32c``, ``mujoco``, ``imageio``, ``matplotlib``,
+``zstandard``, ``tensorstore`` or ``orbax``, which the card machine may
+lack; every module imports with those and ``ml_dtypes`` blocked, and the
+vendored orbax checkpoint restores), and its entry points (the predictor, the
 planner, the controllers, the trainers of the planning costs' networks and
 the campaign runner, with ``--benchmark`` and, on the offline replay,
 without it, and the robot runner ``sim/run_robot.py``) refuse to fall back
@@ -31,7 +32,8 @@ bad = sorted(m for m in sys.modules
                                             'visual_foresight_tpu')))
 # imported where they are needed: the card machine may lack them
 bad += sorted({'h5py', 'cv2', 'google_crc32c', 'mujoco', 'imageio',
-               'matplotlib'} & set(sys.modules))
+               'matplotlib', 'zstandard', 'tensorstore', 'orbax'}
+              & set(sys.modules))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 100 else 0)
 '''
@@ -50,7 +52,7 @@ def test_port_imports_no_jax():
 _BLOCKED = r'''
 import importlib, pkgutil, sys
 for name in ('h5py', 'imageio', 'mujoco', 'cv2', 'google_crc32c',
-             'ml_dtypes'):
+             'ml_dtypes', 'zstandard', 'tensorstore', 'orbax'):
     sys.modules[name] = None
 import visual_foresight_torch as pkg
 names = [m.name for m in
@@ -66,6 +68,10 @@ except ImportError as e:
     assert 'h5py' in str(e), e
 else:
     sys.exit('the RoboNet reader was built without h5py')
+# the vendored orbax checkpoint, read with the port's own decoder
+from visual_foresight_torch.prediction import checkpoints
+tree = checkpoints.restore_params('benchmarks/models/xz_flagship/view0')
+assert tree['params']['step']['cdna_head']['bias'].shape == (250,)
 print(len(names))
 '''
 
@@ -138,7 +144,10 @@ NEW_MODULES = ('prediction.tf1_bundle', 'prediction.tf1_import',
                'campaigns.collect_robot_sawyer_grasp',
                'campaigns.collect_robot_sawyer_towel_data_get_examples',
                'tools.dataset_reader_demo', 'tools.extract_sample_trajs',
-               'tools.collect_campaign', 'tools.bench_model')
+               'tools.collect_campaign', 'tools.bench_model',
+               # the orbax checkpoints, read and written with numpy alone
+               'utils.zstd', 'utils.ocdbt', 'utils.zarr',
+               'prediction.checkpoints')
 
 
 def test_port_imports_without_the_packages_the_card_machine_lacks(tmp_path):

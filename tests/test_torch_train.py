@@ -29,6 +29,7 @@ either side); the schedules and the optimizer on given gradients rtol 1e-6
 
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -378,7 +379,8 @@ def test_resume_restores_opt_state(tmp_path, capsys):
     steps = [h['step'] for h in history]
     assert steps[0] >= 3 and steps[-1] == 4
 
-    os.remove(os.path.join(str(tmp_path), 'opt', ttrain.OPT_FILE))
+    # the optimizer state of both layouts gone (opt/step_<N> and the npz)
+    shutil.rmtree(os.path.join(str(tmp_path), 'opt'))
     fresh = ttrain.make_trainer(_args(steps=8, **common))
     assert ttrain._restore(_args(steps=8, resume=True, **common),
                            fresh.model, None, fresh.tx) == 5

@@ -18,9 +18,10 @@ inverse: it turns a ``state_dict`` back into the flax tree that a
 ``params.npz`` holds.
 
 A standalone network (the success classifier, the NCE embedding, the GDN,
-the inverse model) is kept as one ``params.npz`` in its directory:
-``restore_network`` loads it, or seeded weights (``seeded_state``) with a
-warning where the file is missing.  ``perturbed_flat`` makes a seeded copy
+the inverse model) is kept in its directory as the JAX trainers keep it, an
+orbax ``step_<N>/`` (``prediction/checkpoints.py``), and as the port's
+``params.npz``: ``restore_network`` loads the latest step directory, else
+the file, else seeded weights (``seeded_state``) with a warning.  ``perturbed_flat`` makes a seeded copy
 of a ``params.npz``'s arrays.
 """
 
@@ -29,6 +30,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from visual_foresight_torch.prediction import checkpoints
 
 PARAMS_FILE = 'params.npz'
 
@@ -174,11 +177,20 @@ def read_npz(path):
 
 
 def restore_network(module, model_dir, seed=0):
-    """Load ``model_dir/params.npz`` (a flax tree flattened with '/'-joined
-    keys) into ``module``.  Where ``model_dir`` is empty or holds no such
-    file, warn (unless ``model_dir`` is empty) and load
-    ``seeded_state(module, seed)``.  Returns whether the file was
+    """Load ``model_dir``'s weights into ``module``, as the JAX controllers
+    restore theirs: its latest ``step_<N>/`` orbax checkpoint, else its
+    ``params.npz`` (a flax tree flattened with '/'-joined keys).  Where
+    ``model_dir`` is empty or holds neither, warn (unless ``model_dir`` is
+    empty) and load ``seeded_state(module, seed)``.  A step directory or
+    file that does not load raises.  Returns whether weights were
     restored."""
+    step_dir = checkpoints.latest_checkpoint(model_dir) if model_dir \
+        else None
+    if step_dir is not None:
+        load_flax_params(module, checkpoints.restore_params(model_dir))
+        print('restored {} params from {}'.format(type(module).__name__,
+                                                  step_dir))
+        return True
     path = os.path.join(str(model_dir), PARAMS_FILE) if model_dir else None
     if path and os.path.isfile(path):
         load_flax_params(module, unflatten_flax(read_npz(path)))
@@ -186,8 +198,9 @@ def restore_network(module, model_dir, seed=0):
                                                   path))
         return True
     if path:
-        warnings.warn('no numpy params at {}; {} on seeded random weights'
-                      .format(path, type(module).__name__))
+        warnings.warn('no checkpoint or numpy params in {}; {} on seeded '
+                      'random weights'.format(model_dir,
+                                              type(module).__name__))
     module.load_state_dict(seeded_state(module, seed))
     return False
 

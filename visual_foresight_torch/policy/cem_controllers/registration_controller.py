@@ -13,8 +13,10 @@ carries one designated pixel per registration, so the predictor runs
 ``ntask * len(register_gtruth)`` distributions a camera.
 
 The GDN is ``GoalDistanceNet()`` at its default widths, restored from
-``gdn_path/params.npz`` (seeded weights, with a warning, where the file is
-missing; ``gdn_restored`` tells which).  Paths, device and draws are
+``gdn_path`` by ``models/convert.py::restore_network``: its latest orbax
+``step_<N>/``, as the JAX controller reads it, else its ``params.npz``
+(seeded weights, with a warning, where it has neither; ``gdn_restored``
+tells which).  Paths, device and draws are
 ``PixelCostController``'s.
 """
 

@@ -10,8 +10,9 @@ sampler, or ``use_fused_planner`` False, plans in the host CEM loop through
 ``TorchPredictor.__call__``.
 
 The classifier is ``SuccessClassifier()`` at its default widths, restored
-from ``classifier_path/params.npz`` (seeded weights, with a warning, where
-the file is missing).  The controller runs on ``device`` (a policy hparam,
+from ``classifier_path`` by ``models/convert.py::restore_network``: its
+latest orbax ``step_<N>/``, as the JAX controller reads it, else its
+``params.npz`` (seeded weights, with a warning, where it has neither).  The controller runs on ``device`` (a policy hparam,
 ``'cuda'`` by default).  The fused planner draws from a ``torch.Generator``
 seeded from ``seed``, the samplers' host draws from a
 ``np.random.RandomState`` seeded from it.  Given a ``verbose_worker``, the

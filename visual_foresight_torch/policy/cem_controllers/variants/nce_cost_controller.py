@@ -5,9 +5,10 @@ nce_cost_controller.py``: the cost is the negated dot product of the
 L2-normalised embeddings of the last ``final_frames`` predicted frames of
 camera 0 with the goal image's embedding, made once a replan.  The paths,
 the device and the draws are ``ClassifierController``'s; the embedding is
-``NCEEmbedding()`` at its default widths, restored from
-``embedding_path/params.npz`` (seeded weights, with a warning, where the
-file is missing).
+``NCEEmbedding()`` at its default widths, restored from ``embedding_path``
+by ``models/convert.py::restore_network``: its latest orbax ``step_<N>/``,
+as the JAX controller reads it, else its ``params.npz`` (seeded weights,
+with a warning, where it has neither).
 """
 
 import torch

@@ -7,7 +7,11 @@ goal image, context) to an action plan, and the controller replans every
 (``models/inverse.py``); any object with the contract
 ``predictor(current, goal, context_actions, context_frames) -> (1, T,
 adim)`` can be given as ``predictor_class``.  It is built with a ``device``
-argument (the ``device`` hparam, ``'cuda'`` by default).  The warm-up
+argument (the ``device`` hparam, ``'cuda'`` by default).  The default
+model's weights come from its path through
+``models/convert.py::restore_network``: its latest orbax ``step_<N>/``, as
+the JAX controller reads it, else its ``params.npz``, else seeded weights
+with a warning.  The warm-up
 actions before ``num_context`` come from the global ``np.random``, as in
 the JAX package.
 """
@@ -29,8 +33,9 @@ def convert_to_float(x):
 
 class TorchInverseModel:
     """The inverse model on ``device``: ``InverseNet`` restored from
-    ``model_params_path/params.npz``, or seeded weights with a warning
-    (``restored`` tells which)."""
+    ``model_params_path`` (its latest ``step_<N>/``, else its
+    ``params.npz``), or seeded weights with a warning (``restored`` tells
+    which)."""
 
     def __init__(self, model_params_path, hparams=None, n_gpus=1, first_gpu=0,
                  device='cuda'):

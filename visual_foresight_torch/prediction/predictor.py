@@ -14,9 +14,11 @@ One ``CDNAPredictor`` module per camera lives in ``predictor.models``; it
 is any architecture ``TPUPredictor`` builds (the classic backbone by
 default, the space-to-depth one, DNA, ``fuse_decode``; ``s2d_tail`` is taken
 and runs the full-resolution tail), as the hparams and the checkpoint's
-``model_config.json`` say.  Weights come from each ``view<c>/`` directory:
-its highest-step TF1 TensorBundle (``model-<N>.index`` and its data shards,
-imported through ``tf1_import``), else its numpy parameter file
+``model_config.json`` say.  Weights come from each ``view<c>/`` directory,
+in the JAX package's order: its highest-step TF1 TensorBundle
+(``model-<N>.index`` and its data shards, imported through ``tf1_import``),
+else its highest ``step_<N>/`` orbax checkpoint (read with numpy alone by
+``prediction/checkpoints.py``), else the port's numpy parameter file
 (``params.npz``: the flax tree flattened with '/'-joined keys), else a
 seeded initialization.
 """
@@ -37,7 +39,7 @@ from visual_foresight_torch.models.convert import (PARAMS_FILE,
                                                    params_to_flax, read_npz,
                                                    seeded_state,
                                                    unflatten_flax)
-from visual_foresight_torch.prediction import tf1_import
+from visual_foresight_torch.prediction import checkpoints, tf1_import
 # seed of the latent draw when ``__call__`` is given neither a generator nor
 # a latent (the JAX package then uses ``PRNGKey(0)``; the two streams differ)
 DEFAULT_LATENT_SEED = 0
@@ -168,10 +170,11 @@ class TorchPredictor:
 
     def restore(self):
         """Load each camera's weights from ``view<c>/`` (``load_view``: its
-        latest TF1 bundle, else its ``params.npz``); where a view has
-        neither, warn and use weights seeded with the camera index
-        (``restored`` turns False), as ``TPUPredictor.restore`` does.  A
-        bundle or file that does not load raises.  The architecture in
+        latest TF1 bundle, else its latest ``step_<N>/``, else its
+        ``params.npz``); where a view has none, warn and use weights seeded
+        with the camera index (``restored`` turns False), as
+        ``TPUPredictor.restore`` does.  A bundle, step directory or file
+        that does not load raises.  The architecture in
         ``model_config.json`` was adopted when the predictor was built."""
         states = []
         self.restored = True
@@ -181,8 +184,9 @@ class TorchPredictor:
                 states.append({k: v.clone() for k, v in
                                self.model.state_dict().items()})
             else:
-                warnings.warn('no TF1 bundle or numpy params in {}; using '
-                              'seeded random weights'.format(view_dir))
+                warnings.warn('no TF1 bundle, checkpoint or numpy params in '
+                              '{}; using seeded random weights'.format(
+                                  view_dir))
                 states.append(self.init_params(seed=c))
                 self.restored = False
         return self.set_params(states)
@@ -275,11 +279,15 @@ def latest_tf1_prefix(view_dir):
 
 
 def load_view(model, view_dir):
-    """Load ``view_dir``'s weights into ``model``: its highest-step TF1
-    bundle, imported into the flax-keyed tree (suffix-matched, shapes
-    checked), else its ``params.npz``.  Returns the prefix or file loaded,
-    or None where the directory holds neither.  A corrupt bundle, a
-    missing tensor or shard, or a shape that disagrees raises."""
+    """Load ``view_dir``'s weights into ``model``, in the JAX package's
+    order: its highest-step TF1 bundle, imported into the flax-keyed tree
+    (suffix-matched, shapes checked), else its highest ``step_<N>/`` orbax
+    checkpoint (``checkpoints.restore_params`` against the model's tree),
+    else its ``params.npz``.  Returns the prefix, step directory or file
+    loaded, or None where the directory holds none.  A corrupt bundle or
+    step directory, a missing tensor, shard or array, or a shape that
+    disagrees raises, as ``TPUPredictor.restore`` re-raises all but a
+    missing checkpoint."""
     prefix = latest_tf1_prefix(view_dir)
     if prefix is not None:
         template = params_to_flax(model.state_dict())
@@ -288,6 +296,13 @@ def load_view(model, view_dir):
         print('imported TF1 checkpoint {} ({} tensors)'.format(
             prefix, len(report['matched'])))
         return prefix
+    step_dir = checkpoints.latest_checkpoint(view_dir)
+    if step_dir is not None:
+        tree = checkpoints.restore_params(
+            view_dir, template=params_to_flax(model.state_dict()))
+        load_flax_params(model, tree)
+        print('restored predictor params from {}'.format(step_dir))
+        return step_dir
     path = os.path.join(view_dir, PARAMS_FILE)
     if os.path.isfile(path):
         load_flax_params(model, unflatten_flax(read_npz(path)))

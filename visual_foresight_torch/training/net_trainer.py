@@ -7,10 +7,11 @@ classifier, the NCE embedding and the inverse net).
   ``optax.adam(lr)`` over its parameters;
 - ``run``: the JAX trainers' loop, one Adam step a batch, the metrics
   logged every ``--log_every`` steps and at the last;
-- ``save_network``: ``params.npz`` (the flax tree, keys joined with '/',
-  f32) and ``net_config.json`` in ``--model_dir``, which
-  ``models/convert.py::restore_network`` and the controllers read, with the
-  step in ``checkpoint.json``.
+- ``save_network``: in ``--model_dir``, the orbax ``step_<N>/`` that the
+  JAX trainers write (``prediction/checkpoints.py``, numpy alone), the
+  port's ``params.npz`` (the flax tree, keys joined with '/', f32), both
+  read by ``models/convert.py::restore_network`` and the controllers, and
+  ``net_config.json``, with the step in ``checkpoint.json``.
 """
 
 import json
@@ -24,6 +25,7 @@ from visual_foresight_torch.device import resolve_device
 from visual_foresight_torch.models.convert import (flatten_flax,
                                                    load_flax_params,
                                                    params_to_flax)
+from visual_foresight_torch.prediction import checkpoints
 from visual_foresight_torch.training.train_predictor import adam, init_params
 
 NET_CONFIG = 'net_config.json'
@@ -76,10 +78,13 @@ def run(args, step_fn, batches, device, on_step=None):
 
 
 def save_network(module, model_dir, net_config, step):
-    """Write ``model_dir/params.npz``, ``net_config.json`` and the step;
-    returns the directory."""
+    """Write ``model_dir/step_<step>/`` (the flax tree, as the JAX trainers
+    save it), ``params.npz``, ``net_config.json`` and the step; returns the
+    directory."""
     os.makedirs(model_dir, exist_ok=True)
-    flat = flatten_flax(params_to_flax(module.state_dict()))
+    tree = params_to_flax(module.state_dict())
+    checkpoints.save_params(tree, model_dir, step)
+    flat = flatten_flax(tree)
     tmp = os.path.join(model_dir, 'params.tmp.npz')
     np.savez(tmp, **flat)
     os.replace(tmp, os.path.join(model_dir, 'params.npz'))

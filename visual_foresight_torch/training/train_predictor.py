@@ -13,11 +13,17 @@ kernel of ``csrc/cdna_tail.cu`` and its gradient the backward kernel of
 model keeps in bf16 are updated through f32 copies held by the optimizer,
 as JAX keeps f32 parameters and casts them at each use.
 
-Checkpoints go under ``--model_dir``: ``view0/params.npz`` (the flax tree
-that ``TorchPredictor.restore`` reads) with ``view0/checkpoint.json`` (the
-step) and ``model_config.json`` beside it, the posterior under
-``posterior/params.npz``, the optimizer state (count, first and second
-moments per leaf) under ``opt/opt_state.npz``.
+Checkpoints go under ``--model_dir`` in the JAX trainer's layout, orbax
+step directories written with numpy alone (``prediction/checkpoints.py``):
+``view0/step_<N>/`` (the flax tree that ``TorchPredictor.restore`` and
+``TPUPredictor.restore`` read), the posterior under ``posterior/step_<N>/``
+(stochastic runs) and optax's ``chain(clip_by_global_norm, adamw)`` state
+under ``opt/step_<N>/``, with ``model_config.json`` beside them.  The
+port's numpy files are written too: ``view0/params.npz`` with
+``view0/checkpoint.json`` (the step), ``posterior/params.npz`` and
+``opt/opt_state.npz`` (count, first and second moments per leaf).
+``--resume`` reads the newest step directory where one exists, so it
+resumes a run of either package, else the numpy files.
 
 With ``--data_dir`` the batches come from collected GZIP-TFRecord shards
 (``record_batches``): the native ingest engine by default, the Python reader
@@ -64,6 +70,7 @@ from visual_foresight_torch.models.latent import (PosteriorEncoder,
                                                   reparameterize)
 from visual_foresight_torch.parallel.mesh import (make_mesh, replicate,
                                                   shard_batch)
+from visual_foresight_torch.prediction import checkpoints
 from visual_foresight_torch.prediction.predictor import PARAMS_FILE
 
 OPT_FILE = 'opt_state.npz'
@@ -625,28 +632,53 @@ def _save_npz(path, flat):
 
 
 def save_all(model_dir, model, posterior, tx, step):
-    """Write the serving checkpoint (``view0/params.npz`` and its step),
-    the posterior (stochastic runs) and the optimizer state, the moments in
-    the flax layout of their parameters.  Returns the ``view0`` path."""
+    """Write the serving checkpoint, the posterior (stochastic runs) and
+    the optimizer state at ``step``: as the JAX trainer's ``_save_all``
+    does, orbax step directories (``view0/step_<N>``,
+    ``posterior/step_<N>``, ``opt/step_<N>`` holding optax's chain state),
+    and the port's numpy files (``view0/params.npz`` and its step, the
+    posterior's, ``opt/opt_state.npz`` with the moments in the flax layout
+    of their parameters).  Returns the ``view0`` path."""
     modules = {'model': model, 'posterior': posterior}
     state = tx.state()
     opt = {'count': np.asarray(state['count'], np.int64),
            'step': np.asarray(step, np.int64)}
+    moments = {'mu': {}, 'nu': {}}
     for key in MODULES:
         if modules[key] is None:
             continue
+        tree = params_to_flax(modules[key].state_dict())
+        checkpoints.save_params(tree, os.path.join(model_dir, _DIRS[key]),
+                                step)
         _save_npz(os.path.join(model_dir, _DIRS[key], PARAMS_FILE),
-                  flatten_flax(params_to_flax(modules[key].state_dict())))
+                  flatten_flax(tree))
         for moment in ('mu', 'nu'):
             own = {n.split('/', 1)[1]: v for n, v in state[moment].items()
                    if n.startswith(key + '/')}
-            for leaf, value in flatten_flax(params_to_flax(own)).items():
+            moments[moment][key] = params_to_flax(own)
+            for leaf, value in flatten_flax(moments[moment][key]).items():
                 opt['{}/{}/{}'.format(key, moment, leaf)] = value
+    checkpoints.save_params(_optax_state(moments, state['count'],
+                                         posterior is not None),
+                            os.path.join(model_dir, 'opt'), step)
     _save_npz(os.path.join(model_dir, 'opt', OPT_FILE), opt)
     view = os.path.join(model_dir, _DIRS['model'])
     with open(os.path.join(view, STEP_FILE), 'w') as f:
         json.dump({'step': int(step)}, f)
     return view
+
+
+def _optax_state(moments, count, stochastic):
+    """The tree of ``optax.chain(clip_by_global_norm, adamw(schedule))``'s
+    state as orbax keeps it: the clip's and the decay's empty states as
+    None, Adam's count and moments, the schedule's count.  The moments
+    mirror the parameters: the model's flax tree, or {'model', 'posterior'}
+    of a stochastic run."""
+    count = np.asarray(count, np.int32)
+    tree = {m: moments[m] if stochastic else moments[m]['model']
+            for m in ('mu', 'nu')}
+    return [None, [{'count': count, 'mu': tree['mu'], 'nu': tree['nu']},
+                   None, {'count': count}]]
 
 
 def _read_flat(path):
@@ -657,32 +689,56 @@ def _read_flat(path):
 def _restore(args, model, posterior, tx):
     """Restore the checkpoint in ``args.model_dir``: parameters, and the
     optimizer state where one was saved at the same step; without one, Adam
-    starts afresh and the schedule is fast-forwarded to the step.  Returns
-    the step to continue from (0 when there is no checkpoint)."""
+    starts afresh and the schedule is fast-forwarded to the step.  The
+    newest ``view0/step_<N>`` is read where one exists, as the JAX
+    trainer's resume does (the posterior's and the optimizer's at the same
+    step), else the numpy files.  Returns the step to continue from (0
+    when there is no checkpoint)."""
     view = os.path.join(args.model_dir, _DIRS['model'])
-    if not os.path.isfile(os.path.join(view, STEP_FILE)):
-        return 0
-    with open(os.path.join(view, STEP_FILE)) as f:
-        start_step = int(json.load(f)['step'])
     modules = {'model': model, 'posterior': posterior}
-    for key in MODULES:
-        if modules[key] is not None:
-            load_flax_params(modules[key], unflatten_flax(_read_flat(
-                os.path.join(args.model_dir, _DIRS[key], PARAMS_FILE))))
-    tx.sync_master()
-    opt_path = os.path.join(args.model_dir, 'opt', OPT_FILE)
-    opt = _read_flat(opt_path) if os.path.isfile(opt_path) else None
-    if opt is not None and int(opt['step']) == start_step:
-        state = {'count': int(opt['count']), 'mu': {}, 'nu': {}}
+    latest = checkpoints.latest_checkpoint(view)
+    if latest is not None:
+        start_step = int(latest.rsplit('_', 1)[1])
         for key in MODULES:
-            if modules[key] is None:
-                continue
-            for moment in ('mu', 'nu'):
-                prefix = '{}/{}/'.format(key, moment)
-                tree = unflatten_flax({k[len(prefix):]: v for k, v in
-                                       opt.items() if k.startswith(prefix)})
-                for n, v in params_from_flax(tree).items():
-                    state[moment]['{}/{}'.format(key, n)] = v
+            if modules[key] is not None:
+                load_flax_params(modules[key], checkpoints.restore_params(
+                    os.path.join(args.model_dir, _DIRS[key]),
+                    step=start_step))
+        try:
+            tree = checkpoints.restore_params(
+                os.path.join(args.model_dir, 'opt'), step=start_step)
+        except FileNotFoundError:
+            state = None
+        else:
+            state = _state_from_optax(tree, modules)
+        source = latest
+    elif os.path.isfile(os.path.join(view, STEP_FILE)):
+        with open(os.path.join(view, STEP_FILE)) as f:
+            start_step = int(json.load(f)['step'])
+        for key in MODULES:
+            if modules[key] is not None:
+                load_flax_params(modules[key], unflatten_flax(_read_flat(
+                    os.path.join(args.model_dir, _DIRS[key], PARAMS_FILE))))
+        opt_path = os.path.join(args.model_dir, 'opt', OPT_FILE)
+        opt = _read_flat(opt_path) if os.path.isfile(opt_path) else None
+        state = None
+        if opt is not None and int(opt['step']) == start_step:
+            state = {'count': int(opt['count']), 'mu': {}, 'nu': {}}
+            for key in MODULES:
+                if modules[key] is None:
+                    continue
+                for moment in ('mu', 'nu'):
+                    prefix = '{}/{}/'.format(key, moment)
+                    tree = unflatten_flax({k[len(prefix):]: v for k, v in
+                                           opt.items()
+                                           if k.startswith(prefix)})
+                    for n, v in params_from_flax(tree).items():
+                        state[moment]['{}/{}'.format(key, n)] = v
+        source = view
+    else:
+        return 0
+    tx.sync_master()
+    if state is not None:
         tx.load_state(state)
         print('resumed opt state at step {}'.format(start_step))
     else:
@@ -691,9 +747,29 @@ def _restore(args, model, posterior, tx):
         tx.count = start_step
         print('WARNING: no saved opt state; Adam moments reset, schedule '
               'fast-forwarded to step {}'.format(start_step))
-    print('resumed from {} (step {})'.format(view, start_step))
+    print('resumed from {} (step {})'.format(source, start_step))
     return start_step
 
+
+def _state_from_optax(tree, modules):
+    """``ClippedAdamW.load_state``'s dict from an optax chain state read by
+    ``checkpoints.restore_params`` (the layout of :func:`_optax_state`)."""
+    try:
+        adam = tree[1][0]
+        count, mu, nu = adam['count'], adam['mu'], adam['nu']
+    except (IndexError, KeyError, TypeError):
+        raise ValueError('the optimizer checkpoint is not optax\'s chain of '
+                         'clip_by_global_norm and adamw')
+    state = {'count': int(count), 'mu': {}, 'nu': {}}
+    stochastic = modules['posterior'] is not None
+    for moment, tree_m in (('mu', mu), ('nu', nu)):
+        for key in MODULES:
+            if modules[key] is None:
+                continue
+            sub = tree_m[key] if stochastic else tree_m
+            for n, v in params_from_flax(sub).items():
+                state[moment]['{}/{}'.format(key, n)] = v
+    return state
 
 
 def build_argparser():

@@ -7,9 +7,9 @@ context frames and actions, prints the per-step PSNR of the rollout (the
 number that matters for planning, unlike teacher-forced training PSNR) and
 writes one PNG strip a trajectory (top: ground truth, bottom: prediction).
 
-The weights come from ``<model_dir>/view0/``: its latest TF1 bundle, else
-its ``params.npz`` (``prediction.predictor.load_view``), where the JAX tool
-reads an orbax checkpoint.  The model is built from the trainer's flags
+The weights come from ``<model_dir>/view0/`` (``prediction.predictor.
+load_view``): its latest TF1 bundle, else its latest orbax ``step_<N>/``,
+the checkpoint the JAX tool reads, else its ``params.npz``.  The model is built from the trainer's flags
 (``train_predictor.build_argparser``) and runs on the card unless
 ``--device cpu`` is given.  ``cv2`` is imported when the strips are
 written.
@@ -44,8 +44,8 @@ def main(cmd_args=None):
     model = build_model(args)
     view_dir = os.path.join(args.model_dir, 'view0')
     if load_view(model, view_dir) is None:
-        raise FileNotFoundError('no TF1 bundle or params.npz in {}'.format(
-            view_dir))
+        raise FileNotFoundError('no TF1 bundle, checkpoint or params.npz in '
+                                '{}'.format(view_dir))
     model.to(device).eval()
 
     ds = BaseVideoDataset(args.data_dir, args.n,

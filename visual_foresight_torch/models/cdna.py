@@ -18,7 +18,8 @@ it builds:
 The time loop is a Python loop; ``encode_context`` consumes the context
 frames (with a zero latent), ``rollout_from`` rolls the plan
 autoregressively, and ``forward`` is the teacher-forced pass over a whole
-trajectory.
+trajectory.  Each step of the first two is a ``vf.step`` span under
+``torch.profiler`` (``utils/profiling.py::span``).
 
 The warp-and-composite tail of a step runs through a kernel of
 ``ops.cdna_tail`` (on the card the hand-written CUDA kernel, on the CPU its
@@ -46,6 +47,7 @@ from visual_foresight_torch.ops.cdna_tail import (fused_warp_composite,
                                                   fused_warp_composite_dna)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
+from visual_foresight_torch.utils.profiling import STEP, span
 
 
 def broadcast_carry(carry, batch):
@@ -407,7 +409,9 @@ class CDNAPredictor(nn.Module):
                 torch.zeros((b, 0), dtype=dt, device=dev)
             x = (actions[:, t].float(), images[:, t].to(dt), gt_d,
                  states[:, t].float(), ones)
-            carry, _ = self.step(carry, x, plan_mode=False, decode=decode)
+            with span(STEP):
+                carry, _ = self.step(carry, x, plan_mode=False,
+                                     decode=decode)
         # the next step consumes the final context frame (teacher-forced)
         lstm_states, _, _, _, fi, fd, lat = carry
         last = self.n_context - 1
@@ -439,8 +443,9 @@ class CDNAPredictor(nn.Module):
         imgs, dists, sts = [], [], []
         actions = actions.float()
         for t in range(actions.shape[1]):
-            carry, (gi, gd, gs) = self.step(carry, actions[:, t],
-                                            decode=decode)
+            with span(STEP):
+                carry, (gi, gd, gs) = self.step(carry, actions[:, t],
+                                                decode=decode)
             imgs.append(gi)
             dists.append(gd)
             sts.append(gs)

@@ -8,7 +8,9 @@ refit.  The plans come from the Gaussian sampler (with its options), from
 MPPI's AR(1)-correlated noise around a soft elite-weighted mean, or from the
 folding prior; the autograsp latch and the AutograspEpsilon gripper derive a
 grip command on top of Gaussian plans.  The replan makes no host round trip
-until the caller reads a result.
+until the caller reads a result.  Under ``torch.profiler`` the replan and
+its phases are ``vf.*`` spans (``utils/profiling.py``); otherwise each
+span costs one check of the profiler's state.
 """
 
 import numpy as np
@@ -22,6 +24,9 @@ from visual_foresight_torch.planners import costs as cost_lib
 from visual_foresight_torch.planners.gaussian import (
     ActionSpec, ag_epsilon_transform, autograsp_gripper_latch,
     autograsp_gripper_resample, fit_elites, folding_sample, sample_actions)
+from visual_foresight_torch.utils.profiling import (ENCODE, INPUTS, REFIT,
+                                                    REPLAN, ROLLOUT, SAMPLE,
+                                                    SCORE, SELECT, VIS, span)
 
 # the JAX planner's other arguments, at the values that leave them off
 _UNPORTED_DEFAULTS = {'donate_dist': True}
@@ -158,6 +163,7 @@ class FusedCEMPlanner:
                              '(shard large sample counts over devices)')
         self.device = mesh.lead if mesh is not None else \
             resolve_device(device)
+        self._replans = 0       # the replans so far: the spans' args
         if self._mppi:
             # made once: a tensor made from host data in the replan would
             # wait for the device before each iteration
@@ -223,9 +229,10 @@ class FusedCEMPlanner:
         of all samples (else None), on the lead device."""
         scores, videos, distribs = [], [], []
         for lo, hi, dev, models, carries, cost_ctx in shards:
-            gi, gd, gtm = self._rollout(
-                models, carries, plan[lo:hi].to(dev),
-                None if latent is None else latent[lo:hi].to(dev))
+            with span(ROLLOUT, str(self._replans)):
+                gi, gd, gtm = self._rollout(
+                    models, carries, plan[lo:hi].to(dev),
+                    None if latent is None else latent[lo:hi].to(dev))
             scores.append(self._score(gi, gd, cost_ctx))
             videos.append(gtm if keep else None)
             distribs.append(gd if keep else None)
@@ -251,11 +258,12 @@ class FusedCEMPlanner:
                 torch.stack([o['gen_images_tm'] for o in outs], dim=2))
 
     def _score(self, gen_images, gen_distribs, cost_ctx):
-        if self._cost_fn is not None:
-            return self._cost_fn(gen_images, gen_distribs, cost_ctx)
-        return cost_lib.expected_pixel_distance(
-            gen_distribs, cost_ctx, self._finalweight, normalize=True,
-            only_first_view=self._ofv)
+        with span(SCORE, str(self._replans)):
+            if self._cost_fn is not None:
+                return self._cost_fn(gen_images, gen_distribs, cost_ctx)
+            return cost_lib.expected_pixel_distance(
+                gen_distribs, cost_ctx, self._finalweight, normalize=True,
+                only_first_view=self._ofv)
 
     def _sample_gaussian(self, mean, sigma, M, generator, z):
         """(M, T, adim) Gaussian plans of one iteration."""
@@ -410,153 +418,175 @@ class FusedCEMPlanner:
         :return: dict with best actions, scores, refit mean/sigma (MPPI:
             the mean plan, sigma as given), vis
         """
-        K, kk = self._K, self._stoch_k
-        M = num_samples or self._M
-        dev = self.device
-        if (generator is None) == (noise is None):
-            raise ValueError('pass exactly one of generator and noise')
-        if K > M:
-            raise ValueError('k_elite {} exceeds this replan\'s {} samples'
-                             .format(K, M))
-        if M % kk:
-            raise ValueError('this replan\'s {} samples are no multiple of '
-                             'stochastic_k {}'.format(M, kk))
-        if self._stoch_penalty and K > M // kk:
-            raise ValueError('k_elite {} exceeds this replan\'s {} unique '
-                             'plans'.format(K, M // kk))
-        latent_dim = models[0].latent_dim if models else 0
-        if latent_dim and latents is None and generator is None:
-            raise ValueError('a latent model needs latents beside noise')
-        as_dev = lambda x: x.to(dev, torch.float32) \
-            if isinstance(x, torch.Tensor) else \
-            torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
-        context_images, context_states = as_dev(context_images), \
-            as_dev(context_states)
-        context_distribs, context_actions = as_dev(context_distribs), \
-            as_dev(context_actions)
-        mean, sigma = as_dev(mean), as_dev(sigma)
-        anchor = torch.zeros(self._spec.adim, device=dev) if anchor is None \
-            else as_dev(anchor)
-        anchor_valid = float(anchor_valid)
-        if self._cost_fn is None:
-            cost_ctx = as_dev(cost_ctx)
-        if latents is not None:
-            latents = as_dev(latents)
+        self._replans += 1
+        tag = str(self._replans)
+        with span(REPLAN, tag):
+            K, kk = self._K, self._stoch_k
+            M = num_samples or self._M
+            dev = self.device
+            if (generator is None) == (noise is None):
+                raise ValueError('pass exactly one of generator and noise')
+            if K > M:
+                raise ValueError('k_elite {} exceeds this replan\'s {} '
+                                 'samples'.format(K, M))
+            if M % kk:
+                raise ValueError('this replan\'s {} samples are no multiple '
+                                 'of stochastic_k {}'.format(M, kk))
+            if self._stoch_penalty and K > M // kk:
+                raise ValueError('k_elite {} exceeds this replan\'s {} '
+                                 'unique plans'.format(K, M // kk))
+            latent_dim = models[0].latent_dim if models else 0
+            if latent_dim and latents is None and generator is None:
+                raise ValueError('a latent model needs latents beside '
+                                 'noise')
+            as_dev = lambda x: x.to(dev, torch.float32) \
+                if isinstance(x, torch.Tensor) else \
+                torch.tensor(np.asarray(x), dtype=torch.float32, device=dev)
+            with span(INPUTS, tag):
+                context_images, context_states = as_dev(context_images), \
+                    as_dev(context_states)
+                context_distribs, context_actions = \
+                    as_dev(context_distribs), as_dev(context_actions)
+                mean, sigma = as_dev(mean), as_dev(sigma)
+                anchor = torch.zeros(self._spec.adim, device=dev) \
+                    if anchor is None else as_dev(anchor)
+                anchor_valid = float(anchor_valid)
+                if self._cost_fn is None:
+                    cost_ctx = as_dev(cost_ctx)
+                if latents is not None:
+                    latents = as_dev(latents)
 
-        def iteration_draws(itr):
-            """The given draws of iteration ``itr`` on the device."""
-            if noise is None:
-                return {}
-            given = noise[itr]
-            if not isinstance(given, dict):
-                given = {'z': given}
-            return {k: as_dev(v) for k, v in given.items()}
+            def iteration_draws(itr):
+                """The given draws of iteration ``itr`` on the device."""
+                if noise is None:
+                    return {}
+                given = noise[itr]
+                if not isinstance(given, dict):
+                    given = {'z': given}
+                return {k: as_dev(v) for k, v in given.items()}
 
-        def draw_latent(given, b):
-            """(b, latent_dim) latent for one rollout: the given rows, or a
-            fresh draw; None for a deterministic model."""
-            if not latent_dim:
-                return None
-            if given is not None:
-                return given
-            return torch.randn((b, latent_dim), generator=generator,
-                               device=dev)
+            def draw_latent(given, b):
+                """(b, latent_dim) latent for one rollout: the given rows, or
+                a fresh draw; None for a deterministic model."""
+                if not latent_dim:
+                    return None
+                if given is not None:
+                    return given
+                return torch.randn((b, latent_dim), generator=generator,
+                                   device=dev)
 
-        # chunked mode: the rollout batch is sample_chunk, not M (unchunked
-        # for warm-start sample counts the chunk does not divide)
-        chunk = self._chunk
-        use_chunk = bool(chunk) and M > chunk and M % chunk == 0
-        shards = self._shards(models, self._encode_contexts(
-            models, context_images, context_states, context_distribs,
-            context_actions), cost_ctx, M, chunk if use_chunk else 0)
-        carries = shards[0][4]
-        sigma_prev = sigma
-        mppi_cov = None
-        grip_elites = None      # autograsp, no_refit False: last elites
-        plan_scores, vis = [], None
-        for itr in range(self._iterations):
-            plan = self._sample_plans(itr, M, mean, sigma, mppi_cov, anchor,
-                                      anchor_valid, context_states,
-                                      grip_elites, generator,
-                                      iteration_draws(itr))
-            given = None if latents is None else latents[itr]
-            if use_chunk:
-                chunk_scores = []
-                for lo in range(0, M, chunk):
-                    rows = slice(lo, lo + chunk)
-                    gi, gd, _ = self._rollout(
-                        models, carries, plan[rows], draw_latent(
-                            None if given is None else given[rows], chunk))
-                    chunk_scores.append(self._score(gi, gd, cost_ctx))
-                    del gi, gd
-                scores = torch.cat(chunk_scores)
-            else:
-                scores, gen_images_tm, gen_distribs = self._roll_and_score(
-                    shards, plan, draw_latent(given, M),
-                    keep=itr == self._iterations - 1 and self._n_vis > 0)
+            # chunked mode: the rollout batch is sample_chunk, not M
+            # (unchunked for warm-start sample counts the chunk does not
+            # divide)
+            chunk = self._chunk
+            use_chunk = bool(chunk) and M > chunk and M % chunk == 0
+            with span(ENCODE, tag):
+                shards = self._shards(models, self._encode_contexts(
+                    models, context_images, context_states,
+                    context_distribs, context_actions), cost_ctx, M,
+                    chunk if use_chunk else 0)
+            carries = shards[0][4]
+            sigma_prev = sigma
+            mppi_cov = None
+            grip_elites = None      # autograsp, no_refit False: last elites
+            plan_scores, vis = [], None
+            for itr in range(self._iterations):
+                with span(INPUTS, tag):
+                    draws = iteration_draws(itr)
+                with span(SAMPLE, tag):
+                    plan = self._sample_plans(
+                        itr, M, mean, sigma, mppi_cov, anchor, anchor_valid,
+                        context_states, grip_elites, generator, draws)
+                given = None if latents is None else latents[itr]
+                if use_chunk:
+                    chunk_scores = []
+                    for lo in range(0, M, chunk):
+                        rows = slice(lo, lo + chunk)
+                        with span(ROLLOUT, tag):
+                            gi, gd, _ = self._rollout(
+                                models, carries, plan[rows], draw_latent(
+                                    None if given is None else given[rows],
+                                    chunk))
+                        chunk_scores.append(self._score(gi, gd, cost_ctx))
+                        del gi, gd
+                    scores = torch.cat(chunk_scores)
+                else:
+                    scores, gen_images_tm, gen_distribs = \
+                        self._roll_and_score(
+                            shards, plan, draw_latent(given, M),
+                            keep=itr == self._iterations - 1 and
+                            self._n_vis > 0)
 
-            if self._stoch_penalty:
-                # aggregate the copies of each unique plan: mean + penalty *
-                # std (over N, not N - 1), then select groups; the first
-                # row of a group stands for its plan
-                g = scores.reshape(M // kk, kk)
-                group_scores = g.mean(dim=1) + \
-                    self._stoch_penalty * g.std(dim=1, correction=0)
-                top, elite_gidx = _lowest(group_scores, K)
-                elite_idx = elite_gidx * kk
-            else:
-                top, elite_idx = _lowest(scores, K)
-            elite_actions = plan[elite_idx]
-            plan_scores.append(scores)
+                with span(SELECT, tag):
+                    if self._stoch_penalty:
+                        # aggregate the copies of each unique plan: mean +
+                        # penalty * std (over N, not N - 1), then select
+                        # groups; the first row of a group stands for its
+                        # plan
+                        g = scores.reshape(M // kk, kk)
+                        group_scores = g.mean(dim=1) + \
+                            self._stoch_penalty * g.std(dim=1, correction=0)
+                        top, elite_gidx = _lowest(group_scores, K)
+                        elite_idx = elite_gidx * kk
+                    else:
+                        top, elite_idx = _lowest(scores, K)
+                    elite_actions = plan[elite_idx]
+                plan_scores.append(scores)
 
-            if itr == self._iterations - 1:
-                nv = self._n_vis
-                if nv and use_chunk:
-                    # the chunks' videos are gone: re-roll the nv elites
-                    # (under a latent of their own: vis illustrates, the
-                    # scores decide)
-                    idx = elite_idx[:nv]
-                    nv = idx.shape[0]       # fewer than n_vis elites
-                    if latent_dim and latents is not None and \
-                            vis_latents is None:
-                        raise ValueError('a chunked replan of a latent model '
-                                         'needs vis_latents beside latents')
-                    _, vd, vtm = self._rollout(
-                        models, [_first_rows(c, nv) for c in carries],
-                        plan[idx], draw_latent(
-                            None if vis_latents is None
-                            else as_dev(vis_latents), nv))
-                    vis = {'indices': idx,
-                           'gen_images': vtm.transpose(0, 1).float(),
-                           'gen_distribs': vd, 'scores': top[:nv]}
-                elif nv:
-                    idx = elite_idx[:nv]
-                    vis = {
-                        'indices': idx,
-                        'gen_images': gen_images_tm[:, idx].transpose(
-                            0, 1).float(),
-                        'gen_distribs': gen_distribs[idx],
-                        'scores': top[:nv],
-                    }
-            elif self._mppi is not None:
-                mean, mppi_cov = self._mppi_update(elite_actions, top)
-            else:
-                refit_elites = elite_actions
-                if self._ag is not None:
-                    # the derived grip dim is never refit
-                    refit_elites = elite_actions[..., :-1]
-                    if not self._ag.get('no_refit', True):
-                        grip_elites = elite_actions
-                mean, sigma = fit_elites(refit_elites, self._spec,
-                                         blockdiag=self._blockdiag)
-                if self._smooth_cov:
-                    sigma = (sigma + sigma_prev) / 2.0
-                    sigma_prev = sigma
-        return {
-            'best_actions': elite_actions,        # (K, T, adim) best first
-            'best_scores': top,                   # (K,)
-            'scores_per_itr': torch.stack(plan_scores),   # (iters, M)
-            'mean': mean,
-            'sigma': sigma,
-            'vis': vis,
-        }
+                if itr == self._iterations - 1:
+                    with span(VIS, tag):
+                        nv = self._n_vis
+                        if nv and use_chunk:
+                            # the chunks' videos are gone: re-roll the nv
+                            # elites (under a latent of their own: vis
+                            # illustrates, the scores decide)
+                            idx = elite_idx[:nv]
+                            nv = idx.shape[0]   # fewer than n_vis elites
+                            if latent_dim and latents is not None and \
+                                    vis_latents is None:
+                                raise ValueError(
+                                    'a chunked replan of a latent model '
+                                    'needs vis_latents beside latents')
+                            with span(ROLLOUT, tag):
+                                _, vd, vtm = self._rollout(
+                                    models,
+                                    [_first_rows(c, nv) for c in carries],
+                                    plan[idx], draw_latent(
+                                        None if vis_latents is None
+                                        else as_dev(vis_latents), nv))
+                            vis = {'indices': idx,
+                                   'gen_images': vtm.transpose(0, 1).float(),
+                                   'gen_distribs': vd, 'scores': top[:nv]}
+                        elif nv:
+                            idx = elite_idx[:nv]
+                            vis = {
+                                'indices': idx,
+                                'gen_images': gen_images_tm[:, idx].transpose(
+                                    0, 1).float(),
+                                'gen_distribs': gen_distribs[idx],
+                                'scores': top[:nv],
+                            }
+                elif self._mppi is not None:
+                    with span(REFIT, tag):
+                        mean, mppi_cov = self._mppi_update(elite_actions, top)
+                else:
+                    with span(REFIT, tag):
+                        refit_elites = elite_actions
+                        if self._ag is not None:
+                            # the derived grip dim is never refit
+                            refit_elites = elite_actions[..., :-1]
+                            if not self._ag.get('no_refit', True):
+                                grip_elites = elite_actions
+                        mean, sigma = fit_elites(refit_elites, self._spec,
+                                                 blockdiag=self._blockdiag)
+                        if self._smooth_cov:
+                            sigma = (sigma + sigma_prev) / 2.0
+                            sigma_prev = sigma
+            return {
+                'best_actions': elite_actions,    # (K, T, adim) best first
+                'best_scores': top,               # (K,)
+                'scores_per_itr': torch.stack(plan_scores),   # (iters, M)
+                'mean': mean,
+                'sigma': sigma,
+                'vis': vis,
+            }

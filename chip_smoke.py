@@ -5,7 +5,7 @@
 
 1. prints the torch/CUDA versions and the card's name and power limit, and
    starts one nvcc per kernel source (``csrc/*.cu``, sm_90a: the probe, the
-   tail and the tail's backward), all at once;
+   tail, the tail's backward and the conv-LSTM cell), all at once;
 2. toolchain probe: ``add_one`` (``csrc/probe_add_one.cu``) on an (8, 128)
    f32 array must give exactly ``x + 1``, before anything larger is tried;
    then exactly ``x + 1`` at an odd length, on a tensor sliced one element
@@ -29,7 +29,11 @@
    all four gradients, at the training shape (B=16, 48x64, C=3, M=10) in
    both mask layouts, at B=256 and at sizes that cut its 8 x 32 tiles,
    several tiles across, B=1, blocked r=2, K 3 and 7, M 16 with C 1, SNA on
-   and off, bf16 and f32, each launch twice and bitwise equal;
+   and off, bf16 and f32, each launch twice and bitwise equal; and the
+   conv-LSTM kernel (``csrc/conv_lstm_ln.cu``) against its maths composed in
+   f32 at the flagship's cells at B=768, the classic backbone's in bf16 at
+   768 samples and in f32 at 200, and widths from 4 to 1024
+   (``LSTM_CASES``): c' and h' within one ulp, y within one ulp and 1e-5;
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
@@ -89,7 +93,10 @@
      none of the folded or the field-given entry; (c) the flagship with
      ``fuse_decode``, 136;
    every path's launches are read from the counters and must match the
-   entry and mask layout its predictor's architecture gives;
+   entry and mask layout its predictor's architecture gives, and every
+   model step launches the conv-LSTM kernel once a cell (3 on the
+   space-to-depth backbone: 408 a replan at xz_bench20, 273 at ag_bench20;
+   5 on the classic one);
    - training (``training/train_predictor.py``): the JAX package's three
      f32 train steps of the flagship (``golden_train_f32.npz``: B=4, 6
      frames, masks injected) replayed through the tail's forward and
@@ -132,11 +139,13 @@
    ``depth_to_space`` copy that the blocked layout saves; the second
    kernel's effective-kernel entry and DNA mode at B=768 and 200, each
    beside the bound of its own inputs; ``add_one`` also at 2^26 floats,
-   beside ``torch.add``; the tail's backward at B=16 and 256), the
-   200-sample replan,
+   beside ``torch.add``; the tail's backward at B=16 and 256; the
+   conv-LSTM kernel at the flagship step's cells, B=768, beside the stock
+   chain), the 200-sample replan,
    and the replans of the xz_bench20 (also with ``fuse_decode``, in turns
    with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
-   (fused and host loop), folding, classic CDNA and classic DNA controllers
+   (fused and host loop), folding, classic CDNA (its cells through the
+   stock chain and through the kernel, in turns) and classic DNA controllers
    (host clock and CUDA events), with a profiler breakdown of one replan of
    each but the one-batch 800-sample and the folding ones; then the
    replans on the nets trained from records the same way, and the tiled
@@ -307,6 +316,7 @@ failed phase raises and exits non-zero; without a CUDA card it exits
 non-zero before printing a result.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -322,6 +332,7 @@ import numpy as np
 import torch
 
 from visual_foresight_torch.campaigns import stand_ins
+from visual_foresight_torch.models.layers import LN_EPS
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -820,6 +831,7 @@ def check_tail_cases(gen):
 
 
 def reset_tail_counts():
+    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
@@ -827,6 +839,7 @@ def reset_tail_counts():
     fused_warp_composite.blocked_launches = 0
     fused_warp_composite_eff.launches = 0
     fused_warp_composite_dna.launches = 0
+    conv_lstm_ln.launches = 0
     for v in fused_warp_composite.launches_by_variant:
         fused_warp_composite.launches_by_variant[v] = 0
 
@@ -839,12 +852,15 @@ def read_tail_counts(path, want, hp):
     variant (never the general one), on blocked masks where the
     space-to-depth backbone keeps
     its low-resolution softmax (the serving predictor), else on
-    full-resolution masks (the classic backbone).  Returns the counters as
-    read, by kernel entry: ``{'cdna_tail': n, 'cdna_tail_eff': n,
-    'cdna_tail_dna': n}``."""
+    full-resolution masks (the classic backbone).  Every step of those
+    launches the conv-LSTM kernel once a cell (``lstm_launches``: 3 on the
+    space-to-depth backbone, 5 on the classic one).  Returns the counters
+    as read, by kernel entry: ``{'cdna_tail': n, 'cdna_tail_eff': n,
+    'cdna_tail_dna': n, 'cdna_tail_general': n, 'conv_lstm_ln': n}``."""
     from visual_foresight_torch.ops.cdna_tail import (
         VARIANTS, fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
+    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
     dna = bool(hp['dna'])
     blocked = bool(hp['std_factor']) and hp['mask_softmax'] == 'lowres'
     want_folded, want_dna = (0, want) if dna else (want, 0)
@@ -868,9 +884,23 @@ def read_tail_counts(path, want, hp):
     if on_blocks != (want_folded if blocked else 0):
         raise AssertionError('the {} path did not keep its masks {}'.format(
             path, 'blocked' if blocked else 'at full resolution'))
+    cells, want_cells = conv_lstm_ln.launches, want * lstm_launches(hp)
+    print('{} path: {} conv-LSTM kernel launches (expected {})'.format(
+        path, cells, want_cells))
+    if cells != want_cells:
+        raise AssertionError('the {} path ran the conv-LSTM kernel {} times, '
+                             'not {}'.format(path, cells, want_cells))
     return {'cdna_tail': launches, 'cdna_tail_eff': eff,
             'cdna_tail_dna': dna_launches,
-            'cdna_tail_general': by_variant['general']}
+            'cdna_tail_general': by_variant['general'],
+            'conv_lstm_ln': cells}
+
+
+def lstm_launches(hp):
+    """Conv-LSTM kernel launches in one model step of the architecture
+    ``hp`` (a predictor's ``_hp``, or ``model_hp`` of a model): one a cell,
+    3 on the space-to-depth backbone and 5 on the classic one."""
+    return 3 if hp['std_factor'] else 5
 
 
 def read_no_tail(path):
@@ -1993,6 +2023,138 @@ def time_add_one(gen, card, shape):
         raise AssertionError('add_one ran under its bound: the timing is '
                              'wrong')
     return kernel_ms, plain_ms, library_ms, bound_ms, bound_by
+
+
+# -- the conv-LSTM cell and its LayerNorm (csrc/conv_lstm_ln.cu) -------------
+
+# (rows, F, type, the recurrent addend): the flagship's cells at B=768
+# (lstm1 and lstm4, then lstm3), the classic backbone's as its bf16
+# controllers drive them at 768 samples (lstm1 and lstm5, lstm2 and lstm4,
+# lstm3) and as the golden replays them at B=200 in f32, and widths from one
+# lane a row to four 16-byte words a lane
+LSTM_CASES = [(147456, 128, torch.bfloat16, True),
+              (36864, 256, torch.bfloat16, True),
+              (589824, 32, torch.bfloat16, False),
+              (147456, 64, torch.bfloat16, False),
+              (36864, 128, torch.bfloat16, False),
+              (153600, 32, torch.float32, False),
+              (38400, 64, torch.float32, False),
+              (9600, 128, torch.float32, False),
+              (997, 8, torch.bfloat16, True), (997, 4, torch.float32, False),
+              (33, 1024, torch.bfloat16, True), (33, 512, torch.float32, True)]
+# the predictor step's three cells at the serving point, each timed
+LSTM_TIMED = ((147456, 128), (36864, 256))
+LSTM_PER_STEP = (2, 1)                        # lstm1 and lstm4; lstm3
+
+
+def lstm_inputs(gen, rows, feat, dtype, with_r):
+    """Gate addends, state and LayerNorm parameters of ``rows`` pixel rows
+    of ``feat`` features: (x, r or None, c, weight, bias)."""
+    rand = lambda *s: torch.randn(s, generator=gen, device='cuda')
+    return ((1.5 * rand(rows, 4 * feat)).to(dtype),
+            (1.5 * rand(rows, 4 * feat)).to(dtype) if with_r else None,
+            (2.0 * rand(rows, feat)).to(dtype),
+            1.0 + 0.3 * rand(feat), 0.3 * rand(feat))
+
+
+def check_lstm_cases(gen):
+    """The conv-LSTM kernel against its maths composed in f32 at
+    ``LSTM_CASES``: c' and h' within one ulp of their type (plus the f32
+    rounding of the state update's terms), y within one ulp and 1e-5 of an
+    f32 LayerNorm of the stored h'.  Returns the largest error of each
+    as a share of its tolerance."""
+    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
+    worst = {'c': 0.0, 'h': 0.0, 'y': 0.0}
+    for rows, feat, dtype, with_r in LSTM_CASES:
+        x, r, c, wt, b = lstm_inputs(gen, rows, feat, dtype, with_r)
+        with torch.no_grad():
+            outs = conv_lstm_ln(x, r, c, wt, b, LN_EPS)
+        z = x.float() + (0.0 if r is None else r.float())
+        i, g, f, o = torch.split(z, feat, dim=-1)
+        c32 = torch.sigmoid(f + 1.0) * c.float() + \
+            torch.sigmoid(i) * torch.tanh(g)
+        h32 = torch.sigmoid(o) * torch.tanh(c32)
+        y32 = torch.nn.functional.layer_norm(outs[1].float(), (feat,), wt, b,
+                                             eps=LN_EPS)
+        slack = 4 * torch.finfo(torch.float32).eps * (1.0 + c.float().abs())
+        errs = {}
+        for name, got, ref, extra in (('c', outs[0], c32, slack),
+                                      ('h', outs[1], h32, slack),
+                                      ('y', outs[2], y32,
+                                       1e-5 * (1.0 + y32.abs()))):
+            _, exp = torch.frexp(ref)
+            ulp = torch.ldexp(torch.full_like(ref, torch.finfo(dtype).eps),
+                              exp - 1)
+            errs[name] = float(((got.float() - ref).abs() /
+                                (ulp + extra)).max())
+            worst[name] = max(worst[name], errs[name])
+            if not errs[name] <= 1.0:
+                raise AssertionError('conv_lstm_ln at {} rows x {} {}: {} '
+                                     'off by {:.3g} of its tolerance'.format(
+                                         rows, feat, dtype, name,
+                                         errs[name]))
+        print('conv_lstm_ln {} rows x {} {}{}: largest error as a share of '
+              'its tolerance: c\' {:.3g}, h\' {:.3g}, y {:.3g}'.format(
+                  rows, feat, dtype, ' with r' if with_r else '', errs['c'],
+                  errs['h'], errs['y']))
+    return worst
+
+
+def time_lstm(gen, card):
+    """The conv-LSTM kernel's time at the serving step's cells
+    (``LSTM_TIMED``, bf16, with the recurrent addend), the stock chain's
+    (the plain version) and the byte bound; returns a dict by shape and the
+    step's totals (``LSTM_PER_STEP``)."""
+    from visual_foresight_torch.ops.conv_lstm_ln import (
+        conv_lstm_ln, conv_lstm_ln_reference)
+    res = {}
+    for rows, feat in LSTM_TIMED:
+        sets = [lstm_inputs(gen, rows, feat, torch.bfloat16, True)
+                for _ in range(4)]
+        with torch.no_grad():
+            ms = graph_ms(lambda *a: conv_lstm_ln(*a, LN_EPS), sets, 100)
+            plain_ms = graph_ms(lambda *a: conv_lstm_ln_reference(*a, LN_EPS),
+                                sets, 10)
+        del sets
+        # read x, r (4F each) and c, write c', h' and y
+        bound_ms = rows * feat * 2 * 12 / PEAK_BYTES_PER_S * 1e3
+        key = '{}x{}'.format(rows, feat)
+        res[key] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                    'bound_by': 'bytes'}
+        where = '({} rows x {} bf16 with r, CUDA graph, CUDA events) ' \
+            '[{}]'.format(rows, feat, card)
+        print('conv_lstm_ln_kernel_ms={:.5f} {:.1%} of 3.35 TB/s {}'.format(
+            ms, bound_ms / ms, where))
+        print('conv_lstm_ln_plain_ms={:.5f} {}'.format(plain_ms, where))
+        print('conv_lstm_ln_bound_ms={:.5f} (by bytes; H100 SXM 3.35 TB/s) '
+              '[{}]'.format(bound_ms, card))
+        if bound_ms > ms:
+            raise AssertionError('the conv-LSTM kernel moved its bytes '
+                                 'faster than the card can: the timing is '
+                                 'wrong')
+    step = {k: sum(n * r[k] for n, r in zip(LSTM_PER_STEP, res.values()))
+            for k in ('ms', 'plain_ms', 'bound_ms')}
+    print('conv_lstm_ln a predictor step (B=768, three cells): kernel '
+          '{ms:.5f} ms, stock chain {plain_ms:.5f} ms, bound {bound_ms:.5f} '
+          'ms [{card}]'.format(card=card, **step))
+    return dict(res, step=step)
+
+
+class StockCells(object):
+    """Inside the block, ``ConvLSTMCell.forward_norm`` takes the stock chain
+    on the card too (the plain version in place of the kernel's entry)."""
+
+    def __enter__(self):
+        from visual_foresight_torch.models import layers
+        from visual_foresight_torch.ops.conv_lstm_ln import (
+            conv_lstm_ln_reference)
+        self._patch = mock.patch.object(layers, 'conv_lstm_ln',
+                                        conv_lstm_ln_reference)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
 
 
 # -- training (the tail's backward kernel, the trainer, the train golden) ----
@@ -5591,7 +5753,8 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
-    from visual_foresight_torch.ops import _build, cdna_tail, probe
+    from visual_foresight_torch.ops import (_build, cdna_tail, conv_lstm_ln,
+                                           probe)
     from visual_foresight_torch.ops.probe import PROBE_SHAPE
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5607,7 +5770,8 @@ def main():
     # -- builds: one nvcc per kernel, all started together -------------------
     t0 = time.time()
     builds = _build.build_concurrently([probe.SOURCE, cdna_tail.SOURCE,
-                                        cdna_tail.BWD_SOURCE])
+                                        cdna_tail.BWD_SOURCE,
+                                        conv_lstm_ln.SOURCE])
 
     # -- 1. toolchain probe ----------------------------------------------------
     print_report(probe.SOURCE, builds[probe.SOURCE].result()[1],
@@ -5623,6 +5787,9 @@ def main():
     print_report(cdna_tail.BWD_SOURCE,
                  builds[cdna_tail.BWD_SOURCE].result()[1], time.time() - t0)
     bwd_abs, bwd_rel = check_bwd_cases(gen)
+    print_report(conv_lstm_ln.SOURCE,
+                 builds[conv_lstm_ln.SOURCE].result()[1], time.time() - t0)
+    lstm_err = check_lstm_cases(gen)
 
     # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
     # launches by kernel, for each driven path
@@ -5802,14 +5969,19 @@ def main():
     time_controller('controller_replan',
                     '768 samples x 45 steps x 48x64 x 3 iters, bf16', ctrl,
                     ctrl_states, card)
-    time_controller('classic_cdna_replan',
-                    '768 samples x 45 steps x 48x64 x 3 iters, bf16, classic '
-                    'CDNA (the JAX default), seeded', classic_ctrl,
-                    classic_states, card)
+    # the conv-LSTM cells through the stock chain and through the kernel, in
+    # turns: stock, kernel, kernel, stock
+    for cells in ('stock', 'kernel', 'kernel', 'stock'):
+        with StockCells() if cells == 'stock' else contextlib.nullcontext():
+            time_controller('classic_cdna_replan_{}_cells'.format(cells),
+                            '768 samples x 45 steps x 48x64 x 3 iters, bf16, '
+                            'classic CDNA (the JAX default), seeded',
+                            classic_ctrl, classic_states, card)
     time_controller('classic_dna_replan',
                     '768 samples x 45 steps x 48x64 x 3 iters, bf16, classic '
                     'DNA, seeded', dna_ctrl, dna_states, card)
     eff = time_eff(gen, CTRL_POLICY['num_samples'], card)
+    lstm = time_lstm(gen, card)
     time_eff(gen, M, card)
     time_controller('ag_bench20_replan',
                     '768 samples x 30 steps x 48x64 x 3 iters, adim 4, one '
@@ -6015,6 +6187,19 @@ def main():
         'bound_ms': bwd[TRAIN_BATCH]['bound_ms'],
         'bound_by': bwd[TRAIN_BATCH]['bound_by'], 'library_ms': None,
         'by_batch': {str(b): r for b, r in bwd.items()}}, {
+        # no TPU kernel: the JAX package leaves the conv-LSTM cell and its
+        # LayerNorm to XLA, which fuses them; the top-level numbers are a
+        # predictor step's three cells at B=768
+        'name': 'conv_lstm_ln', 'route': 'cuda',
+        'source': 'visual_foresight_torch/csrc/conv_lstm_ln.cu',
+        'replaces': None,
+        'launches': sum(n.get('conv_lstm_ln', 0) for n in paths.values()),
+        'launches_by_path': by_path('conv_lstm_ln'),
+        'max_err_share_of_tol': lstm_err, 'ms': lstm['step']['ms'],
+        'plain_ms': lstm['step']['plain_ms'],
+        'bound_ms': lstm['step']['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None,
+        'by_shape': {k: r for k, r in lstm.items() if k != 'step'}}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

@@ -1,6 +1,7 @@
 """The port's kernels against their plain versions on the card: the CDNA
-tail (its folded entry, its effective-kernel entry and its DNA mode) and the
-toolchain probe's ``add_one``.
+tail (its folded entry, its effective-kernel entry and its DNA mode), the
+conv-LSTM cell's update with its LayerNorm and the toolchain probe's
+``add_one``.
 
 Marked ``cuda``: it needs an NVIDIA card with nvcc and skips elsewhere.  On
 the card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -31,6 +32,17 @@ unsharded (``chip_smoke.check_sharded_replan``).  The checkpoints: each
 vendored orbax step directory restored on the card and replanned against
 its numpy export (``chip_smoke.restore_orbax``).
 
+The conv-LSTM kernel (``csrc/conv_lstm_ln.cu``) is held against an f32
+composition of the same maths at F 8 to 256, both types, with and without
+the recurrent addend, at ragged row counts: c' and h' within one ulp of the
+storage type (plus f32 rounding of the terms), y within one ulp plus the
+LayerNorm's f32 tolerance of an f32 LayerNorm of the stored h'.  The
+flagship's step and a short rollout, and a classic backbone's, through the
+kernel against the stock chain (in f32 within 1e-4 of the largest value; in
+bf16 no farther from the f32 run than 1.5 times the stock chain): 3
+launches a step on the space-to-depth backbone, 5 on the classic one, none
+under grad.
+
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
 the backward's gradients relative to each gradient's largest magnitude (a
@@ -45,8 +57,11 @@ from visual_foresight_torch.ops.cdna_tail import (
     fused_warp_composite_backward_reference, fused_warp_composite_dna,
     fused_warp_composite_dna_reference, fused_warp_composite_eff,
     fused_warp_composite_eff_reference, fused_warp_composite_reference)
+from visual_foresight_torch.models.layers import LN_EPS
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import space_to_depth
+from visual_foresight_torch.ops.conv_lstm_ln import (conv_lstm_ln,
+                                                     conv_lstm_ln_reference)
 from visual_foresight_torch.ops.probe import add_one, add_one_reference
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -249,8 +264,10 @@ def test_add_one_edge_cases_on_card(case):
 def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
     """One MPPI replan of a small f32 model (32 samples x 6 steps x 3
     iterations, 48x64, anchored): the tail kernel against the plain tail on
-    the same injected normals, same elites, scores rtol 1e-5; the kernel
-    launches once per model step (1 + 3 x 6)."""
+    the same injected normals, scores rtol 1e-5, the same visualised elites
+    (where the plain replan scores several samples alike within that
+    tolerance, as the seeded model does, any one of that tied group); the
+    kernel launches once per model step (1 + 3 x 6)."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     import numpy as np
@@ -291,7 +308,15 @@ def test_mppi_replan_kernel_matches_plain_tail_on_card(monkeypatch):
     want = planner.replan(*args, **kw)
     torch.testing.assert_close(got['scores_per_itr'], want['scores_per_itr'],
                                rtol=1e-5, atol=0)
-    assert torch.equal(got['vis']['indices'], want['vis']['indices'])
+    last = want['scores_per_itr'][-1]
+    shown = got['vis']['indices'].reshape(-1).tolist()
+    assert len(set(shown)) == len(shown)
+    for g, w in zip(shown, want['vis']['indices'].reshape(-1).tolist()):
+        tied = torch.isclose(last, last[w], rtol=1e-5, atol=0)
+        if int(tied.sum()) == 1:
+            assert g == w
+        else:
+            assert bool(tied[g]), (g, w)
     torch.testing.assert_close(got['mean'], want['mean'], rtol=1e-5,
                                atol=1e-6)
 
@@ -644,3 +669,260 @@ def test_orbax_restored_replan_equals_the_numpy_one_on_card(name):
     paths = chip_smoke.replan_orbax_and_numpy(name, orbax, numpy_pred)
     assert [n['cdna_tail'] for n in paths.values()] == \
         [chip_smoke.LAUNCHES_PER_REPLAN] * 2
+
+
+# a rollout through the kernel against the stock chain: in f32 the same
+# arithmetic but for the order of a few operations (measured on an H100:
+# 5e-6 of the largest value); in bf16 both round, so each is held to an f32
+# run of the same weights, the kernel's rms gap at most this many times the
+# stock chain's (measured: 0.61-1.09)
+ROLLOUT_F32_RTOL = 1e-4
+ROLLOUT_BF16_GAP_RATIO = 1.5
+
+
+def _ulp(ref, dtype):
+    """One ulp of ``dtype`` at each value of the f32 tensor ``ref``."""
+    _, exp = torch.frexp(ref)
+    return torch.ldexp(torch.full_like(ref, torch.finfo(dtype).eps), exp - 1)
+
+
+def _lstm_f32(x, r, c):
+    """The kernel's cell update composed in f32: (c', h') before
+    rounding."""
+    z = x.float() + (0.0 if r is None else r.float())
+    i, g, f, o = torch.split(z, c.shape[-1], dim=-1)
+    c32 = torch.sigmoid(f + 1.0) * c.float() + torch.sigmoid(i) * torch.tanh(g)
+    return c32, torch.sigmoid(o) * torch.tanh(c32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('lead', [(997,), (3, 5, 7)], ids=['997', '3x5x7'])
+@pytest.mark.parametrize('with_r', [False, True], ids=['x', 'x+r'])
+@pytest.mark.parametrize('feat', [8, 32, 128, 256])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_conv_lstm_ln_kernel_matches_f32_on_card(dtype, feat, with_r, lead):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    gen = torch.Generator(device='cuda').manual_seed(feat)
+    rand = lambda *s: torch.randn(s, generator=gen, device='cuda')
+    x = (1.5 * rand(*lead, 4 * feat)).to(dtype)
+    r = (1.5 * rand(*lead, 4 * feat)).to(dtype) if with_r else None
+    c = (2.0 * rand(*lead, feat)).to(dtype)
+    weight, bias = 1.0 + 0.3 * rand(feat), 0.3 * rand(feat)
+    before = conv_lstm_ln.launches
+    with torch.no_grad():
+        got_c, got_h, got_y = conv_lstm_ln(x, r, c, weight, bias, LN_EPS)
+    torch.cuda.synchronize()
+    assert conv_lstm_ln.launches == before + 1
+    c32, h32 = _lstm_f32(x, r, c)
+    # f32 rounding of the terms the state update sums
+    slack = 4 * torch.finfo(torch.float32).eps * (1.0 + c.float().abs())
+    for got, ref in ((got_c, c32), (got_h, h32)):
+        assert got.dtype == dtype and got.shape == c.shape
+        err = (got.float() - ref).abs()
+        assert bool((err <= _ulp(ref, dtype) + slack).all()), \
+            float((err - _ulp(ref, dtype) - slack).max())
+    y32 = torch.nn.functional.layer_norm(got_h.float(), (feat,), weight,
+                                         bias, eps=LN_EPS)
+    err = (got_y.float() - y32).abs()
+    assert got_y.dtype == dtype
+    assert bool((err <= _ulp(y32, dtype) + 1e-5 * (1.0 + y32.abs())).all())
+
+
+@pytest.mark.cuda
+def test_conv_lstm_ln_kernel_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    n, feat = 10, 16
+    x = torch.randn(n, 4 * feat, device='cuda').bfloat16()
+    c = torch.randn(n, feat, device='cuda').bfloat16()
+    w, b = torch.ones(feat, device='cuda'), torch.zeros(feat, device='cuda')
+    with pytest.raises(ValueError, match='unsupported dtype'):
+        conv_lstm_ln(x.half(), None, c.half(), w, b, LN_EPS)
+    with pytest.raises(ValueError, match='x is torch.float32'):
+        conv_lstm_ln(x.float(), None, c, w, b, LN_EPS)
+    with pytest.raises(ValueError, match='weight is torch.bfloat16'):
+        conv_lstm_ln(x, None, c, w.bfloat16(), b, LN_EPS)
+    wide = torch.randn(n, 8 * feat, device='cuda').bfloat16()
+    with pytest.raises(ValueError, match='contiguous'):
+        conv_lstm_ln(wide[:, ::2], None, c, w, b, LN_EPS)
+    with pytest.raises(ValueError, match='16-byte'):
+        conv_lstm_ln(wide.view(-1)[1:1 + x.numel()].view_as(x), None, c, w,
+                     b, LN_EPS)
+    with pytest.raises(ValueError, match='shape'):
+        conv_lstm_ln(x[:-1], None, c, w, b, LN_EPS)
+    with pytest.raises(ValueError, match='no conv_lstm_ln kernel for 12'):
+        conv_lstm_ln(x[:, :48].contiguous(), None, c[:, :12].contiguous(),
+                     w[:12], b[:12], LN_EPS)
+    with pytest.raises(RuntimeError, match='no backward kernel'):
+        conv_lstm_ln(x.requires_grad_(), None, c, w, b, LN_EPS)
+    with torch.no_grad():
+        conv_lstm_ln(x, None, c, w, b, LN_EPS)      # the same under no_grad
+
+
+def _step_and_rollout(model, b, steps=5):
+    """One step and a ``steps``-step rollout of ``model`` from a seeded
+    context broadcast to ``b`` samples, in f32, and the conv-LSTM kernel's
+    launches they took."""
+    from visual_foresight_torch.models.cdna import broadcast_carry
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    h, w = 48, 64
+    images = torch.rand((1, 2, h, w, 3), generator=gen, device='cuda')
+    distribs = torch.zeros((1, 2, h, w, 1), device='cuda')
+    distribs[:, :, 24, 32] = 1.0
+    states = 0.05 * torch.randn((1, 2, 3), generator=gen, device='cuda')
+    ctx_actions = torch.zeros((1, 1, 3), device='cuda')
+    actions = 0.05 * torch.randn((b, steps, 3), generator=gen, device='cuda')
+    before = conv_lstm_ln.launches
+    with torch.no_grad():
+        carry = broadcast_carry(model.encode_context(
+            images, ctx_actions, states, distribs), b)
+        _, (img, distrib, _) = model.step(carry, actions[:, 0],
+                                          decode=model._decode())
+        roll = model.rollout_from(carry, actions)
+    torch.cuda.synchronize()
+    out = {'step_images': img, 'step_distribs': distrib,
+           'gen_images': roll['gen_images'],
+           'gen_distribs': roll['gen_distribs']}
+    return {k: v.float() for k, v in out.items()}, \
+        conv_lstm_ln.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('arch', ['flagship', 'classic'])
+def test_conv_lstm_ln_rollout_matches_stock_chain_on_card(arch, monkeypatch):
+    """The restored flagship (space-to-depth r=4, F 128/256) at B=768, and
+    a seeded classic backbone (F 32/64/128) at B=200, each in bf16 and in
+    f32 with the bf16 weights: one step and a 5-step rollout through the
+    kernel against the stock chain (``ROLLOUT_F32_RTOL``,
+    ``ROLLOUT_BF16_GAP_RATIO``); the kernel launches once a cell and step
+    (3 and 5), the stock chain never."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models import layers
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    if arch == 'flagship':
+        from visual_foresight_torch.parallel.flagship_check import (
+            load_flagship_predictor)
+        m16 = load_flagship_predictor(num_samples=768).models[0]
+        m32 = load_flagship_predictor(num_samples=768,
+                                      dtype='float32').models[0]
+        b, cells = 768, 3
+    else:
+        from visual_foresight_torch.models.cdna import CDNAPredictor
+        torch.manual_seed(0)
+        make = lambda dtype: CDNAPredictor(
+            (48, 64), num_distribs=1, enc_features=(32, 64, 128),
+            separable_lstm=True, std_factor=0, dtype=dtype).cuda().eval()
+        m32, m16 = make(torch.float32), make(torch.bfloat16)
+        m16.load_state_dict(m32.state_dict())
+        b, cells = 200, 5
+    m32.load_state_dict(m16.state_dict())
+    k16, n16 = _step_and_rollout(m16, b)
+    k32, n32 = _step_and_rollout(m32, b)
+    monkeypatch.setattr(layers, 'conv_lstm_ln', conv_lstm_ln_reference)
+    s16, stock16 = _step_and_rollout(m16, b)
+    s32, stock32 = _step_and_rollout(m32, b)
+    # the context step, the single step, the rollout
+    assert n16 == n32 == cells * (1 + 1 + 5) and stock16 == stock32 == 0
+    rms = lambda d: float(d.pow(2).mean().sqrt())
+    for key in k32:
+        scale = float(s32[key].abs().max())
+        assert float((k32[key] - s32[key]).abs().max()) <= \
+            ROLLOUT_F32_RTOL * scale, key
+        assert rms(k16[key] - k32[key]) <= \
+            ROLLOUT_BF16_GAP_RATIO * rms(s16[key] - k32[key]), key
+
+
+@pytest.mark.cuda
+def test_conv_lstm_ln_route_under_grad_keeps_stock_ops_on_card():
+    """A train-mode forward with gradients takes the stock chain (no
+    launch) and back-propagates; the same model under no_grad launches."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models.cdna import CDNAPredictor
+    torch.manual_seed(0)
+    model = CDNAPredictor((16, 16), num_distribs=0, num_masks=2,
+                          enc_features=(8, 16, 16), lstm_kernel=3,
+                          separable_lstm=True, std_factor=4).cuda()
+    images = torch.rand((2, 3, 16, 16, 3), device='cuda')
+    actions = torch.randn((2, 3, 3), device='cuda')
+    before = conv_lstm_ln.launches
+    out = model(images, actions)
+    out['gen_images'].sum().backward()
+    assert conv_lstm_ln.launches == before
+    assert all(p.grad is not None for p in model.parameters()
+               if p.requires_grad)
+    with torch.no_grad():
+        model(images, actions)
+    assert conv_lstm_ln.launches == before + 3 * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('form', ['dense', 'separable', 'external_x'])
+def test_forward_norm_routes_by_grad_need_on_card(form, monkeypatch):
+    """A cell on the card in each form: under ``no_grad`` ``forward_norm``
+    calls the kernel's entry once (with the recurrent addend only under
+    ``external_x``) and matches the stock chain in f32; under grad with
+    parameters that need a gradient it never calls it and gives the stock
+    chain's gradients; under grad with nothing needing one it calls it
+    again."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models import layers
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', False)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return conv_lstm_ln(*args)
+
+    torch.manual_seed(0)
+    feat, cin = 8, 5
+    cell = layers.ConvLSTMCell(cin, feat, (3, 3),
+                               separable=form == 'separable',
+                               external_x=form == 'external_x').cuda()
+    ln = layers.LayerNorm(feat).cuda()
+    params = list(cell.parameters()) + list(ln.parameters())
+    with torch.no_grad():
+        for p in params:
+            p.copy_(0.3 * torch.randn(p.shape))
+    x = torch.randn(2, 6, 8, 4 * feat if form == 'external_x' else cin,
+                    device='cuda')
+    state = tuple(torch.randn(2, 6, 8, feat, device='cuda')
+                  for _ in range(2))
+
+    def stock():
+        new_c, new_h = layers.lstm_update_reference(
+            *cell._gate_addends(state[1], x), state[0])
+        return new_c, new_h, ln(new_h)
+
+    want = stock()
+    monkeypatch.setattr(layers, 'conv_lstm_ln', entry)
+    with torch.no_grad():
+        (c, h), y = cell.forward_norm(state, x, ln)
+    assert len(calls) == 1
+    assert (calls[0][1] is None) == (form != 'external_x')
+    for got, ref in zip((c, h, y), want):
+        torch.testing.assert_close(got, ref, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+
+    (c, h), y = cell.forward_norm(state, x, ln)       # grad: stock ops
+    assert len(calls) == 1 and y.requires_grad
+    (y.sum() + c.sum()).backward()
+    got_grads = [p.grad.clone() for p in params]
+    for p in params:
+        p.grad = None
+    ref_c, _, ref_y = stock()
+    (ref_y.sum() + ref_c.sum()).backward()
+    for g, p in zip(got_grads, params):
+        torch.testing.assert_close(g, p.grad, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+
+    for p in params:
+        p.requires_grad_(False)
+    cell.forward_norm(state, x, ln)          # grad on, nothing needs one
+    assert len(calls) == 2

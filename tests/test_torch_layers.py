@@ -115,3 +115,151 @@ def test_params_from_flax_layouts_and_errors():
                                'extra': {'bias': np.ones(4)}})
     with pytest.raises(ValueError, match='unfilled'):
         load_flax_params(tln, {'ln': {'scale': np.ones(4)}})
+
+
+def _stock_cell_and_norm(cell, ln, state, x):
+    """``ConvLSTMCell.forward`` followed by ``LayerNorm.forward`` as the
+    port ran them before ``forward_norm``: one stock op at a time."""
+    c, h = state
+    if cell.external_x:
+        gates = x + cell.gates_pw(tlayers.conv_nhwc(h, cell.gates_dw, 'SAME'))
+    elif cell.separable:
+        xh = torch.cat([x, h], dim=-1)
+        gates = cell.gates_pw(tlayers.conv_nhwc(xh, cell.gates_dw, 'SAME'))
+    else:
+        xh = torch.cat([x, h], dim=-1)
+        gates = tlayers.conv_nhwc(xh, cell.gates, 'SAME')
+    i, g, f, o = torch.split(gates, cell.features, dim=-1)
+    i = torch.sigmoid(i)
+    f = torch.sigmoid(f + 1.0)
+    g = torch.tanh(g)
+    o = torch.sigmoid(o)
+    new_c = f * c + i * g
+    new_h = o * torch.tanh(new_c)
+    y = torch.nn.functional.layer_norm(
+        new_h.float(), (new_h.shape[-1],), ln.weight.float(), ln.bias.float(),
+        eps=tlayers.LN_EPS).to(new_h.dtype)
+    return new_c, new_h, y
+
+
+def _cell_case(form, dtype, feat=8, seed=0):
+    torch.manual_seed(seed)
+    b, h, w, cin, k = 2, 6, 8, 5, 3
+    cell = tlayers.ConvLSTMCell(cin, feat, (k, k),
+                                separable=form == 'separable',
+                                external_x=form == 'external_x', dtype=dtype)
+    ln = tlayers.LayerNorm(feat)
+    with torch.no_grad():
+        for p in list(cell.parameters()) + list(ln.parameters()):
+            p.copy_(torch.randn(p.shape) * 0.3)
+    xin = 4 * feat if form == 'external_x' else cin
+    x = torch.randn(b, h, w, xin).to(dtype)
+    state = (torch.randn(b, h, w, feat).to(dtype),
+             torch.randn(b, h, w, feat).to(dtype))
+    return cell, ln, state, x
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('grad', [False, True], ids=['no_grad', 'grad'])
+@pytest.mark.parametrize('form', ['dense', 'separable', 'external_x'])
+def test_forward_norm_plain_route_is_the_stock_chain(form, grad, dtype):
+    """Off the card ``forward_norm`` returns bit for bit what the cell
+    followed by its LayerNorm returned, in every form, with and without
+    grad; ``forward`` keeps its (c', h'), h' contract."""
+    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
+    cell, ln, state, x = _cell_case(form, dtype)
+    before = conv_lstm_ln.launches
+    with torch.set_grad_enabled(grad):
+        (c1, h1), y = cell.forward_norm(state, x, ln)
+        want = _stock_cell_and_norm(cell, ln, state, x)
+        (c2, h2), out = cell(state, x)
+    for got, ref in zip((c1, h1, y), want):
+        assert got.dtype == dtype and torch.equal(got, ref)
+    assert out is h2 and torch.equal(c2, want[0]) and torch.equal(h2, want[1])
+    assert conv_lstm_ln.launches == before
+
+
+@pytest.mark.parametrize('with_r', [False, True], ids=['x', 'x+r'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_conv_lstm_ln_on_cpu_is_its_plain_version(dtype, with_r):
+    """The wrapper on CPU tensors is its plain version exactly and counts
+    no launch."""
+    from visual_foresight_torch.ops.conv_lstm_ln import (
+        conv_lstm_ln, conv_lstm_ln_reference)
+    gen = torch.Generator().manual_seed(3)
+    n, feat = 37, 16
+    x = torch.randn(n, 4 * feat, generator=gen).to(dtype)
+    r = torch.randn(n, 4 * feat, generator=gen).to(dtype) if with_r else None
+    c = torch.randn(n, feat, generator=gen).to(dtype)
+    w, b = torch.randn(feat, generator=gen), torch.randn(feat, generator=gen)
+    before = conv_lstm_ln.launches
+    got = conv_lstm_ln(x, r, c, w, b, tlayers.LN_EPS)
+    want = conv_lstm_ln_reference(x, r, c, w, b, tlayers.LN_EPS)
+    assert conv_lstm_ln.launches == before
+    for g, ref in zip(got, want):
+        assert g.shape == c.shape and torch.equal(g, ref)
+
+
+@pytest.mark.parametrize('form', ['dense', 'separable', 'external_x'])
+def test_forward_norm_routes_by_grad_need(form, monkeypatch):
+    """The route's grad half, which the CPU can see: autograd records a
+    graph only under grad mode with a tensor that needs a gradient, and
+    there the cell keeps the stock ops and their gradients; off the card the
+    kernel's entry is never called, in any grad mode.  The card's half is
+    ``tests/test_torch_cuda.py::test_forward_norm_routes_by_grad_need_on_card``.
+    """
+    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln_reference
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return conv_lstm_ln_reference(*args)
+
+    monkeypatch.setattr(tlayers, 'conv_lstm_ln', entry)
+    cell, ln, state, x = _cell_case(form, torch.float32)
+    params = list(cell.parameters()) + list(ln.parameters())
+    want = _stock_cell_and_norm(cell, ln, state, x)
+    with torch.no_grad():
+        assert not tlayers._records_graph(x, None, *params)
+        (c, h), y = cell.forward_norm(state, x, ln)
+    for got, ref in zip((c, h, y), want):
+        assert torch.equal(got, ref)
+
+    assert tlayers._records_graph(x, None, *params)
+    assert not tlayers._records_graph(x, None, *state)
+    (c, h), y = cell.forward_norm(state, x, ln)       # grad: stock ops
+    assert y.requires_grad
+    (y.sum() + c.sum()).backward()
+    got_grads = [p.grad.clone() for p in cell.parameters()] + \
+        [ln.weight.grad.clone()]
+    for p in params:
+        p.grad = None
+    ref_c, _, ref_y = _stock_cell_and_norm(cell, ln, state, x)
+    (ref_y.sum() + ref_c.sum()).backward()
+    ref_grads = [p.grad for p in cell.parameters()] + [ln.weight.grad]
+    for g, ref in zip(got_grads, ref_grads):
+        assert torch.equal(g, ref)
+
+    for p in params:
+        p.requires_grad_(False)
+    assert not tlayers._records_graph(x, None, *params)
+    (c, h), y = cell.forward_norm(state, x, ln)  # grad on, nothing needs one
+    assert not y.requires_grad and torch.equal(y, want[2])
+    assert calls == []
+
+
+@pytest.mark.parametrize('feat,dtype,takes', [
+    (8, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (256, torch.bfloat16, True), (1024, torch.bfloat16, True),
+    (2048, torch.bfloat16, False), (12, torch.bfloat16, False),
+    (24, torch.bfloat16, False), (4, torch.bfloat16, False),
+    (4, torch.float32, True), (12, torch.float32, False),
+    (512, torch.float32, True), (1024, torch.float32, False),
+    (8, torch.float16, False)])
+def test_conv_lstm_ln_widths(feat, dtype, takes):
+    """The kernel takes a power of two of 16-byte words a row, up to 128;
+    the wrapper raises for any other width on the card."""
+    from visual_foresight_torch.ops.conv_lstm_ln import takes_width
+    assert takes_width(feat, dtype) is takes

@@ -29,7 +29,10 @@ made inside the kernel from the DNA head's logits and the masks).
 ``s2d_tail`` is accepted and changes nothing: the JAX package's option runs
 the step in a block layout chosen for the TPU's lanes, and here every step
 takes the full-resolution tail kernel.
-Everything else in the step is stock PyTorch.
+Each conv-LSTM cell's gate nonlinearities, state update and the LayerNorm on
+its output run through ``ConvLSTMCell.forward_norm``: on the card, outside
+autograd, one launch of ``ops.conv_lstm_ln``'s kernel.  Everything else in
+the step is stock PyTorch.
 
 Carries are tuples ``(lstm_states, prev_img, prev_distrib, prev_state,
 first_image, first_distrib, latent)``; ``latent`` is ``None`` for a model
@@ -181,12 +184,10 @@ class CDNAStep(nn.Module):
         r, dt = self.r, self.dtype
         s1, s3, s4 = lstm_states
         xg = conv_nhwc(prev_img.to(dt), self.enc0)                    # H/r
-        s1, h1 = self.lstm1(s1, xg)
-        h1 = self.ln1(h1)
+        s1, h1 = self.lstm1.forward_norm(s1, xg, self.ln1)
         enc1 = conv_nhwc(h1, self.enc1, 'SAME')                       # H/2r
         enc3 = self.enc3(enc1) + self.cond_proj(cond.to(dt))[:, None, None, :]
-        s3, h3 = self.lstm3(s3, enc3)
-        h3 = self.ln3(h3)
+        s3, h3 = self.lstm3.forward_norm(s3, enc3, self.ln3)
         if decode is not None:
             # the wide product's depth_to_space by 2 is read as a strided
             # view by the add, so it is never copied
@@ -199,8 +200,7 @@ class CDNAStep(nn.Module):
         else:
             up = depth_to_space(self.dec1(h3), 2)                      # H/r
             gate_in = self.dec1_gates(up) + self.skip1(h1)
-        s4, h4 = self.lstm4(s4, gate_in)
-        h4 = self.ln4(h4)
+        s4, h4 = self.lstm4.forward_norm(s4, gate_in, self.ln4)
         dna_logits = depth_to_space(self.dna_head(h4), r) if self.dna \
             else None
         ml = self.mask_head(h4)
@@ -218,21 +218,18 @@ class CDNAStep(nn.Module):
         dt = self.dtype
         s1, s2, s3, s4, s5 = lstm_states
         enc0 = self.ln0(conv_nhwc(prev_img.to(dt), self.enc0, 'SAME'))  # H/2
-        s1, h1 = self.lstm1(s1, enc0)
-        h1 = self.ln1(h1)
+        s1, h1 = self.lstm1.forward_norm(s1, enc0, self.ln1)
         enc1 = conv_nhwc(h1, self.enc1, 'SAME')                          # H/4
-        s2, h2 = self.lstm2(s2, enc1)
-        h2 = self.ln2(h2)
+        s2, h2 = self.lstm2.forward_norm(s2, enc1, self.ln2)
         enc2 = conv_nhwc(h2, self.enc2, 'SAME')                          # H/8
         smear = cond.to(dt)[:, None, None, :].expand(
             enc2.shape[:3] + cond.shape[-1:])
         enc3 = self.enc3(torch.cat([enc2, smear], dim=-1))
-        s3, h3 = self.lstm3(s3, enc3)
-        h3 = self.ln3(h3)
-        s4, h4 = self.lstm4(s4, torch.cat([self.dec1(h3), enc1], dim=-1))
-        h4 = self.ln4(h4)
-        s5, h5 = self.lstm5(s5, torch.cat([self.dec2(h4), enc0], dim=-1))
-        h5 = self.ln5(h5)
+        s3, h3 = self.lstm3.forward_norm(s3, enc3, self.ln3)
+        s4, h4 = self.lstm4.forward_norm(
+            s4, torch.cat([self.dec1(h3), enc1], dim=-1), self.ln4)
+        s5, h5 = self.lstm5.forward_norm(
+            s5, torch.cat([self.dec2(h4), enc0], dim=-1), self.ln5)
         dec3 = self.ln6(self.dec3(h5))                                   # H
         masks = torch.softmax(self.mask_head(dec3).float(), dim=-1)
         dna_logits = self.dna_head(dec3) if self.dna else None

@@ -10,6 +10,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visual_foresight_torch.ops.conv_lstm_ln import (conv_lstm_ln,
+                                                     layer_norm_reference,
+                                                     lstm_update_reference)
+
 LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch's default is 1e-5)
 
 
@@ -61,6 +65,13 @@ class ConvTranspose(nn.Module):
         return out[:, :, :-1, :-1].permute(0, 2, 3, 1)
 
 
+def _records_graph(*tensors):
+    """Whether autograd records a graph of an op on ``tensors`` (None
+    entries skipped): grad mode is on and one of them needs a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 class ConvLSTMCell(nn.Module):
     """Convolutional LSTM cell; state is (c, h), both (B, H, W, features).
 
@@ -92,24 +103,38 @@ class ConvLSTMCell(nn.Module):
             self.gates = nn.Conv2d(in_features + features, 4 * features,
                                    kernel_size, dtype=dtype)
 
+    def _gate_addends(self, h, x):
+        """The gate pre-activations as ``(x, r)``, summed to give them: r
+        is the recurrent product under ``external_x``, else None (one
+        tensor holds them all)."""
+        if self.external_x:
+            return x, self.gates_pw(conv_nhwc(h, self.gates_dw, 'SAME'))
+        xh = torch.cat([x, h], dim=-1)
+        if self.separable:
+            return self.gates_pw(conv_nhwc(xh, self.gates_dw, 'SAME')), None
+        return conv_nhwc(xh, self.gates, 'SAME'), None
+
     def forward(self, state, x):
         c, h = state
-        if self.external_x:
-            gates = x + self.gates_pw(conv_nhwc(h, self.gates_dw, 'SAME'))
-        elif self.separable:
-            xh = torch.cat([x, h], dim=-1)
-            gates = self.gates_pw(conv_nhwc(xh, self.gates_dw, 'SAME'))
-        else:
-            xh = torch.cat([x, h], dim=-1)
-            gates = conv_nhwc(xh, self.gates, 'SAME')
-        i, g, f, o = torch.split(gates, self.features, dim=-1)
-        i = torch.sigmoid(i)
-        f = torch.sigmoid(f + 1.0)
-        g = torch.tanh(g)
-        o = torch.sigmoid(o)
-        new_c = f * c + i * g
-        new_h = o * torch.tanh(new_c)
+        new_c, new_h = lstm_update_reference(*self._gate_addends(h, x), c)
         return (new_c, new_h), new_h
+
+    def forward_norm(self, state, x, ln):
+        """The step followed by the :class:`LayerNorm` ``ln``: returns
+        ``((c', h'), ln(h'))``.  On the card, with no autograd graph to
+        record (grad mode off, or nothing needing a gradient), the update
+        and the norm are one launch of ``ops/conv_lstm_ln.py``'s kernel,
+        which raises for a width or type it does not take; otherwise the
+        stock ops of :meth:`forward` and ``ln``."""
+        c, h = state
+        x, r = self._gate_addends(h, x)
+        if x.is_cuda and not _records_graph(x, r, c, ln.weight, ln.bias):
+            new_c, new_h, y = conv_lstm_ln(
+                x.contiguous(), None if r is None else r.contiguous(),
+                c.contiguous(), ln.weight.float(), ln.bias.float(), LN_EPS)
+            return (new_c, new_h), y
+        new_c, new_h = lstm_update_reference(x, r, c)
+        return (new_c, new_h), ln(new_h)
 
     @staticmethod
     def initial_state(batch, height, width, features, dtype=torch.float32,
@@ -130,6 +155,4 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
-                         self.bias.float(), eps=LN_EPS)
-        return y.to(x.dtype)
+        return layer_norm_reference(x, self.weight, self.bias, LN_EPS)

@@ -74,27 +74,30 @@ def replan_inputs(work, records, i):
     x = work.inputs(i, records[i]['distribs'])
     x['grids'] = x['grids'].cpu().numpy()
     x['noise'] = x['noise'].cpu().numpy()
-    if x['latents'] is not None:
-        x['latents'] = x['latents'].cpu().numpy()
+    for key in ('latents', 'vis_latents'):
+        if x[key] is not None:
+            x[key] = x[key].cpu().numpy()
     return x
 
 
-def references(cfg, traffic, work, records, chosen, device, block):
-    """The f32 and the served reference's results on the replans
-    ``chosen``, along the program's elites: a list of (f32, served)."""
+def references(arch, cfg, traffic, work, records, chosen, device, block):
+    """The f32 and the served reference of ``arch`` (the configuration's
+    architecture module): their results on the replans ``chosen``, along
+    the program's elites, as a list of (f32, served)."""
     keep = traffic['predictor_propagation']
-    refs = [make_reference(cfg, work.weights, traffic, device, precision=p)
-            for p in ('f32', 'served')]
+    refs = [make_reference(arch, cfg, work.weights, traffic, device,
+                           precision=p) for p in ('f32', 'served')]
     return [tuple(judge(ref, traffic, replan_inputs(work, records, i),
                         records[i]['scores'], block=block, keep_best=keep)
                   for ref in refs) for i in chosen]
 
 
-def verify(cfg, traffic, work, records, seed, device, block):
+def verify(arch, cfg, traffic, work, records, seed, device, block):
     """The numbers of each replan checked: a list of (index, {name:
     value})."""
     chosen = picks(seed, len(records), traffic['check_replans'])
-    both = references(cfg, traffic, work, records, chosen, device, block)
+    both = references(arch, cfg, traffic, work, records, chosen, device,
+                      block)
     return [(i, gaps(traffic, records[i], ref, served))
             for i, (ref, served) in zip(chosen, both)]
 

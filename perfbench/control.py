@@ -58,16 +58,16 @@ def read_seed(parts, seed, seconds, device, with_control):
     work, records, stats = run.measure(parts, seed, seconds, 0, device, t)
     chosen = check.picks(seed, len(records), traffic['check_replans'])
     t_check = time.perf_counter()
-    both = check.references(cfg, traffic, work, records, chosen, device,
-                            run.REFERENCE_ROWS)
+    both = check.references(parts['arch'], cfg, traffic, work, records,
+                            chosen, device, run.REFERENCE_ROWS)
     line = {'seed': seed, 'replans': len(records),
             'replan_ms': stats.replan_ms, 'setup_s': stats.setup_s,
             'check_s': time.perf_counter() - t_check,
             'program': {i: readings(traffic, records[i], r, s)
                         for i, (r, s) in zip(chosen, both)}}
     if with_control:
-        low = make_reference(cfg, work.weights, traffic, device,
-                             precision='lower')
+        low = make_reference(parts['arch'], cfg, work.weights, traffic,
+                             device, precision='lower')
         got = {}
         for i in chosen:
             got[i] = judge(low, traffic, check.replan_inputs(work, records, i),

@@ -9,12 +9,13 @@ with a latent, one latent a sample and iteration) and the goal of episode
 ``i // episode_replans``.  An episode's first replan starts from the
 one-hot designated pixel; under ``predictor_propagation`` each later one
 takes the best predicted distribution of the replan before it.
+
+The weights are those that the configuration's architecture module
+(``spec.arch``) names in its ``param_specs``.
 """
 
 import numpy as np
 import torch
-
-from perfbench.reference.model import param_specs
 
 DTYPES = {'bfloat16': torch.bfloat16, 'float32': torch.float32}
 # streams of the seed: one generator each, so that a traffic parameter
@@ -30,12 +31,13 @@ def generator(seed, stream, device):
     return torch.Generator(device=device).manual_seed(value)
 
 
-def make_weights(cfg, seed, device):
-    """name -> tensor in the type it is served in: weights N(0, 1/fan_in),
-    biases N(0, 0.01/fan_in), LayerNorm scales 1 + N(0, 0.01) and offsets
-    N(0, 0.01); one normal draw for each served type."""
+def make_weights(cfg, seed, device, arch):
+    """name -> tensor in the type it is served in, for every weight that
+    ``arch.param_specs(cfg)`` names: weights N(0, 1/fan_in), biases N(0,
+    0.01/fan_in), LayerNorm scales 1 + N(0, 0.01) and offsets N(0, 0.01);
+    one normal draw for each served type."""
     gen = generator(seed, WEIGHTS, device)
-    specs = param_specs(cfg)
+    specs = arch.param_specs(cfg)
     served = {'compute': DTYPES[cfg['dtype']], 'float32': torch.float32}
     out = {}
     for group, dtype in served.items():
@@ -70,16 +72,19 @@ class Workload:
     n_ctx - 1, adim), ``onehot`` (episodes, ncam, n_ctx, H, W, P).  Device
     tensors: ``grids`` (episodes, ncam, P, H, W), ``noise`` (draw_pool,
     iterations, M, nactions * adim), ``latents`` (draw_pool, iterations, M,
-    latent_dim) or None, and ``weights``.
+    latent_dim) or None, ``vis_latents`` (draw_pool, min(n_vis, k_elite),
+    latent_dim), the latents of a chunked replan's re-roll of its best
+    plans, or None (unchunked, or no latent), and ``weights`` (of ``arch``,
+    the configuration's architecture module).
     """
 
-    def __init__(self, cfg, traffic, seed, device):
+    def __init__(self, cfg, traffic, seed, device, arch):
         self.cfg, self.traffic, self.device = cfg, traffic, device
         h, w = cfg['img_dims']
         ncam, p = traffic['ncam'], traffic['designated_pixels']
         n_ctx = cfg['context_frames']
         q, e = traffic['context_pool'], traffic['episodes']
-        self.weights = make_weights(cfg, seed, device)
+        self.weights = make_weights(cfg, seed, device, arch)
 
         gen = generator(seed, CONTEXTS, device)
         std = torch.tensor(traffic['context_action_std'], device=device)
@@ -124,6 +129,12 @@ class Workload:
         self.latents = torch.randn(
             (d, iters, m, cfg['latent_dim']), generator=gen,
             device=device) if cfg['latent_dim'] else None
+        # drawn after the others, so that a chunk moves no other draw
+        vis = min(traffic['n_vis'], traffic['k_elite'])
+        self.vis_latents = torch.randn(
+            (d, vis, cfg['latent_dim']), generator=gen,
+            device=device) if cfg['latent_dim'] and chunked(traffic) \
+            else None
 
     def slot(self, i):
         """(context, draws, episode, position in the episode) of replan
@@ -150,12 +161,30 @@ class Workload:
                 'actions': self.actions[ctx], 'distribs': distribs,
                 'grids': self.grids[epi], 'noise': self.noise[drw],
                 'latents': None if self.latents is None
-                else self.latents[drw]}
+                else self.latents[drw],
+                'vis_latents': None if self.vis_latents is None
+                else self.vis_latents[drw]}
+
+
+def chunked(traffic):
+    """Whether the planner rolls a replan's samples in chunks: a
+    ``sample_chunk`` below the sample count that divides it, the rule of
+    ``FusedCEMPlanner.replan``'s ``use_chunk`` term for term."""
+    chunk, m = traffic.get('sample_chunk', 0), traffic['num_samples']
+    return bool(chunk) and m > chunk and m % chunk == 0
 
 
 def model_steps(cfg, traffic):
     """[(batch, steps)] of one replan: the context encode at batch 1, then
-    every iteration's rollout of the samples over the horizon."""
+    every iteration's rollout of the samples over the horizon.  With a
+    ``sample_chunk`` c below the M samples, an iteration rolls M / c chunks
+    of c, and the last re-rolls its min(n_vis, k_elite) best plans."""
     horizon = traffic['nactions'] * traffic['repeat']
-    return [(1, cfg['context_frames'] - 1),
-            (traffic['num_samples'], traffic['iterations'] * horizon)]
+    m, rolls = traffic['num_samples'], traffic['iterations'] * horizon
+    steps = [(1, cfg['context_frames'] - 1)]
+    if not chunked(traffic):
+        return steps + [(m, rolls)]
+    chunk = traffic['sample_chunk']
+    vis = min(traffic['n_vis'], traffic['k_elite'])
+    return steps + [(chunk, rolls * m // chunk)] + \
+        ([(vis, horizon)] if vis else [])

@@ -7,7 +7,8 @@ states, distributions and executed actions as host arrays, the goal
 distance grids, the initial distribution and, here, the given draws; it
 ends when the best actions and every iteration's scores (and, under
 ``predictor_propagation``, the best plan's predicted distributions) have
-been read to the host.
+been read to the host.  A mix's ``sample_chunk`` (0, all samples in one
+batch, where it has none) is the planner's.
 """
 
 import torch
@@ -65,7 +66,7 @@ class Program:
             k_elite=traffic['k_elite'], finalweight=traffic['finalweight'],
             rejection_rounds=traffic['rejection_rounds'],
             action_bound=traffic['action_bound'], n_vis=traffic['n_vis'],
-            device=device)
+            sample_chunk=traffic.get('sample_chunk', 0), device=device)
         self.mean = initial_mean(spec, device=device)
         self.sigma = initial_sigma(spec, device=device)
 
@@ -75,7 +76,8 @@ class Program:
         res = self.planner.replan(
             self.models, x['images'], x['states'], x['distribs'],
             x['actions'], x['grids'], self.mean, self.sigma,
-            noise=x['noise'], latents=x['latents'])
+            noise=x['noise'], latents=x['latents'],
+            vis_latents=x['vis_latents'])
         out = {'best_actions': res['best_actions'].cpu().numpy(),
                'scores': res['scores_per_itr'].cpu().numpy()}
         if self.traffic['predictor_propagation']:

@@ -14,6 +14,26 @@ other elite changes every later plan.  So :func:`judge` takes the elites of
 each iteration from the scores it is given (the program's, or the control's
 own) and recomputes everything else: the plans, every sample's score, the
 refit and the returned best plans.  It imports nothing of the program.
+
+:func:`judge` knows no architecture.  It drives the predictor through a
+``Reference``, the class that the configuration's module
+``perfbench/archs/<config>.py`` exports (``spec.arch``), which gives:
+
+- ``Reference(cfg, weights, num_distribs, device, precision)``: ``weights``
+  as that module's ``param_specs(cfg)`` names them (any dtype and device),
+  ``num_distribs`` the designated pixels a camera (P), ``precision`` one of
+  'f32' (the reference proper), 'served' (float32 arithmetic, with what the
+  configuration's serving path stores rounded to its dtype) and 'lower'
+  (the control, one precision below the program's);
+- ``.device``, where it computes, and ``.lower``, True for 'lower' (the
+  planner's own float32 products then run with TF32 operands);
+- ``encode(images, distribs, states, actions)``: one camera's context,
+  images (n_ctx, H, W, 3), distribs (n_ctx, H, W, P), states (n_ctx,
+  sdim) and actions (n_ctx - 1, adim), all float32 on ``.device``, to a
+  carry at batch 1, opaque to the planner;
+- ``rollout(carry, plans, latents)``: plans (B, T, adim) rolled from that
+  carry, latents (B, latent_dim) or None, to the predicted distributions
+  (B, T, H, W, P).
 """
 
 import contextlib
@@ -21,7 +41,7 @@ import contextlib
 import numpy as np
 import torch
 
-from perfbench.reference.model import Reference, expected_distance, tf32
+from perfbench.reference.model import expected_distance, tf32
 
 MAX_ROT = np.pi / 4
 
@@ -96,16 +116,18 @@ def lowest(scores, k):
 def judge(ref, traffic, inputs, elite_scores, block=256, keep_best=False):
     """Recompute one replan along the elite path that ``elite_scores`` set.
 
-    :param ref: a :class:`Reference`
+    :param ref: a ``Reference`` (see the module's docstring)
     :param inputs: dict of the replan's inputs: 'images' (ncam, n_ctx, H, W,
         3), 'distribs' (ncam, n_ctx, H, W, P), 'states' (n_ctx, sdim),
         'actions' (n_ctx - 1, adim), 'grids' (ncam, P, H, W), 'noise'
         (iterations, M, nactions * adim), 'latents' (iterations, M,
-        latent_dim) or None
+        latent_dim) or None, and optionally 'vis_latents' (n, latent_dim) or
+        None: a chunked replan re-rolls its best plans under these
     :param elite_scores: (iterations, M) scores whose ``k_elite`` lowest are
         each iteration's elites
     :param keep_best: also return the predicted distributions of the last
-        iteration's best plan (T, ncam, H, W, P)
+        iteration's best plan (T, ncam, H, W, P); under 'vis_latents', its
+        re-roll under their first row
     :return: dict of 'scores' (iterations, M) and 'best_plans' (k_elite, T,
         adim), the plans at the last iteration's elites (and 'best_distribs')
     """
@@ -122,6 +144,7 @@ def _judge(ref, traffic, inputs, elite_scores, block, keep_best):
     grids = as_dev(inputs['grids'])
     noise = inputs['noise']
     latents = inputs['latents']
+    vis = inputs.get('vis_latents')
     adim = actions.shape[-1]
     iterations, k = traffic['iterations'], traffic['k_elite']
     ncam = images.shape[0]
@@ -144,13 +167,18 @@ def _judge(ref, traffic, inputs, elite_scores, block, keep_best):
                  for carry in carries], dim=2)
             scores.append(expected_distance(dists, grids,
                                             traffic['finalweight']))
-            if keep_best and last and lo <= elite[0] < lo + block:
+            if keep_best and last and vis is None and \
+                    lo <= elite[0] < lo + block:
                 best_distribs = dists[elite[0] - lo].cpu().numpy()
             del dists
         all_scores.append(torch.cat(scores))
         elites = plans[torch.as_tensor(elite, device=dev)]
         if last:
             best_plans = elites
+            if keep_best and vis is not None:
+                best_distribs = torch.stack(
+                    [ref.rollout(carry, elites[:1], as_dev(vis)[:1])
+                     for carry in carries], dim=2)[0].cpu().numpy()
         else:
             mean, cov = refit(elites, traffic, ref.lower)
     out = {'scores': torch.stack(all_scores).cpu().numpy(),
@@ -175,7 +203,8 @@ def exact_f32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def make_reference(cfg, weights, traffic, device, precision='f32'):
-    """A :class:`Reference` for a cell."""
-    return Reference(cfg, weights, traffic['designated_pixels'], device,
-                     precision=precision)
+def make_reference(arch, cfg, weights, traffic, device, precision='f32'):
+    """The ``Reference`` of ``arch``, a configuration's architecture
+    module, for a cell."""
+    return arch.Reference(cfg, weights, traffic['designated_pixels'], device,
+                          precision=precision)

@@ -72,7 +72,7 @@ def measure(parts, seed, seconds, trace, device, t_start):
     torch.set_num_threads(HOST_THREADS)
     cfg, traffic = parts['cfg'], parts['traffic']
     cuda = device.type == 'cuda'
-    work = Workload(cfg, traffic, seed, device)
+    work = Workload(cfg, traffic, seed, device, parts['arch'])
     prog = program.Program(cfg, traffic, work.weights, device)
 
     def loop(first, carried, stop, span):
@@ -138,8 +138,8 @@ def run_cell(parts, seed, seconds, trace, device, t_start):
 
     work, records, ctx = measure(parts, seed, seconds, trace, device,
                                  t_start)
-    per_replan = check.verify(parts['cfg'], parts['traffic'], work, records,
-                              seed, device, REFERENCE_ROWS)
+    per_replan = check.verify(parts['arch'], parts['cfg'], parts['traffic'],
+                              work, records, seed, device, REFERENCE_ROWS)
     checks, failed = check.judged(per_replan, parts['limits'])
     entries = parts['per_layer'] if trace else parts['end_to_end']
     metrics = {}

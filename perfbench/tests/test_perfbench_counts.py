@@ -5,9 +5,9 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from perfbench import spec
 from perfbench.counts import s2d_cdna
 from perfbench.generator import make_weights
-from perfbench.reference.model import Reference
 from perfbench.tests import tiny
 
 
@@ -39,8 +39,9 @@ def test_step_flops_match_the_reference_products():
     """Convolutions and dense layers as PyTorch counts them in the
     reference's step, plus the tail by hand."""
     cfg = tiny.load('tiny_config.json')
-    weights = make_weights(cfg, 3, torch.device('cpu'))
-    ref = Reference(cfg, weights, 1, torch.device('cpu'))
+    arch = spec.arch('xz_flagship')
+    weights = make_weights(cfg, 3, torch.device('cpu'), arch)
+    ref = arch.Reference(cfg, weights, 1, torch.device('cpu'))
     b = 3
     h, w = cfg['img_dims']
     images = torch.rand(2, h, w, 3)

@@ -5,12 +5,12 @@ import ast
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from perfbench import check
 from perfbench.generator import Workload
 from perfbench.program import Program
-from perfbench.reference.model import Reference
 from perfbench.reference.planner import judge, make_reference
 from perfbench.tests import tiny
 
@@ -26,9 +26,9 @@ def f32_parts():
 def test_rollout_matches_the_program():
     parts = f32_parts()
     cfg, traffic = parts['cfg'], parts['traffic']
-    work = Workload(cfg, traffic, tiny.SEED, CPU)
+    work = Workload(cfg, traffic, tiny.SEED, CPU, parts['arch'])
     prog = Program(cfg, traffic, work.weights, CPU)
-    ref = Reference(cfg, work.weights, 1, CPU)
+    ref = parts['arch'].Reference(cfg, work.weights, 1, CPU)
     x = work.inputs(0)
     model = prog.models[0]
     images = torch.as_tensor(x['images'][0])
@@ -54,7 +54,7 @@ def test_replan_matches_the_program():
     plans and the carried distributions."""
     parts = f32_parts()
     cfg, traffic = parts['cfg'], parts['traffic']
-    work = Workload(cfg, traffic, tiny.SEED, CPU)
+    work = Workload(cfg, traffic, tiny.SEED, CPU, parts['arch'])
     prog = Program(cfg, traffic, work.weights, CPU)
     records, carried = [], None
     for i in range(4):
@@ -63,7 +63,7 @@ def test_replan_matches_the_program():
         out['distribs'] = x['distribs']
         records.append(out)
         carried = np.swapaxes(out['best_distribs'][-2:], 0, 1)
-    ref = make_reference(cfg, work.weights, traffic, CPU)
+    ref = make_reference(parts['arch'], cfg, work.weights, traffic, CPU)
     for i in range(4):
         got = judge(ref, traffic, check.replan_inputs(work, records, i),
                     records[i]['scores'], keep_best=True)
@@ -100,9 +100,13 @@ def test_control_fails_the_tiny_limits():
             assert checks[name]['value'] > limits[name], name
 
 
-def test_reference_imports_nothing_of_the_program():
+@pytest.mark.parametrize('folder', ['reference', 'archs'])
+def test_reference_imports_nothing_of_the_program(folder):
+    """The references, and the architecture modules that hand them out,
+    import nothing but PyTorch, numpy, the standard library and the
+    references."""
     here = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), 'reference')
+        os.path.abspath(__file__))), folder)
     for name in os.listdir(here):
         if not name.endswith('.py'):
             continue

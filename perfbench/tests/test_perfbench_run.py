@@ -38,6 +38,33 @@ def test_tiny_run_is_correct_and_loads_no_jax():
     assert result['metrics']['tail_launches']['value'] == 0.0
 
 
+def test_architecture_modules_load_no_port_and_no_jax():
+    """Every module under ``perfbench/archs/``, imported in a process of
+    its own, loads nothing of the port and nothing of JAX."""
+    code = textwrap.dedent('''
+        import importlib, json, pkgutil, sys
+        sys.path.insert(0, {root!r})
+        import perfbench.archs
+        from perfbench import isolation
+        names = [m.name for m in pkgutil.iter_modules(
+            perfbench.archs.__path__, 'perfbench.archs.')]
+        for name in names:
+            importlib.import_module(name)
+        port = sorted(n for n in sys.modules
+                      if n.split('.')[0] == 'visual_foresight_torch')
+        print(json.dumps({{'archs': names, 'port': port,
+                          'forbidden': isolation.found()}}))
+    ''').format(root=ROOT)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    configs = [c['name'] for c in spec.benchmark()['configs']]
+    assert set(line['archs']) >= {'perfbench.archs.' + spec.module_name(c)
+                                  for c in configs}
+    assert line['port'] == [] and line['forbidden'] == []
+
+
 def test_end_to_end_metrics_of_a_tiny_run():
     result = tiny.run(seconds=0.5)
     assert set(result['metrics']) == {'replan_ms', 'setup_s'}

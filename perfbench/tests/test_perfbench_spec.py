@@ -9,7 +9,6 @@ import pytest
 import torch
 
 from perfbench import spec
-from perfbench.reference.model import param_specs
 
 ROOT = spec.ROOT
 BENCH = spec.benchmark()
@@ -71,6 +70,7 @@ def test_cell_parts_found_by_name(cell):
         assert callable(spec.metric_reader(m['name']).read)
     assert callable(parts['counts'].step_flops)
     assert callable(parts['counts'].tail_cost)
+    assert parts['arch'] is spec.arch(parts['cell']['config'])
     traffic = parts['traffic']
     limits = parts['limits']
     assert {'score_noise', 'plan_gap'} <= set(limits)
@@ -79,12 +79,19 @@ def test_cell_parts_found_by_name(cell):
 
 @pytest.mark.parametrize('config', BENCH['configs'], ids=lambda c: c['name'])
 def test_config_copies_the_model_config(config):
-    """Every key of the vendored ``model_config.json`` is in the
-    configuration file, unchanged (``reduced`` is empty)."""
+    """Every key of the published ``model_config.json`` that the
+    configuration's architecture module names is in the configuration
+    file, unchanged (``reduced`` is empty).  The published file lies
+    outside the program's package: the program's own files are never the
+    yardstick."""
     with open(os.path.join(ROOT, config['file'])) as f:
         cfg = json.load(f)
-    with open(os.path.join(ROOT, 'benchmarks', 'models', config['name'],
-                           'model_config.json')) as f:
+    published = spec.arch(config['name']).PUBLISHED_CONFIG
+    assert not published.startswith('visual_foresight_torch/'), published
+    path = os.path.join(ROOT, published)
+    assert os.path.isfile(path), 'configuration {}: no published config at' \
+        ' {}'.format(config['name'], published)
+    with open(path) as f:
         source = json.load(f)
     assert config['reduced'] == []
     for key, value in source.items():
@@ -94,13 +101,14 @@ def test_config_copies_the_model_config(config):
 
 @pytest.mark.parametrize('config', BENCH['configs'], ids=lambda c: c['name'])
 def test_weights_load_into_the_program(config):
-    """The reference's table of weights names every tensor of the
-    program's predictor, at its shape and served type."""
+    """The table of weights of the configuration's architecture module
+    names every tensor of the program's predictor, built on the meta
+    device, in its order, at its shape and served type."""
     from perfbench.generator import DTYPES
     from perfbench.program import build_model
     with open(os.path.join(ROOT, config['file'])) as f:
         cfg = json.load(f)
-    specs = param_specs(cfg)
+    specs = spec.arch(config['name']).param_specs(cfg)
     traffic = {'designated_pixels': 1}
     with torch.device('meta'):
         weights = {n: torch.empty(s[0], dtype=DTYPES[cfg['dtype']]
@@ -108,9 +116,8 @@ def test_weights_load_into_the_program(config):
                    for n, s in specs.items()}
     model = build_model(cfg, traffic, weights, torch.device('meta'))
     state = model.state_dict()
-    assert set(state) == set(specs)
+    assert list(state) == list(specs)
     for n, s in specs.items():
         assert tuple(state[n].shape) == s[0], n
     total = sum(int(torch.tensor(s[0]).prod()) for s in specs.values())
-    assert total == {'xz_flagship': 4352719,
-                     'ag_r5f_v2': 4364012}[config['name']]
+    assert total == spec.arch(config['name']).PUBLISHED_PARAMS

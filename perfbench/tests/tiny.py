@@ -25,6 +25,7 @@ def parts(**traffic):
     return {'cell': {'name': 'tiny', 'chips': 1},
             'cfg': load('tiny_config.json'), 'traffic': t,
             'limits': load('tiny_limits.json'),
+            'arch': spec.arch('xz_flagship'),
             'counts': spec.counts('xz_flagship'),
             'end_to_end': [m for m in bench['end_to_end']
                            if 'workloads' not in m],

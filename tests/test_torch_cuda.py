@@ -926,3 +926,49 @@ def test_forward_norm_routes_by_grad_need_on_card(form, monkeypatch):
         p.requires_grad_(False)
     cell.forward_norm(state, x, ln)          # grad on, nothing needs one
     assert len(calls) == 2
+
+
+@pytest.mark.cuda
+def test_classic_replan_counts_its_launches_on_card():
+    """A replan of the classic backbone at its published widths (F
+    32/64/128, 5x5 separable gates, 10 masks of 5x5, 48x64, bf16) at 16
+    samples x 3 steps x 2 iterations: 5 launches of the conv-LSTM kernel a
+    model step and one of the tail a step (the context step at batch 1
+    too), every one the folded tail's tiled variant on full-resolution
+    masks; no blocked masks, no DNA launch."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    import numpy as np
+    from visual_foresight_torch.models.cdna import CDNAPredictor
+    from visual_foresight_torch.planners.cem import FusedCEMPlanner
+    from visual_foresight_torch.planners.costs import distance_grid
+    from visual_foresight_torch.planners.gaussian import ActionSpec
+    torch.manual_seed(0)
+    model = CDNAPredictor((48, 64), num_distribs=1, enc_features=(32, 64, 128),
+                          lstm_kernel=5, separable_lstm=True, std_factor=0,
+                          renorm_distribs=False,
+                          dtype=torch.bfloat16).cuda().eval()
+    stds = (0.05, 0.5, 2.0)
+    spec = ActionSpec(adim=3, nactions=3, repeat=1, per_dim_std=stds,
+                      clip_dims_xy=(0,), clip_dims_rot=(), rej_dims_xy=(),
+                      rej_dims_lift=(), xy_std=stds[0], lift_std=stds[1])
+    planner = FusedCEMPlanner(spec, 16, iterations=2, k_elite=4, n_vis=2,
+                              device='cuda')
+    rng = np.random.RandomState(0)
+    distribs = np.zeros((1, 2, 48, 64, 1), np.float32)
+    distribs[:, :, 24, 32, 0] = 1.0
+    counters = lambda: (conv_lstm_ln.launches, fused_warp_composite.launches,
+                        fused_warp_composite.launches_by_variant['tiled'],
+                        fused_warp_composite.blocked_launches,
+                        fused_warp_composite_dna.launches)
+    before = counters()
+    planner.replan([model], rng.rand(1, 2, 48, 64, 3),
+                   rng.randn(2, 3) * 0.05, distribs, rng.randn(1, 3) * 0.05,
+                   distance_grid([[[10.0, 50.0]]], 48, 64, device='cuda'),
+                   np.zeros(9), np.diag(np.tile(np.square(stds), 3)),
+                   noise=rng.randn(2, 16, 9))
+    torch.cuda.synchronize()
+    steps = 1 + 2 * 3
+    after = counters()
+    assert [a - b for a, b in zip(after, before)] == \
+        [5 * steps, steps, steps, 0, 0]

@@ -34,6 +34,11 @@
    f32 at the flagship's cells at B=768, the classic backbone's in bf16 at
    768 samples and in f32 at 200, and widths from 4 to 1024
    (``LSTM_CASES``): c' and h' within one ulp, y within one ulp and 1e-5;
+   and the same source's stand-alone LayerNorm with the convolution's bias
+   folded in (``bias_layer_norm``) against its plain version at the
+   classic backbone's ``ln0`` and ``ln6`` (``ln6`` as ``dec3``'s cropped
+   view) at 768 samples in bf16 and 200 in f32, and at F 64 to 1024
+   (``NORM_CASES``): within 1e-6 of 1 + |y|, in bf16 one ulp more;
 4. golden: each restored export in f32 (TF32 off) replays the JAX package's
    replan ``weights/<name>/golden_replan_f32.npz`` with the normals
    injected (xz_flagship: 16 samples x 15 steps x 3 iterations; ag_r5f_v2:
@@ -96,7 +101,9 @@
    entry and mask layout its predictor's architecture gives, and every
    model step launches the conv-LSTM kernel once a cell (3 on the
    space-to-depth backbone: 408 a replan at xz_bench20, 273 at ag_bench20;
-   5 on the classic one);
+   5 on the classic one) and the stand-alone LayerNorm twice on the classic
+   backbone (``ln0``, ``ln6``: 272 a replan at xz_bench20), never on the
+   space-to-depth one;
    - training (``training/train_predictor.py``): the JAX package's three
      f32 train steps of the flagship (``golden_train_f32.npz``: B=4, 6
      frames, masks injected) replayed through the tail's forward and
@@ -141,7 +148,8 @@
    beside the bound of its own inputs; ``add_one`` also at 2^26 floats,
    beside ``torch.add``; the tail's backward at B=16 and 256; the
    conv-LSTM kernel at the flagship step's cells, B=768, beside the stock
-   chain), the 200-sample replan,
+   chain; the stand-alone LayerNorm at ``ln6``'s and ``ln0``'s shapes,
+   B=768, beside its plain version), the 200-sample replan,
    and the replans of the xz_bench20 (also with ``fuse_decode``, in turns
    with it off), ag_bench20, chunked and one-batch 800-sample, RoboNet MPPI
    (fused and host loop), folding, classic CDNA (its cells through the
@@ -831,7 +839,8 @@ def check_tail_cases(gen):
 
 
 def reset_tail_counts():
-    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
+    from visual_foresight_torch.ops.conv_lstm_ln import (bias_layer_norm,
+                                                         conv_lstm_ln)
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
@@ -840,6 +849,7 @@ def reset_tail_counts():
     fused_warp_composite_eff.launches = 0
     fused_warp_composite_dna.launches = 0
     conv_lstm_ln.launches = 0
+    bias_layer_norm.launches = 0
     for v in fused_warp_composite.launches_by_variant:
         fused_warp_composite.launches_by_variant[v] = 0
 
@@ -854,13 +864,16 @@ def read_tail_counts(path, want, hp):
     its low-resolution softmax (the serving predictor), else on
     full-resolution masks (the classic backbone).  Every step of those
     launches the conv-LSTM kernel once a cell (``lstm_launches``: 3 on the
-    space-to-depth backbone, 5 on the classic one).  Returns the counters
-    as read, by kernel entry: ``{'cdna_tail': n, 'cdna_tail_eff': n,
-    'cdna_tail_dna': n, 'cdna_tail_general': n, 'conv_lstm_ln': n}``."""
+    space-to-depth backbone, 5 on the classic one) and the stand-alone
+    LayerNorm ``norm_launches`` times (2 on the classic backbone, none on
+    the space-to-depth one).  Returns the counters as read, by kernel
+    entry: ``{'cdna_tail': n, 'cdna_tail_eff': n, 'cdna_tail_dna': n,
+    'cdna_tail_general': n, 'conv_lstm_ln': n, 'bias_layer_norm': n}``."""
     from visual_foresight_torch.ops.cdna_tail import (
         VARIANTS, fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
-    from visual_foresight_torch.ops.conv_lstm_ln import conv_lstm_ln
+    from visual_foresight_torch.ops.conv_lstm_ln import (bias_layer_norm,
+                                                         conv_lstm_ln)
     dna = bool(hp['dna'])
     blocked = bool(hp['std_factor']) and hp['mask_softmax'] == 'lowres'
     want_folded, want_dna = (0, want) if dna else (want, 0)
@@ -890,10 +903,16 @@ def read_tail_counts(path, want, hp):
     if cells != want_cells:
         raise AssertionError('the {} path ran the conv-LSTM kernel {} times, '
                              'not {}'.format(path, cells, want_cells))
+    norms, want_norms = bias_layer_norm.launches, want * norm_launches(hp)
+    print('{} path: {} stand-alone LayerNorm launches (expected {})'.format(
+        path, norms, want_norms))
+    if norms != want_norms:
+        raise AssertionError('the {} path ran the stand-alone LayerNorm {} '
+                             'times, not {}'.format(path, norms, want_norms))
     return {'cdna_tail': launches, 'cdna_tail_eff': eff,
             'cdna_tail_dna': dna_launches,
             'cdna_tail_general': by_variant['general'],
-            'conv_lstm_ln': cells}
+            'conv_lstm_ln': cells, 'bias_layer_norm': norms}
 
 
 def lstm_launches(hp):
@@ -901,6 +920,13 @@ def lstm_launches(hp):
     ``hp`` (a predictor's ``_hp``, or ``model_hp`` of a model): one a cell,
     3 on the space-to-depth backbone and 5 on the classic one."""
     return 3 if hp['std_factor'] else 5
+
+
+def norm_launches(hp):
+    """Stand-alone LayerNorm launches (``bias_layer_norm``) in one model
+    step of the architecture ``hp``: ``ln0`` and ``ln6`` on the classic
+    backbone, none on the space-to-depth one."""
+    return 0 if hp['std_factor'] else 2
 
 
 def read_no_tail(path):
@@ -2136,6 +2162,107 @@ def time_lstm(gen, card):
             for k in ('ms', 'plain_ms', 'bound_ms')}
     print('conv_lstm_ln a predictor step (B=768, three cells): kernel '
           '{ms:.5f} ms, stock chain {plain_ms:.5f} ms, bound {bound_ms:.5f} '
+          'ms [{card}]'.format(card=card, **step))
+    return dict(res, step=step)
+
+
+# -- the stand-alone LayerNorm (csrc/conv_lstm_ln.cu, bias_layer_norm) -------
+
+# (batch, H, W, F, type, dec3's crop): the classic backbone's ln6 and ln0
+# as its bf16 controllers drive them at 768 samples and as the golden
+# replays them at B=200 in f32, the PosteriorEncoder's wider rows, and
+# widths up to 1024
+NORM_CASES = [(768, 48, 64, 32, torch.bfloat16, True),
+              (768, 24, 32, 32, torch.bfloat16, False),
+              (200, 48, 64, 32, torch.float32, True),
+              (200, 24, 32, 32, torch.float32, False),
+              (16, 12, 16, 64, torch.bfloat16, False),
+              (16, 6, 8, 128, torch.bfloat16, True),
+              (3, 5, 7, 1024, torch.bfloat16, True),
+              (3, 5, 7, 512, torch.float32, False)]
+# ln6 and ln0 at the serving point, each once a step
+NORM_TIMED = ((768, 48, 64, 32, True), (768, 24, 32, 32, False))
+
+
+def norm_inputs(gen, b, h, w, feat, dtype, crop):
+    """(x, conv_bias, weight, bias) of ``bias_layer_norm``: x (b, h, w,
+    feat), as the crop of an uncropped (b, h + 1, w + 1, feat) product
+    where ``crop``, as ``dec3``'s."""
+    rand = lambda *s: torch.randn(s, generator=gen, device='cuda')
+    pad = 1 if crop else 0
+    full = (2.0 * rand(b, h + pad, w + pad, feat) + 0.5).to(dtype)
+    return (full[:, :h, :w] if crop else full, rand(feat).to(dtype),
+            1.0 + 0.3 * rand(feat), 0.3 * rand(feat))
+
+
+def check_norm_cases(gen):
+    """The stand-alone LayerNorm against its plain version at
+    ``NORM_CASES``: within 1e-6 of 1 + |y| (the f32 sums in another
+    order), and in bf16 one ulp more (both sides round an f32 result
+    once).  Returns the largest error as a share of its tolerance."""
+    from visual_foresight_torch.ops.conv_lstm_ln import (
+        bias_layer_norm, bias_layer_norm_reference)
+    worst = 0.0
+    for b, h, w, feat, dtype, crop in NORM_CASES:
+        x, cb, wt, bias = norm_inputs(gen, b, h, w, feat, dtype, crop)
+        with torch.no_grad():
+            got = bias_layer_norm(x, cb, wt, bias, LN_EPS).float()
+            ref = bias_layer_norm_reference(x, cb, wt, bias, LN_EPS).float()
+        tol = 1e-6 * (1.0 + ref.abs())
+        if dtype == torch.bfloat16:
+            _, exp = torch.frexp(ref)
+            tol += torch.ldexp(torch.full_like(ref, torch.finfo(dtype).eps),
+                               exp - 1)
+        err = float(((got - ref).abs() / tol).max())
+        worst = max(worst, err)
+        label = '{}x{}x{}x{} {}{}'.format(b, h, w, feat, dtype,
+                                          ' (crop)' if crop else '')
+        if not err <= 1.0:
+            raise AssertionError('bias_layer_norm at {}: off by {:.3g} of '
+                                 'its tolerance'.format(label, err))
+        print('bias_layer_norm {}: largest error as a share of its '
+              'tolerance {:.3g}'.format(label, err))
+    return worst
+
+
+def time_norm(gen, card):
+    """The stand-alone LayerNorm's time at ``ln6``'s and ``ln0``'s shapes
+    (``NORM_TIMED``, bf16, with the convolution's bias, ``ln6`` reading
+    ``dec3``'s crop in place), its plain version's (the stock chain's
+    bias add, casts and LayerNorm) and the byte bound; returns a dict by
+    shape and the step's totals."""
+    from visual_foresight_torch.ops.conv_lstm_ln import (
+        bias_layer_norm, bias_layer_norm_reference)
+    res = {}
+    for b, h, w, feat, crop in NORM_TIMED:
+        sets = [norm_inputs(gen, b, h, w, feat, torch.bfloat16, crop)
+                for _ in range(4)]
+        with torch.no_grad():
+            ms = graph_ms(lambda *a: bias_layer_norm(*a, LN_EPS), sets, 100)
+            plain_ms = graph_ms(
+                lambda *a: bias_layer_norm_reference(*a, LN_EPS), sets, 10)
+        del sets
+        # read x (the crop's values alone) and write y, bf16
+        bound_ms = b * h * w * feat * 2 * 2 / PEAK_BYTES_PER_S * 1e3
+        key = '{}x{}x{}x{}'.format(b, h, w, feat)
+        res[key] = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                    'bound_by': 'bytes'}
+        where = '({} bf16{}, with the convolution\'s bias, CUDA graph, ' \
+            'CUDA events) [{}]'.format(key, ', a crop read in place' if crop
+                                       else '', card)
+        print('bias_layer_norm_kernel_ms={:.5f} {:.1%} of 3.35 TB/s {}'
+              .format(ms, bound_ms / ms, where))
+        print('bias_layer_norm_plain_ms={:.5f} {}'.format(plain_ms, where))
+        print('bias_layer_norm_bound_ms={:.5f} (by bytes; H100 SXM 3.35 '
+              'TB/s) [{}]'.format(bound_ms, card))
+        if bound_ms > ms:
+            raise AssertionError('the stand-alone LayerNorm moved its bytes '
+                                 'faster than the card can: the timing is '
+                                 'wrong')
+    step = {k: sum(r[k] for r in res.values())
+            for k in ('ms', 'plain_ms', 'bound_ms')}
+    print('bias_layer_norm a classic step (B=768, ln6 and ln0): kernel '
+          '{ms:.5f} ms, plain version {plain_ms:.5f} ms, bound {bound_ms:.5f} '
           'ms [{card}]'.format(card=card, **step))
     return dict(res, step=step)
 
@@ -5790,6 +5917,7 @@ def main():
     print_report(conv_lstm_ln.SOURCE,
                  builds[conv_lstm_ln.SOURCE].result()[1], time.time() - t0)
     lstm_err = check_lstm_cases(gen)
+    norm_err = check_norm_cases(gen)
 
     # -- 3. golden: the JAX package's f32 replans, replayed -----------------------
     # launches by kernel, for each driven path
@@ -5982,6 +6110,7 @@ def main():
                     'DNA, seeded', dna_ctrl, dna_states, card)
     eff = time_eff(gen, CTRL_POLICY['num_samples'], card)
     lstm = time_lstm(gen, card)
+    norm = time_norm(gen, card)
     time_eff(gen, M, card)
     time_controller('ag_bench20_replan',
                     '768 samples x 30 steps x 48x64 x 3 iters, adim 4, one '
@@ -6200,6 +6329,19 @@ def main():
         'bound_ms': lstm['step']['bound_ms'], 'bound_by': 'bytes',
         'library_ms': None,
         'by_shape': {k: r for k, r in lstm.items() if k != 'step'}}, {
+        # no TPU kernel either: the classic backbone's ln0 and ln6, with
+        # their convolution's bias (XLA fuses them in the JAX package); the
+        # top-level numbers are a classic step's two at B=768
+        'name': 'bias_layer_norm', 'route': 'cuda',
+        'source': 'visual_foresight_torch/csrc/conv_lstm_ln.cu',
+        'replaces': None,
+        'launches': sum(n.get('bias_layer_norm', 0) for n in paths.values()),
+        'launches_by_path': by_path('bias_layer_norm'),
+        'max_err_share_of_tol': norm_err, 'ms': norm['step']['ms'],
+        'plain_ms': norm['step']['plain_ms'],
+        'bound_ms': norm['step']['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': None,
+        'by_shape': {k: r for k, r in norm.items() if k != 'step'}}, {
         'name': 'add_one', 'route': 'cuda',
         'source': 'visual_foresight_torch/csrc/probe_add_one.cu',
         'replaces': 'scripts/pallas_device_probe.py:92',

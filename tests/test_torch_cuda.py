@@ -43,6 +43,15 @@ bf16 no farther from the f32 run than 1.5 times the stock chain): 3
 launches a step on the space-to-depth backbone, 5 on the classic one, none
 under grad.
 
+The source's stand-alone LayerNorm (``bias_layer_norm``) is held against its
+plain version on the CPU at ``ln0``'s and ``ln6``'s shapes with a small
+batch, F 32 to 128, both types, contiguous and as ``dec3``'s cropped view,
+with and without the convolution's bias: f32 within 1e-6 of 1 + |y| (the
+sums in another order), bf16 within that and one ulp (both sides round an
+f32 result once).  ``conv_nhwc_norm`` and ``ConvTranspose.forward_norm`` against
+the stock chain; 2 launches a classic step, none on the space-to-depth
+backbone or under grad.
+
 Tolerances: f32 1e-5 (the same f32 arithmetic in another order); bf16 1e-2
 (both sides round an f32 result once to bf16, one ulp is 7.8e-3 near 1);
 the backward's gradients relative to each gradient's largest magnitude (a
@@ -60,8 +69,9 @@ from visual_foresight_torch.ops.cdna_tail import (
 from visual_foresight_torch.models.layers import LN_EPS
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
 from visual_foresight_torch.ops.layout import space_to_depth
-from visual_foresight_torch.ops.conv_lstm_ln import (conv_lstm_ln,
-                                                     conv_lstm_ln_reference)
+from visual_foresight_torch.ops.conv_lstm_ln import (
+    bias_layer_norm, bias_layer_norm_reference, conv_lstm_ln,
+    conv_lstm_ln_reference)
 from visual_foresight_torch.ops.probe import add_one, add_one_reference
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -763,8 +773,8 @@ def test_conv_lstm_ln_kernel_rejects_bad_inputs_on_card():
 
 def _step_and_rollout(model, b, steps=5):
     """One step and a ``steps``-step rollout of ``model`` from a seeded
-    context broadcast to ``b`` samples, in f32, and the conv-LSTM kernel's
-    launches they took."""
+    context broadcast to ``b`` samples, in f32, and the launches they took
+    of the conv-LSTM kernel and of the stand-alone LayerNorm."""
     from visual_foresight_torch.models.cdna import broadcast_carry
     gen = torch.Generator(device='cuda').manual_seed(0)
     h, w = 48, 64
@@ -774,7 +784,7 @@ def _step_and_rollout(model, b, steps=5):
     states = 0.05 * torch.randn((1, 2, 3), generator=gen, device='cuda')
     ctx_actions = torch.zeros((1, 1, 3), device='cuda')
     actions = 0.05 * torch.randn((b, steps, 3), generator=gen, device='cuda')
-    before = conv_lstm_ln.launches
+    before = conv_lstm_ln.launches, bias_layer_norm.launches
     with torch.no_grad():
         carry = broadcast_carry(model.encode_context(
             images, ctx_actions, states, distribs), b)
@@ -786,7 +796,8 @@ def _step_and_rollout(model, b, steps=5):
            'gen_images': roll['gen_images'],
            'gen_distribs': roll['gen_distribs']}
     return {k: v.float() for k, v in out.items()}, \
-        conv_lstm_ln.launches - before
+        (conv_lstm_ln.launches - before[0],
+         bias_layer_norm.launches - before[1])
 
 
 @pytest.mark.cuda
@@ -797,7 +808,8 @@ def test_conv_lstm_ln_rollout_matches_stock_chain_on_card(arch, monkeypatch):
     f32 with the bf16 weights: one step and a 5-step rollout through the
     kernel against the stock chain (``ROLLOUT_F32_RTOL``,
     ``ROLLOUT_BF16_GAP_RATIO``); the kernel launches once a cell and step
-    (3 and 5), the stock chain never."""
+    (3 and 5), the stock chain never; the stand-alone LayerNorm twice a
+    classic step (``ln0``, ``ln6``) on both sides, never on the flagship."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     from visual_foresight_torch.models import layers
@@ -809,7 +821,7 @@ def test_conv_lstm_ln_rollout_matches_stock_chain_on_card(arch, monkeypatch):
         m16 = load_flagship_predictor(num_samples=768).models[0]
         m32 = load_flagship_predictor(num_samples=768,
                                       dtype='float32').models[0]
-        b, cells = 768, 3
+        b, cells, norms = 768, 3, 0
     else:
         from visual_foresight_torch.models.cdna import CDNAPredictor
         torch.manual_seed(0)
@@ -818,7 +830,7 @@ def test_conv_lstm_ln_rollout_matches_stock_chain_on_card(arch, monkeypatch):
             separable_lstm=True, std_factor=0, dtype=dtype).cuda().eval()
         m32, m16 = make(torch.float32), make(torch.bfloat16)
         m16.load_state_dict(m32.state_dict())
-        b, cells = 200, 5
+        b, cells, norms = 200, 5, 2
     m32.load_state_dict(m16.state_dict())
     k16, n16 = _step_and_rollout(m16, b)
     k32, n32 = _step_and_rollout(m32, b)
@@ -826,7 +838,9 @@ def test_conv_lstm_ln_rollout_matches_stock_chain_on_card(arch, monkeypatch):
     s16, stock16 = _step_and_rollout(m16, b)
     s32, stock32 = _step_and_rollout(m32, b)
     # the context step, the single step, the rollout
-    assert n16 == n32 == cells * (1 + 1 + 5) and stock16 == stock32 == 0
+    steps = 1 + 1 + 5
+    assert n16 == n32 == (cells * steps, norms * steps)
+    assert stock16 == stock32 == (0, norms * steps)
     rms = lambda d: float(d.pow(2).mean().sqrt())
     for key in k32:
         scale = float(s32[key].abs().max())
@@ -933,9 +947,10 @@ def test_classic_replan_counts_its_launches_on_card():
     """A replan of the classic backbone at its published widths (F
     32/64/128, 5x5 separable gates, 10 masks of 5x5, 48x64, bf16) at 16
     samples x 3 steps x 2 iterations: 5 launches of the conv-LSTM kernel a
-    model step and one of the tail a step (the context step at batch 1
-    too), every one the folded tail's tiled variant on full-resolution
-    masks; no blocked masks, no DNA launch."""
+    model step, 2 of the stand-alone LayerNorm (``ln0``, ``ln6``) and one
+    of the tail a step (the context step at batch 1 too), every one the
+    folded tail's tiled variant on full-resolution masks; no blocked masks,
+    no DNA launch."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     import numpy as np
@@ -957,7 +972,8 @@ def test_classic_replan_counts_its_launches_on_card():
     rng = np.random.RandomState(0)
     distribs = np.zeros((1, 2, 48, 64, 1), np.float32)
     distribs[:, :, 24, 32, 0] = 1.0
-    counters = lambda: (conv_lstm_ln.launches, fused_warp_composite.launches,
+    counters = lambda: (conv_lstm_ln.launches, bias_layer_norm.launches,
+                        fused_warp_composite.launches,
                         fused_warp_composite.launches_by_variant['tiled'],
                         fused_warp_composite.blocked_launches,
                         fused_warp_composite_dna.launches)
@@ -971,4 +987,169 @@ def test_classic_replan_counts_its_launches_on_card():
     steps = 1 + 2 * 3
     after = counters()
     assert [a - b for a, b in zip(after, before)] == \
-        [5 * steps, steps, steps, 0, 0]
+        [5 * steps, 2 * steps, steps, steps, 0, 0]
+
+
+# (label, leading shape, F): ln0's and ln6's shapes at a small batch, and
+# the classic backbone's other widths
+NORM_CASES = [('ln0', (3, 24, 32), 32), ('ln6', (3, 48, 64), 32),
+              ('F64', (2, 12, 16), 64), ('F128', (2, 6, 8), 128)]
+NORM_F32_TOL = 1e-6
+
+
+def _norm_input(gen, lead, feat, dtype, layout):
+    """A (B, H, W, F) input of ``dtype``: contiguous, or the crop of an
+    uncropped (B, H + 1, W + 1, F) product, as ``dec3``'s."""
+    b, h, w = lead
+    pad = 1 if layout == 'crop' else 0
+    full = (2.0 * torch.randn((b, h + pad, w + pad, feat), generator=gen,
+                              device='cuda') + 0.5).to(dtype)
+    return full[:, :h, :w] if pad else full
+
+
+def _assert_norm_close(got, want, dtype):
+    """Within ``NORM_F32_TOL`` of 1 + |want| (the f32 sums in another
+    order), and in bf16 one ulp of ``want`` more: two f32 results that
+    close may round to neighbouring bf16 values, and near 0, where the
+    affine map's terms cancel, their gap spans many ulps of the result."""
+    err = (got.float() - want).abs()
+    tol = NORM_F32_TOL * (1.0 + want.abs())
+    if dtype == torch.bfloat16:
+        tol = tol + _ulp(want, dtype)
+    assert bool((err <= tol).all()), float((err - tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('with_bias', [False, True], ids=['no-bias', 'bias'])
+@pytest.mark.parametrize('layout', ['contiguous', 'crop'])
+@pytest.mark.parametrize('case', NORM_CASES, ids=[c[0] for c in NORM_CASES])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_bias_layer_norm_kernel_matches_reference_on_card(dtype, case, layout,
+                                                          with_bias):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    _, lead, feat = case
+    gen = torch.Generator(device='cuda').manual_seed(feat)
+    x = _norm_input(gen, lead, feat, dtype, layout)
+    rand = lambda *s: torch.randn(s, generator=gen, device='cuda')
+    conv_bias = rand(feat).to(dtype) if with_bias else None
+    weight, bias = 1.0 + 0.3 * rand(feat), 0.3 * rand(feat)
+    before = bias_layer_norm.launches
+    with torch.no_grad():
+        got = bias_layer_norm(x, conv_bias, weight, bias, LN_EPS)
+    torch.cuda.synchronize()
+    assert bias_layer_norm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous()
+    cpu = lambda t: None if t is None else t.cpu()
+    want = bias_layer_norm_reference(cpu(x), cpu(conv_bias), cpu(weight),
+                                     cpu(bias), LN_EPS)
+    _assert_norm_close(got.cpu(), want.float(), dtype)
+
+
+@pytest.mark.cuda
+def test_bias_layer_norm_kernel_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    feat = 32
+    x = torch.randn(2, 4, 6, feat, device='cuda').bfloat16()
+    cb = torch.randn(feat, device='cuda').bfloat16()
+    w, b = torch.ones(feat, device='cuda'), torch.zeros(feat, device='cuda')
+    flat = torch.randn(x.numel() + 8, device='cuda').bfloat16()
+    with pytest.raises(ValueError, match='16-byte'):
+        bias_layer_norm(flat[1:1 + x.numel()].view_as(x), cb, w, b, LN_EPS)
+    # rows 36 values apart: every other row off a 16-byte boundary
+    wide = torch.randn(2, 4, 6, feat + 4, device='cuda').bfloat16()
+    with pytest.raises(ValueError, match='every row'):
+        bias_layer_norm(wide[..., :feat], cb, w, b, LN_EPS)
+    with pytest.raises(ValueError, match='channel stride'):
+        bias_layer_norm(x.transpose(-1, -2).contiguous().transpose(-1, -2),
+                        cb, w, b, LN_EPS)
+    with pytest.raises(ValueError, match='conv_bias is torch.float32'):
+        bias_layer_norm(x, cb.float(), w, b, LN_EPS)
+    with pytest.raises(ValueError, match='unsupported dtype'):
+        bias_layer_norm(x.half(), cb.half(), w, b, LN_EPS)
+    with pytest.raises(ValueError, match='weight is torch.bfloat16'):
+        bias_layer_norm(x, cb, w.bfloat16(), b, LN_EPS)
+    with pytest.raises(ValueError, match='shape'):
+        bias_layer_norm(x, cb[:16], w, b, LN_EPS)
+    with pytest.raises(ValueError, match='no bias_layer_norm kernel for 24'):
+        bias_layer_norm(x[..., :24].contiguous(), None, w[:24], b[:24],
+                        LN_EPS)
+    with pytest.raises(RuntimeError, match='no backward kernel'):
+        bias_layer_norm(x.clone().requires_grad_(), cb, w, b, LN_EPS)
+    with torch.no_grad():
+        bias_layer_norm(x.clone().requires_grad_(), cb, w, b, LN_EPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('route', ['enc0', 'dec3'])
+def test_conv_norm_routes_match_stock_chain_on_card(route, dtype,
+                                                    monkeypatch):
+    """``conv_nhwc_norm`` (enc0: 5x5 stride 2 SAME, 3 to 32 channels) and
+    ``ConvTranspose.forward_norm`` (dec3: 32 to 32) under no_grad: one
+    launch, and the stock chain (the convolution with its bias, then the
+    stock LayerNorm) within ``_assert_norm_close``'s tolerance: the bias
+    add on cuDNN's stored product rounds as the kernel's does."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models import layers
+    from visual_foresight_torch.ops.conv_lstm_ln import layer_norm_reference
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+    torch.manual_seed(0)
+    feat = 32
+    ln = layers.LayerNorm(feat).cuda()
+    if route == 'enc0':
+        conv = torch.nn.Conv2d(3, feat, 5, stride=2, dtype=dtype).cuda()
+        x = torch.rand(3, 48, 64, 3, device='cuda').to(dtype)
+        fold = lambda: layers.conv_nhwc_norm(x, conv, ln, 'SAME')
+        product = lambda: layers.conv_nhwc(x, conv, 'SAME')
+    else:
+        conv = layers.ConvTranspose(feat, feat, dtype=dtype).cuda()
+        x = torch.randn(3, 24, 32, feat, device='cuda').to(dtype)
+        fold = lambda: conv.forward_norm(x, ln)
+        product = lambda: conv(x)
+    with torch.no_grad():
+        for p in list(conv.parameters()) + list(ln.parameters()):
+            p.copy_(0.3 * torch.randn(p.shape))
+        before = bias_layer_norm.launches
+        got = fold()
+        assert bias_layer_norm.launches == before + 1
+        want = layer_norm_reference(product(), ln.weight, ln.bias, LN_EPS)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_norm_close(got, want.float(), dtype)
+
+
+@pytest.mark.cuda
+def test_layer_norm_under_grad_keeps_stock_ops_on_card():
+    """``LayerNorm.forward`` on the card: under grad with parameters that
+    need a gradient the stock ops (no launch) and their gradients; under
+    no_grad one launch of the kernel, within ``NORM_F32_TOL`` of the stock
+    ops."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    from visual_foresight_torch.models import layers
+    from visual_foresight_torch.ops.conv_lstm_ln import layer_norm_reference
+    torch.manual_seed(0)
+    feat = 64
+    ln = layers.LayerNorm(feat).cuda()
+    with torch.no_grad():
+        ln.weight.copy_(1.0 + 0.3 * torch.randn(feat))
+        ln.bias.copy_(0.3 * torch.randn(feat))
+    x = torch.randn(2, 6, 8, feat, device='cuda')
+    before = bias_layer_norm.launches
+    y = ln(x)
+    assert bias_layer_norm.launches == before and y.requires_grad
+    y.square().sum().backward()
+    got = ln.weight.grad.clone()
+    ln.weight.grad = None
+    layer_norm_reference(x, ln.weight, ln.bias, LN_EPS).square().sum() \
+        .backward()
+    assert torch.equal(got, ln.weight.grad)
+    with torch.no_grad():
+        y = ln(x)
+    assert bias_layer_norm.launches == before + 1
+    _assert_norm_close(y, layer_norm_reference(x, ln.weight, ln.bias, LN_EPS),
+                       torch.float32)

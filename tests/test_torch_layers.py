@@ -263,3 +263,161 @@ def test_conv_lstm_ln_widths(feat, dtype, takes):
     the wrapper raises for any other width on the card."""
     from visual_foresight_torch.ops.conv_lstm_ln import takes_width
     assert takes_width(feat, dtype) is takes
+
+
+def _norm_case(dtype, layout, with_bias, feat=16, seed=5):
+    """(x, conv_bias, weight, bias): x contiguous (2, 6, 8, feat), or the
+    crop of an uncropped (2, 7, 9, feat) product, as ``dec3``'s."""
+    gen = torch.Generator().manual_seed(seed)
+    pad = 1 if layout == 'crop' else 0
+    full = (2.0 * torch.randn(2, 6 + pad, 8 + pad, feat, generator=gen) +
+            0.5).to(dtype)
+    x = full[:, :6, :8] if pad else full
+    conv_bias = torch.randn(feat, generator=gen).to(dtype) if with_bias \
+        else None
+    return (x, conv_bias, 1.0 + 0.3 * torch.randn(feat, generator=gen),
+            0.3 * torch.randn(feat, generator=gen))
+
+
+@pytest.mark.parametrize('with_bias', [False, True], ids=['no-bias', 'bias'])
+@pytest.mark.parametrize('layout', ['contiguous', 'crop'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_bias_layer_norm_on_cpu_is_its_plain_version(dtype, layout,
+                                                     with_bias):
+    """On CPU tensors ``bias_layer_norm`` is ``layer_norm_reference`` of
+    the input plus the bias, added in the input's type, bit for bit; it
+    counts no launch."""
+    from visual_foresight_torch.ops.conv_lstm_ln import (
+        bias_layer_norm, layer_norm_reference)
+    x, conv_bias, w, b = _norm_case(dtype, layout, with_bias)
+    before = bias_layer_norm.launches
+    got = bias_layer_norm(x, conv_bias, w, b, tlayers.LN_EPS)
+    biased = x if conv_bias is None else x + conv_bias
+    assert biased.dtype == dtype
+    want = layer_norm_reference(biased, w, b, tlayers.LN_EPS)
+    assert bias_layer_norm.launches == before
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want)
+
+
+def _conv_norm_case(route, dtype, seed=0):
+    """A convolution, its LayerNorm and an input, with random parameters:
+    ``enc0`` (a 5x5 stride-2 ``nn.Conv2d``, 3 to 8 channels, SAME) or
+    ``dec3`` (a ``ConvTranspose``, 8 to 8)."""
+    torch.manual_seed(seed)
+    feat = 8
+    if route == 'enc0':
+        conv = torch.nn.Conv2d(3, feat, 5, stride=2, dtype=dtype)
+        x = torch.rand(2, 12, 16, 3).to(dtype)
+    else:
+        conv = tlayers.ConvTranspose(feat, feat, dtype=dtype)
+        x = torch.randn(2, 6, 8, feat).to(dtype)
+    ln = tlayers.LayerNorm(feat)
+    with torch.no_grad():
+        for p in list(conv.parameters()) + list(ln.parameters()):
+            p.copy_(torch.randn(p.shape) * 0.3)
+    return conv, ln, x
+
+
+def _conv_norm_routes(route, conv, ln, x):
+    """(the route's output, the stock chain's)."""
+    if route == 'enc0':
+        return (tlayers.conv_nhwc_norm(x, conv, ln, 'SAME'),
+                ln(tlayers.conv_nhwc(x, conv, 'SAME')))
+    return conv.forward_norm(x, ln), ln(conv(x))
+
+
+@pytest.mark.parametrize('grad', [False, True], ids=['no_grad', 'grad'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('route', ['enc0', 'dec3'])
+def test_conv_norm_route_is_the_stock_chain_on_cpu(route, dtype, grad,
+                                                   monkeypatch):
+    """Off the card ``conv_nhwc_norm`` and ``ConvTranspose.forward_norm``
+    return bit for bit what the convolution followed by its LayerNorm
+    returned, with and without grad, and never call the kernel's entry."""
+    calls = []
+    monkeypatch.setattr(tlayers, 'bias_layer_norm',
+                        lambda *a: calls.append(a))
+    conv, ln, x = _conv_norm_case(route, dtype)
+    with torch.set_grad_enabled(grad):
+        got, want = _conv_norm_routes(route, conv, ln, x)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert got.requires_grad == grad and calls == []
+
+
+@pytest.mark.parametrize('route', ['enc0', 'dec3'])
+def test_conv_norm_fold_is_the_stock_chain_in_f32(route):
+    """What the card's route computes, with the CPU's plain version of the
+    kernel: the convolution without its bias (``dec3``'s product uncropped,
+    the crop a view), then ``bias_layer_norm`` with the bias; in f32 the
+    CPU's convolution adds its bias exactly as a separate add does, so this
+    is the stock chain bit for bit."""
+    from visual_foresight_torch.ops.conv_lstm_ln import bias_layer_norm
+    conv, ln, x = _conv_norm_case(route, torch.float32)
+    if route == 'enc0':
+        product = tlayers.conv_nhwc(x, conv, 'SAME', with_bias=False)
+    else:
+        product = conv._uncropped(x, None)[:, :-1, :-1]
+        assert not product.is_contiguous()
+    with torch.no_grad():
+        got = bias_layer_norm(product, conv.bias, ln.weight, ln.bias,
+                              tlayers.LN_EPS)
+        _, want = _conv_norm_routes(route, conv, ln, x)
+    assert torch.equal(got, want)
+
+
+def test_layer_norm_routes_by_device_and_grad(monkeypatch):
+    """``LayerNorm.forward`` off the card never calls the kernel's entry,
+    in any grad mode; ``_norm_on_card`` is false there, and would record a
+    graph only under grad mode with a tensor that needs a gradient."""
+    calls = []
+    monkeypatch.setattr(tlayers, 'bias_layer_norm',
+                        lambda *a: calls.append(a))
+    ln = tlayers.LayerNorm(8)
+    x = torch.randn(2, 3, 8)
+    want = torch.nn.functional.layer_norm(x, (8,), ln.weight, ln.bias,
+                                          eps=tlayers.LN_EPS)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad):
+            assert torch.equal(ln(x), want)
+            assert not tlayers._norm_on_card(ln, x)
+    assert calls == []
+    assert tlayers._records_graph(x, None, ln.weight)
+    with torch.no_grad():
+        assert not tlayers._records_graph(x, None, ln.weight)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_classic_step_through_the_norm_routes_is_the_old_chain(dtype,
+                                                               monkeypatch):
+    """A classic backbone's step (F 8/16/16, 16x16) gives bit for bit what
+    it gave with ``ln0(conv_nhwc(...))`` and ``ln6(dec3(...))`` as stock
+    modules."""
+    from visual_foresight_torch.models import cdna
+    torch.manual_seed(0)
+    model = cdna.CDNAPredictor((16, 16), num_distribs=1, num_masks=2,
+                               enc_features=(8, 16, 16), lstm_kernel=3,
+                               separable_lstm=True, std_factor=0,
+                               dtype=dtype).eval()
+    images = torch.rand((2, 3, 16, 16, 3))
+    actions = 0.1 * torch.randn((2, 3, 3))
+    states = 0.1 * torch.randn((2, 3, 3))
+    distribs = torch.rand((2, 3, 16, 16, 1))
+
+    def run():
+        with torch.no_grad():
+            return model(images, actions, states, distribs)
+
+    got = run()
+    monkeypatch.setattr(cdna, 'conv_nhwc_norm',
+                        lambda x, conv, ln, padding: ln(
+                            tlayers.conv_nhwc(x, conv, padding)))
+    monkeypatch.setattr(tlayers.ConvTranspose, 'forward_norm',
+                        lambda self, x, ln: ln(self(x)))
+    want = run()
+    assert set(got) == set(want)
+    for key in got:
+        assert torch.equal(got[key], want[key]), key

@@ -31,8 +31,12 @@ the step in a block layout chosen for the TPU's lanes, and here every step
 takes the full-resolution tail kernel.
 Each conv-LSTM cell's gate nonlinearities, state update and the LayerNorm on
 its output run through ``ConvLSTMCell.forward_norm``: on the card, outside
-autograd, one launch of ``ops.conv_lstm_ln``'s kernel.  Everything else in
-the step is stock PyTorch.
+autograd, one launch of ``ops.conv_lstm_ln``'s kernel.  The classic
+backbone's two LayerNorms that follow a convolution, ``ln0`` on ``enc0`` and
+``ln6`` on ``dec3``, run through ``conv_nhwc_norm`` and
+``ConvTranspose.forward_norm``: there one launch of
+``ops.conv_lstm_ln.bias_layer_norm`` adds the convolution's bias, normalises
+and, for ``dec3``, crops.  Everything else in the step is stock PyTorch.
 
 Carries are tuples ``(lstm_states, prev_img, prev_distrib, prev_state,
 first_image, first_distrib, latent)``; ``latent`` is ``None`` for a model
@@ -45,7 +49,7 @@ import torch.nn.functional as F
 
 from visual_foresight_torch.models.layers import (ConvLSTMCell,
                                                   ConvTranspose, LayerNorm,
-                                                  conv_nhwc)
+                                                  conv_nhwc, conv_nhwc_norm)
 from visual_foresight_torch.ops.cdna_tail import (fused_warp_composite,
                                                   fused_warp_composite_dna)
 from visual_foresight_torch.ops.cdna_warp import normalize_kernels
@@ -217,7 +221,8 @@ class CDNAStep(nn.Module):
         softmax at full resolution."""
         dt = self.dtype
         s1, s2, s3, s4, s5 = lstm_states
-        enc0 = self.ln0(conv_nhwc(prev_img.to(dt), self.enc0, 'SAME'))  # H/2
+        enc0 = conv_nhwc_norm(prev_img.to(dt), self.enc0, self.ln0,
+                              'SAME')                                    # H/2
         s1, h1 = self.lstm1.forward_norm(s1, enc0, self.ln1)
         enc1 = conv_nhwc(h1, self.enc1, 'SAME')                          # H/4
         s2, h2 = self.lstm2.forward_norm(s2, enc1, self.ln2)
@@ -230,7 +235,7 @@ class CDNAStep(nn.Module):
             s4, torch.cat([self.dec1(h3), enc1], dim=-1), self.ln4)
         s5, h5 = self.lstm5.forward_norm(
             s5, torch.cat([self.dec2(h4), enc0], dim=-1), self.ln5)
-        dec3 = self.ln6(self.dec3(h5))                                   # H
+        dec3 = self.dec3.forward_norm(h5, self.ln6)                      # H
         masks = torch.softmax(self.mask_head(dec3).float(), dim=-1)
         dna_logits = self.dna_head(dec3) if self.dna else None
         return (s1, s2, s3, s4, s5), h3, masks, 0, dna_logits

@@ -4,13 +4,21 @@ Counterpart of ``visual_foresight_tpu/models/layers.py``.  Tensors are NHWC
 at every public boundary; convolutions run on NCHW views of channels-last
 memory, so no layout copy is made.  Submodule names follow the flax
 parameter names, so ``models/convert.py`` maps a flax tree one to one.
+
+On the card, where autograd records no graph, the LayerNorms run through
+``ops/conv_lstm_ln.py``'s kernels: after a conv-LSTM cell inside the cell's
+launch (``ConvLSTMCell.forward_norm``), after a convolution with the
+convolution's bias folded in (``conv_nhwc_norm``,
+``ConvTranspose.forward_norm``), alone otherwise (``LayerNorm.forward``).
+Everywhere else they are stock ops.
 """
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from visual_foresight_torch.ops.conv_lstm_ln import (conv_lstm_ln,
+from visual_foresight_torch.ops.conv_lstm_ln import (bias_layer_norm,
+                                                     conv_lstm_ln,
                                                      layer_norm_reference,
                                                      lstm_update_reference)
 
@@ -24,17 +32,45 @@ def same_pad(in_size, stride, k):
     return total // 2, total - total // 2
 
 
-def conv_nhwc(x, conv, padding='VALID'):
+def conv_nhwc(x, conv, padding='VALID', with_bias=True):
     """Apply an ``nn.Conv2d`` to an NHWC tensor with flax ``padding``
-    ('SAME' or 'VALID') and return NHWC."""
+    ('SAME' or 'VALID') and return NHWC; without its bias unless
+    ``with_bias``."""
     if padding == 'SAME':
         (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
         ph = same_pad(x.shape[1], sh, kh)
         pw = same_pad(x.shape[2], sw, kw)
         x = F.pad(x, (0, 0) + pw + ph)
-    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight, conv.bias,
-                   stride=conv.stride, groups=conv.groups)
+    out = F.conv2d(x.permute(0, 3, 1, 2), conv.weight,
+                   conv.bias if with_bias else None, stride=conv.stride,
+                   groups=conv.groups)
     return out.permute(0, 2, 3, 1)
+
+
+def _records_graph(*tensors):
+    """Whether autograd records a graph of an op on ``tensors`` (None
+    entries skipped): grad mode is on and one of them needs a gradient."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _norm_on_card(ln, x, *tensors):
+    """Whether the LayerNorm ``ln`` of what ``x`` and ``tensors`` (the
+    weights that act on it first) give takes ``bias_layer_norm``'s kernel:
+    ``x`` on the card and no autograd graph to record."""
+    return x.is_cuda and not _records_graph(x, ln.weight, ln.bias, *tensors)
+
+
+def conv_nhwc_norm(x, conv, ln, padding='VALID'):
+    """``ln(conv_nhwc(x, conv, padding))``.  On the card, with no autograd
+    graph to record, the convolution runs without its bias and one launch
+    of ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` adds the bias (rounded
+    as the stock add rounds it) and normalises; otherwise the stock ops."""
+    if _norm_on_card(ln, x, conv.weight, conv.bias):
+        return bias_layer_norm(conv_nhwc(x, conv, padding, with_bias=False),
+                               conv.bias, ln.weight.float(), ln.bias.float(),
+                               LN_EPS)
+    return ln(conv_nhwc(x, conv, padding))
 
 
 class ConvTranspose(nn.Module):
@@ -58,18 +94,26 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, dtype=dtype))
         nn.init.kaiming_uniform_(self.weight)
 
-    def forward(self, x):
+    def _uncropped(self, x, bias):
+        """The NHWC product before the crop, (B, 2H + 1, 2W + 1, out)."""
         w = self.weight.flip(2, 3).transpose(0, 1)      # (in, out, 3, 3)
-        out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, self.bias,
-                                 stride=2)
-        return out[:, :, :-1, :-1].permute(0, 2, 3, 1)
+        out = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, bias, stride=2)
+        return out.permute(0, 2, 3, 1)
 
+    def forward(self, x):
+        return self._uncropped(x, self.bias)[:, :-1, :-1]
 
-def _records_graph(*tensors):
-    """Whether autograd records a graph of an op on ``tensors`` (None
-    entries skipped): grad mode is on and one of them needs a gradient."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+    def forward_norm(self, x, ln):
+        """``ln(self(x))``.  On the card, with no autograd graph to record,
+        the transposed convolution runs without its bias and one launch of
+        ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` adds the bias,
+        normalises and crops, reading the uncropped product in place;
+        otherwise the stock ops."""
+        if _norm_on_card(ln, x, self.weight, self.bias):
+            return bias_layer_norm(self._uncropped(x, None)[:, :-1, :-1],
+                                   self.bias, ln.weight.float(),
+                                   ln.bias.float(), LN_EPS)
+        return ln(self(x))
 
 
 class ConvLSTMCell(nn.Module):
@@ -147,7 +191,10 @@ class ConvLSTMCell(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm over the channel (last) axis with flax's epsilon; the
     statistics and the affine map run in f32 and the result is cast back to
-    the input dtype."""
+    the input dtype.  On the card, with no autograd graph to record, one
+    launch of ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` (which raises
+    for a width, type or layout it does not take); otherwise the stock
+    ops."""
 
     def __init__(self, features):
         super().__init__()
@@ -155,4 +202,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if _norm_on_card(self, x):
+            return bias_layer_norm(x, None, self.weight.float(),
+                                   self.bias.float(), LN_EPS)
         return layer_norm_reference(x, self.weight, self.bias, LN_EPS)

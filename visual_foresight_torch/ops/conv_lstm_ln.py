@@ -11,9 +11,20 @@ in f32, storing ``c'``, ``h'`` and ``y`` in the inputs' type (f32 or bf16);
 the LayerNorm normalises ``h'`` as stored.  No TPU kernel stands behind it:
 in the JAX package XLA fuses the chain.
 
+The source's second kernel, :func:`bias_layer_norm`, is the LayerNorm that
+stands alone after a convolution (the classic backbone's ``ln0`` and
+``ln6``)::
+
+    y = LayerNorm(x + conv_bias)
+
+with the sum rounded to ``x``'s type before the statistics, as the stock
+add rounds it, and ``x`` read as a strided view (``dec3``'s crop is never
+copied).
+
 Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
-or raises; a CPU tensor takes :func:`conv_lstm_ln_reference`, the chain of
-stock ops that ``models/layers.py`` runs off the kernel.
+or raises; a CPU tensor takes the plain version
+(:func:`conv_lstm_ln_reference`, :func:`bias_layer_norm_reference`), the
+chain of stock ops that ``models/layers.py`` runs off the kernel.
 """
 
 import ctypes
@@ -27,6 +38,7 @@ from visual_foresight_torch.ops import _build
 SOURCE = 'conv_lstm_ln.cu'
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 128          # 16-byte words a row: a power of two up to this
+_MAX_ROWS = 2 ** 31 - 1     # bias_layer_norm's rows, indexed in 32 bits
 
 
 def lstm_update_reference(x, r, c):
@@ -50,6 +62,15 @@ def layer_norm_reference(h, weight, bias, eps):
     y = F.layer_norm(h.float(), (h.shape[-1],), weight.float(), bias.float(),
                      eps=eps)
     return y.to(h.dtype)
+
+
+def bias_layer_norm_reference(x, conv_bias, weight, bias, eps):
+    """Plain version of :func:`bias_layer_norm`: ``x + conv_bias`` in
+    ``x``'s type (no add where ``conv_bias`` is None), then
+    :func:`layer_norm_reference`."""
+    if conv_bias is not None:
+        x = x + conv_bias
+    return layer_norm_reference(x, weight, bias, eps)
 
 
 def conv_lstm_ln_reference(x, r, c, weight, bias, eps):
@@ -81,27 +102,57 @@ def _kernel():
     return fn
 
 
-def _check(x, r, c, weight, bias):
-    """Raise unless the kernel takes these tensors."""
-    if c.dtype not in _DTYPES:
-        raise ValueError('unsupported dtype {}'.format(c.dtype))
-    feat = c.shape[-1]
-    named = {'x': x, 'c': c, 'weight': weight, 'bias': bias}
-    if r is not None:
-        named['r'] = r
+@functools.lru_cache(maxsize=None)
+def _norm_kernel():
+    """The built LayerNorm's C entry point, with its ctypes signature."""
+    fn = _build.load(SOURCE).bias_layer_norm_forward
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p,
+                                           ctypes.c_longlong] + \
+        [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + \
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tensors(named, ref_name, strided=()):
+    """Raise unless each tensor of ``named`` (None entries skipped) lies on
+    the device of ``named[ref_name]``, has its type (``weight`` and ``bias``
+    f32), is contiguous unless named in ``strided``, and starts on a 16-byte
+    boundary."""
+    ref = named[ref_name]
+    if ref.dtype not in _DTYPES:
+        raise ValueError('unsupported dtype {}'.format(ref.dtype))
     for name, t in named.items():
-        if t.device != c.device:
-            raise ValueError('{} is on {}, c on {}'.format(name, t.device,
-                                                           c.device))
-        want = torch.float32 if name in ('weight', 'bias') else c.dtype
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError('{} is on {}, {} on {}'.format(
+                name, t.device, ref_name, ref.device))
+        want = torch.float32 if name in ('weight', 'bias') else ref.dtype
         if t.dtype != want:
             raise ValueError('{} is {}, expected {}'.format(name, t.dtype,
                                                             want))
-        if not t.is_contiguous():
+        if name not in strided and not t.is_contiguous():
             raise ValueError('{} must be contiguous'.format(name))
         if t.data_ptr() % 16:
             raise ValueError('{} must start on a 16-byte boundary'.format(
                 name))
+
+
+def _check_grad(op, tensors):
+    """Raise if autograd would record a graph of ``op`` on ``tensors``."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            '{} has no backward kernel: call it under torch.no_grad() or '
+            'with inputs that need no gradient'.format(op))
+
+
+def _check(x, r, c, weight, bias):
+    """Raise unless the kernel takes these tensors."""
+    _check_tensors({'x': x, 'c': c, 'weight': weight, 'bias': bias, 'r': r},
+                   'c')
+    feat = c.shape[-1]
     gate_shape = tuple(c.shape[:-1]) + (4 * feat,)
     for name, t, shape in (('x', x, gate_shape), ('r', r, gate_shape),
                            ('weight', weight, (feat,)),
@@ -112,11 +163,7 @@ def _check(x, r, c, weight, bias):
     if not takes_width(feat, c.dtype):
         raise ValueError('no conv_lstm_ln kernel for {} features of {}'
                          .format(feat, c.dtype))
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in named.values()):
-        raise RuntimeError(
-            'conv_lstm_ln has no backward kernel: call it under '
-            'torch.no_grad() or with inputs that need no gradient')
+    _check_grad('conv_lstm_ln', (x, r, c, weight, bias))
 
 
 def conv_lstm_ln(x, r, c, weight, bias, eps):
@@ -153,3 +200,68 @@ def conv_lstm_ln(x, r, c, weight, bias, eps):
 
 
 conv_lstm_ln.launches = 0
+
+
+def _check_norm(x, conv_bias, weight, bias):
+    """Raise unless the LayerNorm kernel takes these tensors."""
+    _check_tensors({'x': x, 'conv_bias': conv_bias, 'weight': weight,
+                    'bias': bias}, 'x', strided=('x',))
+    if x.dim() != 4:
+        raise ValueError('x must have 4 dimensions, not {}'.format(x.dim()))
+    feat = x.shape[-1]
+    for name, t in (('conv_bias', conv_bias), ('weight', weight),
+                    ('bias', bias)):
+        if t is not None and tuple(t.shape) != (feat,):
+            raise ValueError('{} has shape {}, expected {}'.format(
+                name, tuple(t.shape), (feat,)))
+    if x.stride(-1) != 1:
+        raise ValueError('x must have channel stride 1, not {}'.format(
+            x.stride(-1)))
+    if any(n > 1 and s * x.element_size() % 16
+           for n, s in zip(x.shape[:-1], x.stride()[:-1])):
+        raise ValueError('every row of x must start on a 16-byte boundary '
+                         '(strides {})'.format(x.stride()))
+    if not takes_width(feat, x.dtype):
+        raise ValueError('no bias_layer_norm kernel for {} features of {}'
+                         .format(feat, x.dtype))
+    if x.numel() // feat > _MAX_ROWS:
+        raise ValueError('bias_layer_norm takes at most {} rows'.format(
+            _MAX_ROWS))
+    _check_grad('bias_layer_norm', (x, conv_bias, weight, bias))
+
+
+def bias_layer_norm(x, conv_bias, weight, bias, eps):
+    """LayerNorm over the last axis of ``x + conv_bias`` (``conv_bias`` may
+    be None) in one pass; returns a new contiguous tensor shaped like
+    ``x``.
+
+    Same contract as :func:`bias_layer_norm_reference`.  On a CUDA device
+    ``x`` is a 4-D view with channel stride 1, its start and every row on
+    a 16-byte boundary, f32 or bf16 with ``takes_width``
+    features; ``conv_bias`` is of ``x``'s type, ``weight`` and ``bias`` f32,
+    each (F,), contiguous and 16-byte aligned; none may need a gradient.  It
+    launches ``csrc/conv_lstm_ln.cu``'s second kernel and counts the launch
+    in ``bias_layer_norm.launches``.
+    """
+    if x.device.type == 'cpu':
+        return bias_layer_norm_reference(x, conv_bias, weight, bias, eps)
+    if x.device.type != 'cuda':
+        raise ValueError('no bias_layer_norm kernel for device {}'.format(
+            x.device))
+    _check_norm(x, conv_bias, weight, bias)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _norm_kernel()(
+            x.data_ptr(), None if conv_bias is None else conv_bias.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), eps, out.data_ptr(),
+            *x.shape[:3], *x.stride()[:3], x.shape[-1], _DTYPES[x.dtype],
+            stream)
+    if err != 0:
+        raise RuntimeError('bias_layer_norm kernel launch failed: cudaError '
+                           '{}'.format(err))
+    bias_layer_norm.launches += 1
+    return out
+
+
+bias_layer_norm.launches = 0

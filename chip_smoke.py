@@ -18,8 +18,8 @@
    or no multiple of it, several tiles across, B=1, K=3 and 7, M=16, SNA
    off, P=0, two packed planes (4 < C + P <= 8: C=1, P=4; C=3, P=3; C=4,
    P=4; K=7, M=16; odd sizes; several tiles; B=1) in every layout, the
-   registration path's B=768, C=3, P=2, and block factor 3, which only the
-   general variant serves); and the
+   registration path's B=768, C=3, P=2, and block factor 3, which the
+   entry expands to full resolution); and the
    source's second kernel against its plain versions in bf16 and f32 at
    B=768 and 200, P 0-3, SNA on and off, K 3, 5 and 7, and at odd sizes:
    through its effective-kernel entry (the per-pixel field given) and
@@ -57,7 +57,7 @@
    3 iterations, for a few replans with fresh contexts; checks the outputs,
    46 kernel launches per replan, and that one replan with the plain tail
    gives the same elites and scores.  On every driven path every launch
-   must be of the tiled variant and on blocked masks;
+   must be on blocked masks;
 6. drives ``PixelCostController.act()`` on seeded synthetic frames, each
    controller restoring its weights itself, with the tail's launch count
    worked out from the policy (``replan_launches``) and checked:
@@ -156,10 +156,10 @@
    stock chain and through the kernel, in turns) and classic DNA controllers
    (host clock and CUDA events), with a profiler breakdown of one replan of
    each but the one-batch 800-sample and the folding ones; then the
-   replans on the nets trained from records the same way, and the tiled
-   variant on two planes at the registration path's
-   shape (B=768, C=3, P=2, blocked masks) beside its bound, the tiled
-   variant at P=1 and the general variant forced at the same shape;
+   replans on the nets trained from records the same way, and the tail
+   kernel on two planes at the registration path's
+   shape (B=768, C=3, P=2, blocked masks) beside its bound and its time
+   at P=1;
 8. the sim benchmark campaign: one line probing the host for it (whether
    ``mujoco`` imports and its version, which GL backend renders a 96x128
    frame, ``egl`` then ``osmesa``, each in a subprocess, and whether
@@ -355,33 +355,33 @@ M, ITERS, NACT, REPEAT, N_CTX = 200, 3, 5, 3, 2
 T = NACT * REPEAT
 LAUNCHES_PER_REPLAN = 1 + ITERS * T           # encode step + rollouts
 MASK_BLOCK = 4                                # the flagship's std_factor
-# tail shapes beyond the serving ones: (label, variant, overrides of
+# tail shapes beyond the serving ones: (label, overrides of
 # b=6, h=20, w=36, c=3, p=1, k=5, m=10, sna=True), each run in the mask
 # layouts listed under 'blocks' (0: full resolution)
 TAIL_CASES = [
-    ('smaller than a tile', 'tiled', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
-    ('no multiple of the tile', 'tiled', dict(blocks=(0, 2, 4))),
-    ('odd sizes', 'tiled', dict(b=3, h=13, w=10, blocks=(0,))),
-    ('several tiles across', 'tiled', dict(b=2, h=16, w=136, blocks=(0, 4))),
-    ('B=1', 'tiled', dict(b=1, h=48, w=64, blocks=(0, 4))),
-    ('K=3', 'tiled', dict(k=3, blocks=(0, 4))),
-    ('K=7', 'tiled', dict(k=7, blocks=(0, 4))),
-    ('M=16', 'tiled', dict(m=16, blocks=(0, 4))),
-    ('SNA off', 'tiled', dict(sna=False, blocks=(0, 4))),
-    ('P=0', 'tiled', dict(p=0, blocks=(0, 4))),
-    ('SNA off, P=0', 'tiled', dict(sna=False, p=0, blocks=(0, 2))),
-    ('C=1, P=4', 'tiled', dict(c=1, p=4, blocks=(0, 2))),
-    ('block factor 3', 'general', dict(h=18, w=36, blocks=(3,))),
-    ('two planes, C=3, P=3, SNA off', 'tiled',
+    ('smaller than a tile', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
+    ('no multiple of the tile', dict(blocks=(0, 2, 4))),
+    ('odd sizes', dict(b=3, h=13, w=10, blocks=(0,))),
+    ('several tiles across', dict(b=2, h=16, w=136, blocks=(0, 4))),
+    ('B=1', dict(b=1, h=48, w=64, blocks=(0, 4))),
+    ('K=3', dict(k=3, blocks=(0, 4))),
+    ('K=7', dict(k=7, blocks=(0, 4))),
+    ('M=16', dict(m=16, blocks=(0, 4))),
+    ('SNA off', dict(sna=False, blocks=(0, 4))),
+    ('P=0', dict(p=0, blocks=(0, 4))),
+    ('SNA off, P=0', dict(sna=False, p=0, blocks=(0, 2))),
+    ('C=1, P=4', dict(c=1, p=4, blocks=(0, 2))),
+    ('block factor 3', dict(h=18, w=36, blocks=(3,))),
+    ('two planes, C=3, P=3, SNA off',
      dict(p=3, sna=False, blocks=(0, 2, 4))),
-    ('two planes, C=4, P=4', 'tiled', dict(c=4, p=4, blocks=(0, 2, 4))),
-    ('two planes, C=4, P=1, K=7, M=16', 'tiled',
+    ('two planes, C=4, P=4', dict(c=4, p=4, blocks=(0, 2, 4))),
+    ('two planes, C=4, P=1, K=7, M=16',
      dict(c=4, p=1, k=7, m=16, blocks=(0, 2, 4))),
-    ('two planes, odd sizes', 'tiled',
+    ('two planes, odd sizes',
      dict(b=3, h=13, w=10, p=2, blocks=(0,))),
-    ('two planes, several tiles across', 'tiled',
+    ('two planes, several tiles across',
      dict(b=2, h=16, w=136, p=2, blocks=(0, 2, 4))),
-    ('two planes, B=1', 'tiled', dict(b=1, h=48, w=64, p=2, blocks=(0, 2, 4))),
+    ('two planes, B=1', dict(b=1, h=48, w=64, p=2, blocks=(0, 2, 4))),
 ]
 # bf16: one ulp near 1.0 is 7.8e-3; both sides accumulate in f32 and round
 # once, so they differ by at most one ulp of outputs below 2
@@ -635,31 +635,32 @@ def tail_inputs(gen, b, dtype, sna=True, p=P, h=H, w=W, c=C, k=K,
     return tuple(t.to(dtype).contiguous() for t in ts)
 
 
-def check_tail(gen, b, dtype, variant='tiled', label='serving shape',
-               mask_block=0, **shape):
+def check_tail(gen, b, dtype, label='serving shape', mask_block=0, **shape):
     """One launch against the plain version on the same inputs; the launch
-    must be of ``variant``.  Returns the max abs error."""
+    must read the masks blocked where they come blocked at r = 2 or 4.
+    Returns the max abs error."""
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_reference)
     sna = shape.get('sna', True)
     args = tail_inputs(gen, b, dtype, mask_block=mask_block, **shape)
-    before = dict(fused_warp_composite.launches_by_variant)
+    before = (fused_warp_composite.launches,
+              fused_warp_composite.blocked_launches)
     got = fused_warp_composite(*args, sna=sna, mask_block=mask_block)
     want = fused_warp_composite_reference(*args, sna=sna,
                                           mask_block=mask_block)
     torch.cuda.synchronize()
-    after = fused_warp_composite.launches_by_variant
-    took = [v for v in after if after[v] != before[v]]
+    took = (fused_warp_composite.launches - before[0],
+            fused_warp_composite.blocked_launches - before[1])
     err = max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0
               for g, w in zip(got, want))
     tol = TAIL_TOL[dtype]
-    print('tail kernel vs plain ({}): B={} {} {} mask_block={} variant={}: '
-          'max_abs_err={:.3e} (tol {:.0e})'.format(
-              label, b, str(dtype).split('.')[-1], shape, mask_block,
-              ','.join(took), err, tol))
-    if took != [variant]:
-        raise AssertionError('expected one launch of the {} variant'.format(
-            variant))
+    print('tail kernel vs plain ({}): B={} {} {} mask_block={} launches, '
+          'blocked={}: max_abs_err={:.3e} (tol {:.0e})'.format(
+              label, b, str(dtype).split('.')[-1], shape, mask_block, took,
+              err, tol))
+    if took != (1, int(mask_block in (2, 4))):
+        raise AssertionError('expected one launch, {} blocked masks'.format(
+            'on' if mask_block in (2, 4) else 'not on'))
     if not err <= tol:
         raise AssertionError('tail kernel disagrees with its plain version')
     return err
@@ -815,14 +816,14 @@ def check_tail_cases(gen):
             err_bf16 = max(err_bf16, check_tail(gen, b, torch.bfloat16,
                                                 mask_block=mask_block))
             check_tail(gen, b, torch.float32, mask_block=mask_block)
-    for label, variant, case in TAIL_CASES:
+    for label, case in TAIL_CASES:
         shape = dict({'b': 6, 'h': 20, 'w': 36}, **case)
         blocks = shape.pop('blocks')
         b = shape.pop('b')
         for mask_block in blocks:
             for dtype in (torch.bfloat16, torch.float32):
                 for ones in (False, True):
-                    check_tail(gen, b, dtype, variant, label, mask_block,
+                    check_tail(gen, b, dtype, label, mask_block,
                                ones=ones, **shape)
     # the registration paths: two designated pixels a camera, C + P = 5, at
     # the benchmark's 768 samples and the two-camera experiment's 200
@@ -830,9 +831,8 @@ def check_tail_cases(gen):
         for mask_block in (MASK_BLOCK, 0):
             for dtype in (torch.bfloat16, torch.float32):
                 for ones in (False, True):
-                    err = check_tail(gen, b, dtype, 'tiled',
-                                     'registration shape', mask_block,
-                                     ones=ones, p=REG_P)
+                    err = check_tail(gen, b, dtype, 'registration shape',
+                                     mask_block, ones=ones, p=REG_P)
                     if dtype == torch.bfloat16 and not ones:
                         reg_bf16 = max(reg_bf16, err)
     return err_bf16, reg_bf16
@@ -850,17 +850,14 @@ def reset_tail_counts():
     fused_warp_composite_dna.launches = 0
     conv_lstm_ln.launches = 0
     bias_layer_norm.launches = 0
-    for v in fused_warp_composite.launches_by_variant:
-        fused_warp_composite.launches_by_variant[v] = 0
 
 
 def read_tail_counts(path, want, hp):
     """The launches since ``reset_tail_counts``: ``want`` in all, each
     through the entry and on the mask layout that the architecture ``hp``
     gives (a predictor's ``_hp``, or ``model_hp`` of a model).  DNA runs the DNA mode (the field made inside the
-    kernel), never the field-given entry; CDNA the folded entry's tiled
-    variant (never the general one), on blocked masks where the
-    space-to-depth backbone keeps
+    kernel), never the field-given entry; CDNA the folded entry, on blocked
+    masks where the space-to-depth backbone keeps
     its low-resolution softmax (the serving predictor), else on
     full-resolution masks (the classic backbone).  Every step of those
     launches the conv-LSTM kernel once a cell (``lstm_launches``: 3 on the
@@ -868,9 +865,9 @@ def read_tail_counts(path, want, hp):
     LayerNorm ``norm_launches`` times (2 on the classic backbone, none on
     the space-to-depth one).  Returns the counters as read, by kernel
     entry: ``{'cdna_tail': n, 'cdna_tail_eff': n, 'cdna_tail_dna': n,
-    'cdna_tail_general': n, 'conv_lstm_ln': n, 'bias_layer_norm': n}``."""
+    'conv_lstm_ln': n, 'bias_layer_norm': n}``."""
     from visual_foresight_torch.ops.cdna_tail import (
-        VARIANTS, fused_warp_composite, fused_warp_composite_dna,
+        fused_warp_composite, fused_warp_composite_dna,
         fused_warp_composite_eff)
     from visual_foresight_torch.ops.conv_lstm_ln import (bias_layer_norm,
                                                          conv_lstm_ln)
@@ -879,21 +876,16 @@ def read_tail_counts(path, want, hp):
     want_folded, want_dna = (0, want) if dna else (want, 0)
     launches = fused_warp_composite.launches
     on_blocks = fused_warp_composite.blocked_launches
-    by_variant = dict(fused_warp_composite.launches_by_variant)
     eff = fused_warp_composite_eff.launches
     dna_launches = fused_warp_composite_dna.launches
-    print('{} path: {} tail kernel launches (expected {}, all tiled), by '
-          'variant {}, {} on blocked masks; {} DNA-mode launches (expected '
-          '{}), {} of the field-given entry (expected 0)'.format(
-              path, launches, want_folded, by_variant, on_blocks,
-              dna_launches, want_dna, eff))
+    print('{} path: {} tail kernel launches (expected {}), {} on blocked '
+          'masks; {} DNA-mode launches (expected {}), {} of the field-given '
+          'entry (expected 0)'.format(path, launches, want_folded, on_blocks,
+                                      dna_launches, want_dna, eff))
     if launches != want_folded or dna_launches != want_dna or eff:
         raise AssertionError('the {} path did not run the tail kernels {}, '
                              '{} and 0 times'.format(path, want_folded,
                                                      want_dna))
-    if by_variant != {v: want_folded * (v == 'tiled') for v in VARIANTS}:
-        raise AssertionError('the {} path left the tiled variant'.format(
-            path))
     if on_blocks != (want_folded if blocked else 0):
         raise AssertionError('the {} path did not keep its masks {}'.format(
             path, 'blocked' if blocked else 'at full resolution'))
@@ -911,7 +903,6 @@ def read_tail_counts(path, want, hp):
                              'times, not {}'.format(path, norms, want_norms))
     return {'cdna_tail': launches, 'cdna_tail_eff': eff,
             'cdna_tail_dna': dna_launches,
-            'cdna_tail_general': by_variant['general'],
             'conv_lstm_ln': cells, 'bias_layer_norm': norms}
 
 
@@ -1775,78 +1766,34 @@ def time_tail(gen, b, card):
     return res
 
 
-def launch_general(prev, first, prev_distrib, first_distrib, kernels, masks,
-                   mask_block):
-    """One launch of the tail's general variant (SNA) through the C entry
-    point, whatever the shape: the wrapper chooses it only for block
-    factors that no model builds, so this is how it is timed at a served
-    shape.  Not counted among the wrapper's launches."""
-    from visual_foresight_torch.ops import cdna_tail
-    b, h, w, c = prev.shape
-    out_img, out_distrib = torch.empty_like(prev), torch.empty_like(
-        prev_distrib)
-    err = cdna_tail._kernel()(
-        prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
-        first_distrib.data_ptr(), kernels.data_ptr(), masks.data_ptr(),
-        out_img.data_ptr(), out_distrib.data_ptr(), b, h, w, c,
-        prev_distrib.shape[-1], kernels.shape[1], kernels.shape[3], 1,
-        cdna_tail._DTYPES[prev.dtype], mask_block,
-        cdna_tail.VARIANTS.index('general'),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError('general variant launch failed: cudaError {}'
-                           .format(err))
-    return out_img, out_distrib
-
-
 def time_two_planes(gen, b, tiled_ms, card):
-    """The tiled variant on two packed planes at the registration path's
+    """The tail kernel on two packed planes at the registration path's
     tail shape (batch ``b``, 48x64, C=3, P=2, blocked masks r=4, bf16):
     kernel and plain version (CUDA graph, CUDA events) beside its bound and
-    the tiled variant's time at P=1 (``tiled_ms``); then the general
-    variant, which no served path launches, forced at the same shape and
-    held against the plain version.  Returns the numbers, the general
-    variant's under ``'general'``."""
+    the kernel's time at P=1 (``tiled_ms``).  Returns the numbers."""
     from visual_foresight_torch.ops.cdna_tail import (
-        fused_warp_composite, fused_warp_composite_reference, kernel_variant)
-    if kernel_variant(C, REG_P, MASK_BLOCK) != 'tiled':
-        raise AssertionError('the registration shape is not the tiled '
-                             'variant\'s')
+        fused_warp_composite, fused_warp_composite_reference)
     sets = [tail_inputs(gen, b, torch.bfloat16, p=REG_P,
                         mask_block=MASK_BLOCK) for _ in range(4)]
     res = {'ms': graph_ms(lambda *a: fused_warp_composite(
         *a, sna=True, mask_block=MASK_BLOCK), sets, reps=100),
            'plain_ms': graph_ms(lambda *a: fused_warp_composite_reference(
                *a, sna=True, mask_block=MASK_BLOCK), sets, reps=10)}
-    general_ms = graph_ms(lambda *a: launch_general(*a, MASK_BLOCK), sets,
-                          reps=100)
     outs = fused_warp_composite_reference(*sets[0], sna=True,
                                           mask_block=MASK_BLOCK)
     res['bound_ms'], res['bound_by'], bytes_ms = tail_bound(sets[0], outs,
                                                             sna=True)
-    general_err = max(float((g.float() - w.float()).abs().max())
-                      for g, w in zip(launch_general(*sets[0], MASK_BLOCK),
-                                      outs))
     del sets, outs
-    res['general'] = dict(res, ms=general_ms, max_abs_err=general_err)
-    for name, ms in (('tiled_two_planes', res['ms']), ('general', general_ms)):
-        share = bytes_ms / ms
-        print('cdna_tail_{}_kernel_ms={:.5f} plain_ms={:.5f} bound_ms={:.5f} '
-              '(by {}), {:.1%} of 3.35 TB/s, {:.2f}x the tiled variant at '
-              'P=1 ({:.5f} ms) (B={} bf16, 48x64, C=3, P=2, blocked masks '
-              'r=4, CUDA graph, CUDA events) [{}]'.format(
-                  name, ms, res['plain_ms'], res['bound_ms'], res['bound_by'],
-                  share, ms / tiled_ms, tiled_ms, b, card))
-        if share > 1.0:
-            raise AssertionError('the {} variant moved its bytes faster than '
-                                 'the card can: the timing is wrong'.format(
-                                     name))
-    print('general variant forced at the registration shape vs plain: '
-          'max_abs_err={:.3e} (tol {:.0e})'.format(
-              general_err, TAIL_TOL[torch.bfloat16]))
-    if not general_err <= TAIL_TOL[torch.bfloat16]:
-        raise AssertionError('the general variant disagrees with its plain '
-                             'version')
+    share = bytes_ms / res['ms']
+    print('cdna_tail_tiled_two_planes_kernel_ms={:.5f} plain_ms={:.5f} '
+          'bound_ms={:.5f} (by {}), {:.1%} of 3.35 TB/s, {:.2f}x the kernel '
+          'at P=1 ({:.5f} ms) (B={} bf16, 48x64, C=3, P=2, blocked masks '
+          'r=4, CUDA graph, CUDA events) [{}]'.format(
+              res['ms'], res['plain_ms'], res['bound_ms'], res['bound_by'],
+              share, res['ms'] / tiled_ms, tiled_ms, b, card))
+    if share > 1.0:
+        raise AssertionError('the two-plane kernel moved its bytes faster '
+                             'than the card can: the timing is wrong')
     return res
 
 
@@ -1856,7 +1803,7 @@ REG96_SHAPE = dict(b=400, h=96, w=128, c=C, p=REG_P)
 
 
 def check_two_planes_96x128(gen, card):
-    """The tiled variant on two packed planes at the sawyer registration
+    """The tail kernel on two packed planes at the sawyer registration
     experiment's tail shape (``REG96_SHAPE``, blocked masks r=4; also at
     full resolution): one launch against the plain version in f32 and
     bf16, on random and on all-one frames, then the bf16 kernel and its
@@ -1864,17 +1811,14 @@ def check_two_planes_96x128(gen, card):
     inputs.  A launch failure or a disagreement raises.  Returns the
     numbers and the largest bf16 error."""
     from visual_foresight_torch.ops.cdna_tail import (
-        fused_warp_composite, fused_warp_composite_reference, kernel_variant)
+        fused_warp_composite, fused_warp_composite_reference)
     shape = dict(REG96_SHAPE)
     b = shape.pop('b')
-    if kernel_variant(shape['c'], shape['p'], MASK_BLOCK) != 'tiled':
-        raise AssertionError('the 96x128 registration shape is not the '
-                             'tiled variant\'s')
     err = 0.0
     for mask_block in (MASK_BLOCK, 0):
         for dtype in (torch.bfloat16, torch.float32):
             for ones in (False, True):
-                e = check_tail(gen, b, dtype, 'tiled',
+                e = check_tail(gen, b, dtype,
                                'sawyer registration at 96x128', mask_block,
                                ones=ones, **shape)
                 if dtype == torch.bfloat16:
@@ -1920,11 +1864,12 @@ def report_two_plane_tiles(gen, b, card):
     Returns the numbers by shape."""
     import ctypes
     from visual_foresight_torch.ops import _build, cdna_tail
+    from visual_foresight_torch.ops.dispatch import DTYPES
     query = _build.load(cdna_tail.SOURCE).cdna_tail_tiled_occupancy
     query.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
     query.restype = ctypes.c_int
     blocks, smem = ctypes.c_int(), ctypes.c_int()
-    err = query(C, REG_P, K, NUM_MASKS, cdna_tail._DTYPES[torch.bfloat16],
+    err = query(C, REG_P, K, NUM_MASKS, DTYPES[torch.bfloat16],
                 ctypes.byref(blocks), ctypes.byref(smem))
     if err or blocks.value < 1:
         raise RuntimeError('the tiled variant\'s occupancy query failed: '
@@ -2492,7 +2437,7 @@ def reset_train_counts():
 
 def read_train_counts(path, steps, model_steps):
     """The tail's launches since ``reset_train_counts`` on a training path:
-    ``model_steps`` forward launches a train step (tiled, blocked masks) and
+    ``model_steps`` forward launches a train step (blocked masks) and
     as many backward launches, no other entry."""
     from visual_foresight_torch.ops.cdna_tail import (
         fused_warp_composite, fused_warp_composite_backward,
@@ -2500,11 +2445,10 @@ def read_train_counts(path, steps, model_steps):
     fwd, bwd = fused_warp_composite.launches, \
         fused_warp_composite_backward.launches
     want = steps * model_steps
-    print('{}: {} train steps, {} forward tail launches ({} a step, by '
-          'variant {}, {} on blocked masks) and {} backward kernel launches '
-          '({} a step); expected {} each'.format(
+    print('{}: {} train steps, {} forward tail launches ({} a step, {} on '
+          'blocked masks) and {} backward kernel launches ({} a step); '
+          'expected {} each'.format(
               path, steps, fwd, fwd / max(steps, 1),
-              dict(fused_warp_composite.launches_by_variant),
               fused_warp_composite.blocked_launches, bwd,
               bwd / max(steps, 1), want))
     if fwd != want or bwd != want or fused_warp_composite_eff.launches or \
@@ -2512,10 +2456,9 @@ def read_train_counts(path, steps, model_steps):
         raise AssertionError('the {} path did not run {} forward and {} '
                              'backward tail launches'.format(path, want,
                                                              want))
-    if fused_warp_composite.launches_by_variant['tiled'] != want or \
-            fused_warp_composite.blocked_launches != want:
-        raise AssertionError('the {} path left the tiled variant or the '
-                             'blocked masks'.format(path))
+    if fused_warp_composite.blocked_launches != want:
+        raise AssertionError('the {} path left the blocked masks'.format(
+            path))
     return {'cdna_tail': fwd, 'cdna_tail_bwd': bwd, 'cdna_tail_eff': 0,
             'cdna_tail_dna': 0}
 
@@ -5649,17 +5592,16 @@ def drive_dryrun(card):
         _, span = event_span(lambda: dryrun_multichip.run(n, 'cuda'))
     fwd, bwd = fused_warp_composite.launches, \
         fused_warp_composite_backward.launches
-    by_variant = dict(fused_warp_composite.launches_by_variant)
     blocked = fused_warp_composite.blocked_launches
     print('dryrun_multichip({}): {} forward tail launches (expected {} = {} '
-          'train + {} small replan + {} flagship), by variant {}, {} on '
-          'blocked masks (expected {}); {} backward (expected {}); plain '
-          'calls {}; span {:.3f} ms (the models\' builds and the flagship\'s '
-          'restore included) [{}]'.format(
-              n, fwd, train + small + flag, train, small, flag, by_variant,
-              blocked, flag, bwd, train, plain.calls, span, card))
+          'train + {} small replan + {} flagship), {} on blocked masks '
+          '(expected {}); {} backward (expected {}); plain calls {}; span '
+          '{:.3f} ms (the models\' builds and the flagship\'s restore '
+          'included) [{}]'.format(
+              n, fwd, train + small + flag, train, small, flag, blocked, flag,
+              bwd, train, plain.calls, span, card))
     if fwd != train + small + flag or bwd != train or blocked != flag or \
-            by_variant['tiled'] != fwd or plain.calls or \
+            plain.calls or \
             fused_warp_composite_eff.launches or \
             fused_warp_composite_dna.launches:
         raise AssertionError('dryrun_multichip did not run the kernels as '
@@ -6145,7 +6087,6 @@ def main():
     planes = {b: time_two_planes(gen, b, tails[b]['blocked_ms'], card)
               for b in TWO_PLANE_BATCHES}
     two_planes = planes[REG_POLICY['num_samples']]
-    general = two_planes.pop('general')
     two_planes_96x128 = check_two_planes_96x128(gen, card)
     report_two_plane_tiles(gen, REG96_SHAPE['b'], card)
     profile_replan(lambda: replan(*contexts[0], generator=plan_gen))
@@ -6269,14 +6210,7 @@ def main():
             # the sawyer registration experiment's shape
             at_96x128=dict(two_planes_96x128, library_ms=None,
                            shape='B=400 96x128 C=3 P=2 blocked masks r=4 '
-                                 'bf16')),
-        # the general variant: on no served path (read_tail_counts asserts
-        # 0 launches on each), timed forced at the registration shape
-        'general_variant': dict(
-            general, launches=sum(n.get('cdna_tail_general', 0)
-                                  for n in paths.values()),
-            library_ms=None,
-            shape='B=768 48x64 C=3 P=2 blocked masks r=4 bf16')}, {
+                                 'bf16'))}, {
         # the source's second kernel, cdna_tail_eff_kernel: its DNA mode
         # on the DNA paths (the top-level numbers), its field-given entry
         # (the Pallas function's own contract) on none

@@ -168,5 +168,5 @@ def test_dna_entry_checks_and_dispatch():
         cdna_tail._check_dna(*args[:5], args[5].double(), True)
     with pytest.raises(ValueError, match='contiguous'):
         cdna_tail._check_dna(*args[:5], args[5].transpose(1, 2), True)
-    with pytest.raises(ValueError, match='no CDNA tail kernel'):
+    with pytest.raises(ValueError, match='no hand-written kernel'):
         cdna_tail.fused_warp_composite_dna(*(a.to('meta') for a in args))

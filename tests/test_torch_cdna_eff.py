@@ -123,5 +123,5 @@ def test_eff_entry_checks_and_dispatch():
     with pytest.raises(ValueError, match='bfloat16'):
         cdna_tail._check_eff(*args[:4], args[4].to(torch.bfloat16), args[5],
                              True)
-    with pytest.raises(ValueError, match='no CDNA tail kernel'):
+    with pytest.raises(ValueError, match='no hand-written kernel'):
         cdna_tail.fused_warp_composite_eff(*(a.to('meta') for a in args))

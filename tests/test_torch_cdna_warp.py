@@ -178,13 +178,44 @@ def test_plain_tail_blocked_masks_match_both_pallas_kernels(sna):
         _close(got[1], want[1], F32_TOL)
 
 
-@pytest.mark.parametrize('c,p,mask_block,want', [
-    (3, 1, 0, 'tiled'), (3, 1, 4, 'tiled'), (3, 0, 2, 'tiled'),
-    (1, 3, 1, 'tiled'), (1, 4, 0, 'tiled'), (4, 4, 4, 'tiled'),
-    (3, 2, 4, 'tiled'), (4, 4, 0, 'tiled'), (3, 2, 3, 'general'),
-    (3, 1, 8, 'general'), (3, 1, 3, 'general')])
-def test_kernel_variant_is_chosen_by_shape(c, p, mask_block, want):
-    assert cdna_tail.kernel_variant(c, p, mask_block) == want
+@pytest.mark.parametrize('c,p,mask_block', [
+    (3, 1, 0), (3, 1, 4), (3, 0, 2), (1, 3, 1), (1, 4, 0), (4, 4, 4),
+    (3, 2, 4), (4, 4, 0), (3, 2, 3), (3, 1, 8), (3, 1, 3)])
+def test_folded_entry_hands_the_kernel_masks_it_reads(c, p, mask_block,
+                                                      monkeypatch):
+    """On a kernel path (``route`` made to say ``'kernel'``, the launch
+    stood in for by the plain version), the folded entry hands the launch
+    the masks blocked at r = 2 and 4 and at full resolution at 0, 1 and any
+    other block factor (3, 8: expanded, contiguous), and gives exactly what
+    the plain version gives on the masks as they came."""
+    handed = []
+
+    def launch(*args):
+        handed.append((tuple(args[5].shape), args[7],
+                       args[5].is_contiguous()))
+        return cdna_tail.fused_warp_composite_reference(*args)
+
+    monkeypatch.setattr(cdna_tail, 'route', lambda *tensors: 'kernel')
+    monkeypatch.setattr(cdna_tail, '_launch', launch)
+    gen = torch.Generator().manual_seed(c * 100 + p * 10 + mask_block)
+    b, h, w, m = 2, 24, 48, 3               # h, w divisible by 2, 3, 4 and 8
+    full = torch.softmax(torch.randn((b, h, w, m + 2), generator=gen), -1)
+    masks = space_to_depth(full, mask_block).contiguous() \
+        if mask_block > 1 else full
+    kernels = twarp.normalize_kernels(torch.rand((b, K, K, m),
+                                                 generator=gen))
+    args = [torch.rand((b, h, w, n), generator=gen) for n in (c, c, p, p)]
+    args += [kernels, masks]
+    got = cdna_tail.fused_warp_composite(*args, sna=True,
+                                         mask_block=mask_block)
+    want = cdna_tail.fused_warp_composite_reference(*args, sna=True,
+                                                    mask_block=mask_block)
+    if mask_block in (2, 4):
+        assert handed == [(tuple(masks.shape), mask_block, True)]
+    else:
+        want_r = mask_block if mask_block <= 1 else 0
+        assert handed == [((b, h, w, m + 2), want_r, True)]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize('h,w,mask_block,tiles', [
@@ -213,7 +244,7 @@ def test_tail_checks_the_blocked_mask_shape():
 
 def test_tail_raises_on_a_device_without_a_kernel():
     x = torch.zeros((1, 8, 8, 3), device='meta')
-    with pytest.raises(ValueError, match='no CDNA tail kernel'):
+    with pytest.raises(ValueError, match='no hand-written kernel'):
         cdna_tail.fused_warp_composite(x, x, x[..., :1], x[..., :1],
                                        torch.zeros((1, 5, 5, 2),
                                                    device='meta'),

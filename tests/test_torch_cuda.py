@@ -10,8 +10,8 @@ The tail is held against its plain version in both mask layouts (full
 resolution and blocked) at the serving shapes (the registration
 controller's too, C=3 and P=2: two packed planes, at 48x64 and at the
 sawyer registration experiment's 96x128) and at shapes that stress
-the tiled variant's 8 x 64 tiles, four pixels per thread and one or two
-planes of packed channels (the general variant at block factor 3); the
+the tiled kernel's 8 x 64 tiles, four pixels per thread and one or two
+planes of packed channels (block factor 3 expanded to full resolution); the
 frames are random or all ones, so that a wrong halo shows at the border.  The
 effective-kernel entry is held against its plain version at DNA's serving
 shapes and at odd sizes, K 3 to 7, P 0 to 4, SNA on and off; the DNA mode
@@ -120,46 +120,42 @@ def _tail_args(gen, dtype, b, h, w, c=3, p=1, k=5, m=10, sna=True,
         frame(b, h, w, p), kernels, masks))
 
 
-# (id, variant, shape); every case runs in the mask layouts of 'blocks'
-# (0: full resolution), in both types, on random and on all-ones frames
+# (id, shape); every case runs in the mask layouts of 'blocks' (0: full
+# resolution), in both types, on random and on all-ones frames
 TAIL_CASES = [
-    ('serving-200', 'tiled', dict(b=200, h=48, w=64, blocks=(0, 4))),
-    ('serving-768', 'tiled', dict(b=768, h=48, w=64, blocks=(0, 4))),
-    ('smaller-than-a-tile', 'tiled', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
-    ('no-multiple-of-the-tile', 'tiled',
-     dict(b=6, h=20, w=36, blocks=(0, 2, 4))),
-    ('odd-sizes', 'tiled', dict(b=3, h=13, w=10, blocks=(0,))),
-    ('several-tiles-across', 'tiled', dict(b=2, h=16, w=136, blocks=(0, 4))),
-    ('batch-1', 'tiled', dict(b=1, h=48, w=64, blocks=(0, 4))),
-    ('k3', 'tiled', dict(b=6, h=20, w=36, k=3, blocks=(0, 4))),
-    ('k7', 'tiled', dict(b=6, h=20, w=36, k=7, blocks=(0, 4))),
-    ('m16', 'tiled', dict(b=6, h=20, w=36, m=16, blocks=(0, 4))),
-    ('m7', 'tiled', dict(b=6, h=20, w=36, m=7, blocks=(0, 4))),
-    ('sna-off', 'tiled', dict(b=6, h=20, w=36, sna=False, blocks=(0, 4))),
-    ('p0', 'tiled', dict(b=6, h=20, w=36, p=0, blocks=(0, 4))),
-    ('sna-off-p0', 'tiled',
-     dict(b=6, h=20, w=36, sna=False, p=0, blocks=(0, 2))),
-    ('c1-p4', 'tiled', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
-    ('block-factor-3', 'general', dict(b=6, h=18, w=36, blocks=(3,))),
+    ('serving-200', dict(b=200, h=48, w=64, blocks=(0, 4))),
+    ('serving-768', dict(b=768, h=48, w=64, blocks=(0, 4))),
+    ('smaller-than-a-tile', dict(b=2, h=8, w=8, blocks=(0, 2, 4))),
+    ('no-multiple-of-the-tile', dict(b=6, h=20, w=36, blocks=(0, 2, 4))),
+    ('odd-sizes', dict(b=3, h=13, w=10, blocks=(0,))),
+    ('several-tiles-across', dict(b=2, h=16, w=136, blocks=(0, 4))),
+    ('batch-1', dict(b=1, h=48, w=64, blocks=(0, 4))),
+    ('k3', dict(b=6, h=20, w=36, k=3, blocks=(0, 4))),
+    ('k7', dict(b=6, h=20, w=36, k=7, blocks=(0, 4))),
+    ('m16', dict(b=6, h=20, w=36, m=16, blocks=(0, 4))),
+    ('m7', dict(b=6, h=20, w=36, m=7, blocks=(0, 4))),
+    ('sna-off', dict(b=6, h=20, w=36, sna=False, blocks=(0, 4))),
+    ('p0', dict(b=6, h=20, w=36, p=0, blocks=(0, 4))),
+    ('sna-off-p0', dict(b=6, h=20, w=36, sna=False, p=0, blocks=(0, 2))),
+    ('c1-p4', dict(b=6, h=20, w=36, c=1, p=4, blocks=(0, 2))),
+    ('block-factor-3', dict(b=6, h=18, w=36, blocks=(3,))),
     # the registration controller's shape: two designated pixels a camera
     # (a task's start and goal registrations), C + P = 5: two packed planes
-    ('registration-768-c3-p2', 'tiled',
-     dict(b=768, h=48, w=64, p=2, blocks=(4, 0))),
+    ('registration-768-c3-p2', dict(b=768, h=48, w=64, p=2, blocks=(4, 0))),
     # the sawyer registration experiment's: 400 samples a camera at 96x128
-    ('registration-96x128-400-c3-p2', 'tiled',
+    ('registration-96x128-400-c3-p2',
      dict(b=400, h=96, w=128, p=2, blocks=(4, 0))),
     # two packed planes (4 < C + P <= 8) in all three layouts (13 x 10 takes
     # no blocked layout)
-    ('two-planes-c3-p3-sna-off', 'tiled',
+    ('two-planes-c3-p3-sna-off',
      dict(b=6, h=20, w=36, p=3, sna=False, blocks=(0, 2, 4))),
-    ('two-planes-c4-p4', 'tiled',
-     dict(b=6, h=20, w=36, c=4, p=4, blocks=(0, 2, 4))),
-    ('two-planes-c4-p1-k7-m16', 'tiled',
+    ('two-planes-c4-p4', dict(b=6, h=20, w=36, c=4, p=4, blocks=(0, 2, 4))),
+    ('two-planes-c4-p1-k7-m16',
      dict(b=6, h=20, w=36, c=4, p=1, k=7, m=16, blocks=(0, 2, 4))),
-    ('two-planes-odd-sizes', 'tiled', dict(b=3, h=13, w=10, p=2, blocks=(0,))),
-    ('two-planes-several-tiles-across', 'tiled',
+    ('two-planes-odd-sizes', dict(b=3, h=13, w=10, p=2, blocks=(0,))),
+    ('two-planes-several-tiles-across',
      dict(b=2, h=16, w=136, p=2, blocks=(0, 2, 4))),
-    ('two-planes-batch-1', 'tiled',
+    ('two-planes-batch-1',
      dict(b=1, h=48, w=64, p=2, blocks=(0, 2, 4))),
 ]
 
@@ -171,7 +167,7 @@ TAIL_CASES = [
 def test_tail_kernel_variants_match_plain_on_card(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    _, variant, shape = case
+    _, shape = case
     shape = dict(shape)
     blocks = shape.pop('blocks')
     sna = shape.get('sna', True)
@@ -180,14 +176,15 @@ def test_tail_kernel_variants_match_plain_on_card(case, dtype):
         for ones in (False, True):
             args = _tail_args(gen, dtype, mask_block=mask_block, ones=ones,
                               **shape)
-            before = dict(fused_warp_composite.launches_by_variant)
+            before = (fused_warp_composite.launches,
+                      fused_warp_composite.blocked_launches)
             got = fused_warp_composite(*args, sna=sna, mask_block=mask_block)
             want = fused_warp_composite_reference(*args, sna=sna,
                                                   mask_block=mask_block)
             torch.cuda.synchronize()
-            after = fused_warp_composite.launches_by_variant
-            assert {v: after[v] - before[v] for v in after} == \
-                {v: int(v == variant) for v in after}
+            assert (fused_warp_composite.launches - before[0],
+                    fused_warp_composite.blocked_launches - before[1]) == \
+                (1, int(mask_block in (2, 4)))
             for g, r in zip(got, want):
                 assert g.dtype == dtype and g.shape == r.shape
                 if g.numel():
@@ -949,8 +946,8 @@ def test_classic_replan_counts_its_launches_on_card():
     samples x 3 steps x 2 iterations: 5 launches of the conv-LSTM kernel a
     model step, 2 of the stand-alone LayerNorm (``ln0``, ``ln6``) and one
     of the tail a step (the context step at batch 1 too), every one the
-    folded tail's tiled variant on full-resolution masks; no blocked masks,
-    no DNA launch."""
+    folded tail on full-resolution masks; no blocked masks, no DNA
+    launch."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
     import numpy as np
@@ -974,7 +971,6 @@ def test_classic_replan_counts_its_launches_on_card():
     distribs[:, :, 24, 32, 0] = 1.0
     counters = lambda: (conv_lstm_ln.launches, bias_layer_norm.launches,
                         fused_warp_composite.launches,
-                        fused_warp_composite.launches_by_variant['tiled'],
                         fused_warp_composite.blocked_launches,
                         fused_warp_composite_dna.launches)
     before = counters()
@@ -987,7 +983,7 @@ def test_classic_replan_counts_its_launches_on_card():
     steps = 1 + 2 * 3
     after = counters()
     assert [a - b for a, b in zip(after, before)] == \
-        [5 * steps, 2 * steps, steps, steps, 0, 0]
+        [5 * steps, 2 * steps, steps, 0, 0]
 
 
 # (label, leading shape, F): ln0's and ln6's shapes at a small batch, and

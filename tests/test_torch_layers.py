@@ -12,8 +12,17 @@ from visual_foresight_tpu.models import layers as jlayers
 from visual_foresight_torch.models import layers as tlayers
 from visual_foresight_torch.models.convert import (load_flax_params,
                                                    params_from_flax)
+from visual_foresight_torch.ops.dispatch import route
 
 TOL = 1e-5
+
+
+def route_on_card(*tensors):
+    """``route`` as it answers for tensors on a CUDA device: its device
+    test stood in for, its grad test as it is."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, 'is_cuda', property(lambda t: True))
+        return route(*tensors)
 
 
 def _np_tree(params):
@@ -204,9 +213,10 @@ def test_conv_lstm_ln_on_cpu_is_its_plain_version(dtype, with_r):
 
 @pytest.mark.parametrize('form', ['dense', 'separable', 'external_x'])
 def test_forward_norm_routes_by_grad_need(form, monkeypatch):
-    """The route's grad half, which the CPU can see: autograd records a
-    graph only under grad mode with a tensor that needs a gradient, and
-    there the cell keeps the stock ops and their gradients; off the card the
+    """The route's grad half, asked of ``route`` with its device test
+    stood in for (``route_on_card``): ``'graph'`` only under grad mode
+    with a tensor that needs a gradient, and there the cell keeps the stock
+    ops and their gradients; off the card ``route`` says ``'plain'`` and the
     kernel's entry is never called, in any grad mode.  The card's half is
     ``tests/test_torch_cuda.py::test_forward_norm_routes_by_grad_need_on_card``.
     """
@@ -222,13 +232,14 @@ def test_forward_norm_routes_by_grad_need(form, monkeypatch):
     params = list(cell.parameters()) + list(ln.parameters())
     want = _stock_cell_and_norm(cell, ln, state, x)
     with torch.no_grad():
-        assert not tlayers._records_graph(x, None, *params)
+        assert route_on_card(x, None, *params) == 'kernel'
+        assert route(x, None, *params) == 'plain'
         (c, h), y = cell.forward_norm(state, x, ln)
     for got, ref in zip((c, h, y), want):
         assert torch.equal(got, ref)
 
-    assert tlayers._records_graph(x, None, *params)
-    assert not tlayers._records_graph(x, None, *state)
+    assert route_on_card(x, None, *params) == 'graph'
+    assert route_on_card(x, None, *state) == 'kernel'
     (c, h), y = cell.forward_norm(state, x, ln)       # grad: stock ops
     assert y.requires_grad
     (y.sum() + c.sum()).backward()
@@ -244,7 +255,7 @@ def test_forward_norm_routes_by_grad_need(form, monkeypatch):
 
     for p in params:
         p.requires_grad_(False)
-    assert not tlayers._records_graph(x, None, *params)
+    assert route_on_card(x, None, *params) == 'kernel'
     (c, h), y = cell.forward_norm(state, x, ln)  # grad on, nothing needs one
     assert not y.requires_grad and torch.equal(y, want[2])
     assert calls == []
@@ -370,8 +381,9 @@ def test_conv_norm_fold_is_the_stock_chain_in_f32(route):
 
 def test_layer_norm_routes_by_device_and_grad(monkeypatch):
     """``LayerNorm.forward`` off the card never calls the kernel's entry,
-    in any grad mode; ``_norm_on_card`` is false there, and would record a
-    graph only under grad mode with a tensor that needs a gradient."""
+    in any grad mode (``route`` says ``'plain'`` there); on the card it
+    would say ``'graph'`` only under grad mode with a tensor that needs a
+    gradient."""
     calls = []
     monkeypatch.setattr(tlayers, 'bias_layer_norm',
                         lambda *a: calls.append(a))
@@ -382,11 +394,11 @@ def test_layer_norm_routes_by_device_and_grad(monkeypatch):
     for grad in (False, True):
         with torch.set_grad_enabled(grad):
             assert torch.equal(ln(x), want)
-            assert not tlayers._norm_on_card(ln, x)
+            assert route(x, ln.weight, ln.bias) == 'plain'
     assert calls == []
-    assert tlayers._records_graph(x, None, ln.weight)
+    assert route_on_card(x, None, ln.weight) == 'graph'
     with torch.no_grad():
-        assert not tlayers._records_graph(x, None, ln.weight)
+        assert route_on_card(x, None, ln.weight) == 'kernel'
 
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],

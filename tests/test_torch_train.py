@@ -39,6 +39,7 @@ import pytest
 import torch
 
 from tests.test_torch_planner import few_torch_threads  # noqa: F401
+from tests.test_torch_layers import route_on_card
 from visual_foresight_tpu.models.cdna import CDNAPredictor as JaxPredictor
 from visual_foresight_tpu.models.latent import PosteriorEncoder as JaxPosterior
 from visual_foresight_tpu.training import train_predictor as jtrain
@@ -483,11 +484,12 @@ class _Reached(Exception):
 
 @pytest.mark.parametrize('entry', ['eff', 'dna', 'folded-with-distribs'])
 def test_entries_without_a_backward_raise_under_grad(entry, monkeypatch):
-    """On a kernel path (the device check made to say so), the field-given
+    """On a kernel path (``route`` made to answer as on the card), the
+    field-given
     entry, the DNA mode, and the folded entry with P > 0 raise when an input
     needs a gradient, before any launch; under ``no_grad`` they go on to
     the launch."""
-    monkeypatch.setattr(cdna_tail, '_uses_kernel', lambda t: True)
+    monkeypatch.setattr(cdna_tail, 'route', route_on_card)
     launched = []
 
     def stand_in(name):
@@ -522,7 +524,7 @@ def test_folded_entry_records_its_backward_on_a_kernel_path(monkeypatch):
     ``fused_warp_composite_backward`` once with the gradients asked for
     (``first`` needs none), and the gradients equal autograd of the plain
     version.  The launches are stood in for by the plain versions."""
-    monkeypatch.setattr(cdna_tail, '_uses_kernel', lambda t: True)
+    monkeypatch.setattr(cdna_tail, 'route', route_on_card)
     calls = []
 
     def launch(*a):

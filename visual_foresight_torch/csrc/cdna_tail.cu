@@ -42,17 +42,11 @@
 // taps cost 200 FMAs a pixel instead of 100 (460 in all, 2.2 GFLOP, 32 us):
 // bound by bytes still, with the FMAs nearer the bound.
 //
-// What held the first design back (the "general" variant below: one thread
-// per pixel, everything but the CDNA kernels read straight from global
-// memory): it executed about 370 load/store instructions per pixel beside its
-// 350 FMAs - 250 scalar shared loads of kernel values, 100 two-byte
-// neighbour loads at a 6-byte stride, 12 two-byte mask loads at a 24-byte
-// stride between neighbouring threads.  It ran at 8.8-9.3 times its byte
-// bound, limited by the rate of load/store instructions and not by device
-// memory.
-//
-// The "tiled" variant is the redesign.  One block of 128 threads owns a tile
-// of 8 rows x 64 columns of one sample:
+// The first design (one thread a pixel, everything but the CDNA kernels read
+// straight from global memory) ran at 8.8-9.3 times its byte bound, limited
+// by its 370 load/store instructions a pixel beside 350 FMAs, not by device
+// memory; so the kernel is tiled.  One block of 128 threads owns a tile of 8
+// rows x 64 columns of one sample:
 //   * the tensors' bytes pass through shared memory as they are.  Where a
 //     tile's input window (with its halo), its part of the SNA background and
 //     its masks (in either layout) are each one run of whole 16-byte words -
@@ -89,9 +83,8 @@
 // both types: tensor-core fragments (mma.sync.m16n8k16) spread a pixel's
 // taps over the four lanes of a quad, which this sliding window cannot use.
 // It serves K in (3, 5, 7), M <= 16, C and P up to 4 each, r in (1, 2, 4),
-// any H and W; the general variant serves the other block factors, which no
-// model builds.  The caller names the variant; the choice depends on shapes
-// alone.
+// any H and W; the caller expands masks of another block factor, which no
+// model builds, to full resolution.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,110 +103,9 @@ __device__ __forceinline__ void from_float(float& d, float v) { d = v; }
 __device__ __forceinline__ void from_float(__nv_bfloat16& d, float v) {
   d = __float2bfloat16(v);
 }
-__device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
-  p[i] = __float2bfloat16(v);
-}
 
 // ---------------------------------------------------------------------------
-// General variant: one thread per output pixel, 256 pixels per block.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-cdna_tail_kernel(const T* __restrict__ prev, const T* __restrict__ first,
-                 const T* __restrict__ prev_distrib,
-                 const T* __restrict__ first_distrib,
-                 const T* __restrict__ kernels, const T* __restrict__ masks,
-                 T* __restrict__ out_img, T* __restrict__ out_distrib, int H,
-                 int W, int C, int P, int M, int sna, int r) {
-  extern __shared__ float s_kernels[];  // [K*K][M] of this block's sample
-  const int b = blockIdx.y;
-  const int kk_m = K * K * M;
-  const T* kb = kernels + (long)b * kk_m;
-  for (int i = threadIdx.x; i < kk_m; i += blockDim.x) s_kernels[i] = load(kb, i);
-  __syncthreads();
-
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= H * W) return;
-  const int h = pix / W;
-  const int w = pix - h * W;
-  const long sample = (long)b * H * W;
-  const long here = sample + pix;
-  const int offset = sna ? 2 : 1;
-  const int n_masks = M + offset;
-
-  const T* mrow;
-  if (r > 1) {
-    const int hb = h / r, wb = w / r;
-    const long cell = ((long)b * (H / r) + hb) * (W / r) + wb;
-    mrow = masks + (cell * r * r + (h - hb * r) * r + (w - wb * r)) * n_masks;
-  } else {
-    mrow = masks + here * n_masks;
-  }
-  const float m0 = load(mrow, 0);
-  const float m1 = sna ? load(mrow, 1) : 0.f;
-  float mt[kMaxMasks];
-#pragma unroll
-  for (int m = 0; m < kMaxMasks; ++m) mt[m] = (m < M) ? load(mrow, offset + m) : 0.f;
-
-  float acc_img[kMaxChannels];
-  float acc_dst[kMaxChannels];
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    acc_img[c] = 0.f;
-    acc_dst[c] = 0.f;
-  }
-
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int hh = h + i - K / 2;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const int ww = w + j - K / 2;
-      const float* kt = s_kernels + (i * K + j) * M;
-      float e = 0.f;
-#pragma unroll
-      for (int m = 0; m < kMaxMasks; ++m)
-        if (m < M) e = fmaf(mt[m], kt[m], e);
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        const long q = sample + (long)hh * W + ww;
-#pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c)
-          if (c < C) acc_img[c] = fmaf(e, load(prev, q * C + c), acc_img[c]);
-#pragma unroll
-        for (int c = 0; c < kMaxChannels; ++c)
-          if (c < P) acc_dst[c] = fmaf(e, load(prev_distrib, q * P + c), acc_dst[c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < C) {
-      float v = load(prev, here * C + c) * m0 + acc_img[c];
-      if (sna) v += load(first, here * C + c) * m1;
-      store(out_img, here * C + c, v);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxChannels; ++c) {
-    if (c < P) {
-      float v = load(prev_distrib, here * P + c) * m0 + acc_dst[c];
-      if (sna) v += load(first_distrib, here * P + c) * m1;
-      store(out_distrib, here * P + c, v);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tiled variant.
+// The tiled kernel.
 // ---------------------------------------------------------------------------
 
 constexpr int kTileW = 64;
@@ -630,7 +522,7 @@ cdna_tail_tiled_kernel(const T* __restrict__ prev, const T* __restrict__ first,
 // global memory) at 2.8-3.4 times its bound was load instructions: per pixel
 // 25 two-byte field loads with neighbouring threads 50 bytes apart, 100
 // neighbour loads at 6- and 2-byte strides behind a bounds test each, for
-// 108 FMAs.  The redesign takes the tiled variant's machinery: one block of
+// 108 FMAs.  The redesign takes the tiled kernel's machinery: one block of
 // 128 threads owns a tile of 8 rows x 64 columns of one sample, and each
 // thread computes four vertically neighbouring pixels;
 //   * the frame and distribution window with its halo, the tile's part of
@@ -719,7 +611,7 @@ cdna_tail_eff_kernel(const T* __restrict__ prev, const T* __restrict__ first,
   T* raw_fd = raw_first + g.io_c.size;
   T* raw_od = raw_out + g.io_c.size;
 
-  // 1. the tensors' bytes into shared memory, as the tiled variant brings them
+  // 1. the tensors' bytes into shared memory, as the tiled kernel brings them
   const SpanT<const T> spans[5] = {
       {prev + g.in_c.origin, raw_prev, g.in_c.rows, g.in_c.len},
       {prev_distrib + g.in_p.origin, raw_pd, g.in_p.rows, P ? g.in_p.len : 0},
@@ -881,19 +773,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int K>
-cudaError_t launch_general(const Args& a) {
-  const dim3 grid((a.H * a.W + kThreads - 1) / kThreads, a.B);
-  const size_t smem = sizeof(float) * K * K * a.M;
-  cdna_tail_kernel<T, K><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.prev), static_cast<const T*>(a.first),
-      static_cast<const T*>(a.prev_distrib), static_cast<const T*>(a.first_distrib),
-      static_cast<const T*>(a.kernels), static_cast<const T*>(a.masks),
-      static_cast<T*>(a.out_img), static_cast<T*>(a.out_distrib), a.H, a.W, a.C, a.P,
-      a.M, a.sna, a.r);
-  return cudaGetLastError();
-}
-
 template <typename T, int K, int MP, int NP>
 cudaError_t launch_tiled(const Args& a, int lg) {
   using S = TiledShape<T, K, MP, NP>;
@@ -920,10 +799,9 @@ cudaError_t launch_tiled_masks(const Args& a, int lg) {
   return launch_tiled<T, K, kMaxMasks, NP>(a, lg);
 }
 
-// the tiled variant packs C + P <= 4 channels into one plane, up to 8 into two
+// the tiled kernel packs C + P <= 4 channels into one plane, up to 8 into two
 template <typename T, int K>
-cudaError_t launch(const Args& a, int variant) {
-  if (variant == 0) return launch_general<T, K>(a);
+cudaError_t launch(const Args& a) {
   const int r = a.r > 1 ? a.r : 1;
   if (a.C + a.P > 2 * kPack || (r != 1 && r != 2 && r != 4)) return cudaErrorInvalidValue;
   const int lg = r == 4 ? 2 : r - 1;
@@ -931,7 +809,7 @@ cudaError_t launch(const Args& a, int variant) {
   return launch_tiled_masks<T, K, 2>(a, lg);
 }
 
-// The tiled variant's residency at a shape, for measurement: the blocks an
+// The tiled kernel's residency at a shape, for measurement: the blocks an
 // SM can hold at the dynamic shared memory its launch asks for.
 template <typename T, int K, int MP, int NP>
 cudaError_t tiled_occupancy(int c_plus_p, int* blocks, int* smem) {
@@ -970,14 +848,14 @@ cudaError_t tiled_occupancy_t(int C, int P, int K, int M, int* blocks, int* smem
 }
 
 template <typename T>
-cudaError_t dispatch_k(int K, const Args& a, int variant) {
+cudaError_t dispatch_k(int K, const Args& a) {
   switch (K) {
     case 3:
-      return launch<T, 3>(a, variant);
+      return launch<T, 3>(a);
     case 5:
-      return launch<T, 5>(a, variant);
+      return launch<T, 5>(a);
     case 7:
-      return launch<T, 7>(a, variant);
+      return launch<T, 7>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1033,31 +911,29 @@ cudaError_t dispatch_eff(int K, const EffArgs& a) {
 }  // namespace
 
 // Plain C entry point for ctypes.  dtype: 0 = float32, 1 = bfloat16.
-// mask_block: the block factor r of the mask layout (0 or 1: full resolution).
-// variant: 0 = general, 1 = tiled (refused for shapes it does not serve).
-// Returns the cudaError_t of the launch (0 on success).
+// mask_block: the block factor r of the mask layout (0 or 1: full
+// resolution; 2 or 4: blocked; any other is refused).  Returns the cudaError_t of the launch (0 on success).
 extern "C" int cdna_tail_forward(const void* prev, const void* first,
                                  const void* prev_distrib, const void* first_distrib,
                                  const void* kernels, const void* masks,
                                  void* out_img, void* out_distrib, int B, int H,
                                  int W, int C, int P, int K, int M, int sna,
-                                 int dtype, int mask_block, int variant,
-                                 void* stream) {
+                                 int dtype, int mask_block, void* stream) {
   if (B <= 0 || B > 65535 || H <= 0 || W <= 0 || C < 1 || C > kMaxChannels ||
-      P < 0 || P > kMaxChannels || M < 1 || M > kMaxMasks || mask_block < 0 ||
-      (variant != 0 && variant != 1))
+      P < 0 || P > kMaxChannels || M < 1 || M > kMaxMasks ||
+      (mask_block != 0 && mask_block != 1 && mask_block != 2 && mask_block != 4))
     return (int)cudaErrorInvalidValue;
   if (mask_block > 1 && (H % mask_block || W % mask_block))
     return (int)cudaErrorInvalidValue;
   const Args a{prev, first, prev_distrib, first_distrib, kernels, masks, out_img,
                out_distrib, B, H, W, C, P, M, sna, mask_block,
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)dispatch_k<float>(K, a, variant);
-  if (dtype == 1) return (int)dispatch_k<__nv_bfloat16>(K, a, variant);
+  if (dtype == 0) return (int)dispatch_k<float>(K, a);
+  if (dtype == 1) return (int)dispatch_k<__nv_bfloat16>(K, a);
   return (int)cudaErrorInvalidValue;
 }
 
-// Plain C entry point of the tiled variant's residency: the blocks of 128
+// Plain C entry point of the tiled kernel's residency: the blocks of 128
 // threads an SM holds at C frame and P distribution channels, K and M, and
 // the dynamic shared memory of one block, in bytes.  dtype as above.
 // Returns the cudaError_t of the query (0 on success).

@@ -36,7 +36,7 @@
 // g_kern partial of 250 serial sums over the block's 128 pixels; at B=16
 // under a fifth of the threads the card holds, so every load's latency
 // showed.  The redesign stages tiles in shared memory, as the forward's
-// tiled variant does:
+// tiled kernel does:
 //   * one block of 256 threads owns a tile of 8 rows x 32 columns of one
 //     sample, one pixel a thread; at K=5 in bf16 a block takes 72 KB of
 //     shared memory and at most 85 registers a thread, so three blocks fit

@@ -5,7 +5,8 @@ at every public boundary; convolutions run on NCHW views of channels-last
 memory, so no layout copy is made.  Submodule names follow the flax
 parameter names, so ``models/convert.py`` maps a flax tree one to one.
 
-On the card, where autograd records no graph, the LayerNorms run through
+Where ``ops/dispatch.py``'s ``route`` says ``'kernel'`` (on the card, no
+autograd graph recorded), the :class:`LayerNorm` modules run through
 ``ops/conv_lstm_ln.py``'s kernels: after a conv-LSTM cell inside the cell's
 launch (``ConvLSTMCell.forward_norm``), after a convolution with the
 convolution's bias folded in (``conv_nhwc_norm``,
@@ -21,6 +22,7 @@ from visual_foresight_torch.ops.conv_lstm_ln import (bias_layer_norm,
                                                      conv_lstm_ln,
                                                      layer_norm_reference,
                                                      lstm_update_reference)
+from visual_foresight_torch.ops.dispatch import route
 
 LN_EPS = 1e-6  # flax's LayerNorm epsilon (torch's default is 1e-5)
 
@@ -47,26 +49,13 @@ def conv_nhwc(x, conv, padding='VALID', with_bias=True):
     return out.permute(0, 2, 3, 1)
 
 
-def _records_graph(*tensors):
-    """Whether autograd records a graph of an op on ``tensors`` (None
-    entries skipped): grad mode is on and one of them needs a gradient."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
-
-
-def _norm_on_card(ln, x, *tensors):
-    """Whether the LayerNorm ``ln`` of what ``x`` and ``tensors`` (the
-    weights that act on it first) give takes ``bias_layer_norm``'s kernel:
-    ``x`` on the card and no autograd graph to record."""
-    return x.is_cuda and not _records_graph(x, ln.weight, ln.bias, *tensors)
-
-
 def conv_nhwc_norm(x, conv, ln, padding='VALID'):
-    """``ln(conv_nhwc(x, conv, padding))``.  On the card, with no autograd
-    graph to record, the convolution runs without its bias and one launch
-    of ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` adds the bias (rounded
-    as the stock add rounds it) and normalises; otherwise the stock ops."""
-    if _norm_on_card(ln, x, conv.weight, conv.bias):
+    """``ln(conv_nhwc(x, conv, padding))``.  Where ``route`` says
+    ``'kernel'``, the convolution runs without its bias and one launch of
+    ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` adds the bias (rounded as
+    the stock add rounds it) and normalises; otherwise the stock ops."""
+    if isinstance(ln, LayerNorm) and \
+            route(x, conv.weight, conv.bias, ln.weight, ln.bias) == 'kernel':
         return bias_layer_norm(conv_nhwc(x, conv, padding, with_bias=False),
                                conv.bias, ln.weight.float(), ln.bias.float(),
                                LN_EPS)
@@ -104,12 +93,13 @@ class ConvTranspose(nn.Module):
         return self._uncropped(x, self.bias)[:, :-1, :-1]
 
     def forward_norm(self, x, ln):
-        """``ln(self(x))``.  On the card, with no autograd graph to record,
-        the transposed convolution runs without its bias and one launch of
+        """``ln(self(x))``.  Where ``route`` says ``'kernel'``, the
+        transposed convolution runs without its bias and one launch of
         ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` adds the bias,
         normalises and crops, reading the uncropped product in place;
         otherwise the stock ops."""
-        if _norm_on_card(ln, x, self.weight, self.bias):
+        if isinstance(ln, LayerNorm) and route(
+                x, self.weight, self.bias, ln.weight, ln.bias) == 'kernel':
             return bias_layer_norm(self._uncropped(x, None)[:, :-1, :-1],
                                    self.bias, ln.weight.float(),
                                    ln.bias.float(), LN_EPS)
@@ -165,14 +155,15 @@ class ConvLSTMCell(nn.Module):
 
     def forward_norm(self, state, x, ln):
         """The step followed by the :class:`LayerNorm` ``ln``: returns
-        ``((c', h'), ln(h'))``.  On the card, with no autograd graph to
-        record (grad mode off, or nothing needing a gradient), the update
-        and the norm are one launch of ``ops/conv_lstm_ln.py``'s kernel,
-        which raises for a width or type it does not take; otherwise the
-        stock ops of :meth:`forward` and ``ln``."""
+        ``((c', h'), ln(h'))``.  Where ``route`` says ``'kernel'`` (on the
+        card, grad mode off or nothing needing a gradient), the update and
+        the norm are one launch of ``ops/conv_lstm_ln.py``'s kernel, which
+        raises for a width or type it does not take; otherwise the stock
+        ops of :meth:`forward` and ``ln``."""
         c, h = state
         x, r = self._gate_addends(h, x)
-        if x.is_cuda and not _records_graph(x, r, c, ln.weight, ln.bias):
+        if isinstance(ln, LayerNorm) and \
+                route(x, r, c, ln.weight, ln.bias) == 'kernel':
             new_c, new_h, y = conv_lstm_ln(
                 x.contiguous(), None if r is None else r.contiguous(),
                 c.contiguous(), ln.weight.float(), ln.bias.float(), LN_EPS)
@@ -191,10 +182,9 @@ class ConvLSTMCell(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm over the channel (last) axis with flax's epsilon; the
     statistics and the affine map run in f32 and the result is cast back to
-    the input dtype.  On the card, with no autograd graph to record, one
-    launch of ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` (which raises
-    for a width, type or layout it does not take); otherwise the stock
-    ops."""
+    the input dtype.  Where ``route`` says ``'kernel'``, one launch of
+    ``ops/conv_lstm_ln.py``'s ``bias_layer_norm`` (which raises for a
+    width, type or layout it does not take); otherwise the stock ops."""
 
     def __init__(self, features):
         super().__init__()
@@ -202,7 +192,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        if _norm_on_card(self, x):
+        if route(x, self.weight, self.bias) == 'kernel':
             return bias_layer_norm(x, None, self.weight.float(),
                                    self.bias.float(), LN_EPS)
         return layer_norm_reference(x, self.weight, self.bias, LN_EPS)

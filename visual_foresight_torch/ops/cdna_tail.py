@@ -10,12 +10,11 @@ r*r*nc) with ``mask_block=r``, as the model's low-resolution mask head
 leaves them (pixel (r*h+i, r*w+j), mask m at channel (i*r+j)*nc + m): the
 kernel indexes either, so the blocked form needs no ``depth_to_space`` copy.
 
-Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
-or raises; a CPU tensor takes :func:`fused_warp_composite_reference`.  The
-source holds two variants, chosen by shape alone (:func:`kernel_variant`):
-the tiled one (shared-memory tiles, 16-byte accesses, four pixels a thread)
-and the general one (one pixel a thread) for the shapes the tiled one does
-not serve.
+Dispatch is by ``dispatch.route``: a CUDA tensor launches the kernel or
+raises; a CPU tensor takes :func:`fused_warp_composite_reference`.  The
+kernel is tiled (shared-memory tiles, 16-byte accesses, four pixels a
+thread) and reads block factors 2 and 4; masks of any other block factor,
+which no model builds, are expanded to full resolution before the launch.
 
 :func:`fused_warp_composite_eff` serves the Pallas function's own contract:
 the per-pixel kernel field (B, H, W, K*K) and the background masks come
@@ -37,34 +36,28 @@ result cut off from the graph.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from visual_foresight_torch.ops import _build
 from visual_foresight_torch.ops.cdna_warp import (RELU_SHIFT, dna_warp,
                                                   effective_pixel_kernels,
                                                   extract_patches)
+from visual_foresight_torch.ops.dispatch import (DTYPES, Entry, no_backward,
+                                                 route)
 from visual_foresight_torch.ops.layout import depth_to_space, space_to_depth
 
 SOURCE = 'cdna_tail.cu'
 BWD_SOURCE = 'cdna_tail_bwd.cu'
 _BWD_TILE = (8, 32)                   # rows, columns of a backward tile
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHANNELS = 4
 _MAX_MASKS = 16
-VARIANTS = ('general', 'tiled')       # the C entry point's variant numbers
-_TILED_PLANES = 2                     # planes of four packed channels
-_TILED_BLOCKS = (1, 2, 4)
-
-
-def kernel_variant(c, p, mask_block):
-    """Which variant of ``csrc/cdna_tail.cu`` serves a call: ``'tiled'``
-    where the frame and distribution channels pack into two planes of four
-    (C + P <= 8) and the mask block factor is 1, 2 or 4; ``'general'``
-    otherwise (no model builds another block factor)."""
-    tiled = c + p <= 4 * _TILED_PLANES and max(mask_block, 1) in _TILED_BLOCKS
-    return 'tiled' if tiled else 'general'
+_KERNEL_BLOCKS = (0, 1, 2, 4)         # the mask block factors the kernel reads
+_PTRS = [ctypes.c_void_p] * 8         # a forward's six inputs, two outputs
+_FORWARD = Entry(SOURCE, 'cdna_tail_forward', _PTRS + [ctypes.c_int] * 10)
+_EFF = Entry(SOURCE, 'cdna_tail_eff_forward', _PTRS + [ctypes.c_int] * 9)
+_DNA = Entry(SOURCE, 'cdna_tail_dna_forward', _PTRS + [ctypes.c_int] * 10)
+_BACKWARD = Entry(BWD_SOURCE, 'cdna_tail_backward',
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9)
 
 
 def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
@@ -98,16 +91,6 @@ def fused_warp_composite_reference(prev, first, prev_distrib, first_distrib,
     return out[..., :c].to(prev.dtype), out[..., c:].to(prev_distrib.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point, with its ctypes signature."""
-    fn = _build.load(SOURCE).cdna_tail_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_tensors(tensors, shapes):
     """The checks both entries share: ``tensors`` (name -> tensor, ``prev``
     first) on one device, of one supported dtype, contiguous, of the
@@ -123,7 +106,7 @@ def _check_tensors(tensors, shapes):
                 name, t.dtype, prev.dtype))
         if not t.is_contiguous():
             raise ValueError('{} must be contiguous'.format(name))
-    if prev.dtype not in _DTYPES:
+    if prev.dtype not in DTYPES:
         raise ValueError('unsupported dtype {}'.format(prev.dtype))
     for name, shape in shapes.items():
         if tuple(tensors[name].shape) != shape:
@@ -159,28 +142,6 @@ def _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
                                                        b))
 
 
-def _uses_kernel(t):
-    """Whether a call on ``t``'s device launches a kernel: False on the CPU
-    (the plain version), True on a CUDA device; any other device raises."""
-    if t.device.type == 'cpu':
-        return False
-    if t.device.type != 'cuda':
-        raise ValueError('no CDNA tail kernel for device {}'.format(t.device))
-    return True
-
-
-def _wants_grad(*tensors):
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-
-
-def _no_backward(entry):
-    raise RuntimeError(
-        '{} has no backward kernel: on the card it serves inference only '
-        '(ROADMAP.md queue 2, "the backward for the other entries"); call '
-        'it under torch.no_grad() or with inputs that need no gradient'
-        .format(entry))
-
-
 def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
                          masks, sna=True, mask_block=0):
     """Fused warp + composite of the frame and the pixel distributions.
@@ -189,18 +150,23 @@ def fused_warp_composite(prev, first, prev_distrib, first_distrib, kernels,
     :func:`fused_warp_composite_reference`; all six tensors share one device
     and one dtype (float32 or bfloat16) and are contiguous.  On a CUDA device
     it launches ``csrc/cdna_tail.cu`` and counts the launch in
-    ``fused_warp_composite.launches``, by variant in
-    ``fused_warp_composite.launches_by_variant`` and, where the masks came
-    blocked, in ``fused_warp_composite.blocked_launches``.  Where an input
-    needs a gradient (grad mode on), the launch records an autograd node
-    whose backward is :func:`fused_warp_composite_backward`; that needs
-    P = 0 and raises otherwise.
+    ``fused_warp_composite.launches`` and, where the kernel reads the masks
+    blocked (r = 2 or 4), in ``fused_warp_composite.blocked_launches``;
+    masks of another block factor are expanded to full resolution first.
+    Where an input needs a gradient (grad mode on), the launch records an
+    autograd node whose backward is :func:`fused_warp_composite_backward`;
+    that needs P = 0 and raises otherwise.
     """
-    if not _uses_kernel(prev):
+    way = route(prev, first, prev_distrib, first_distrib, kernels, masks)
+    if way == 'plain':
         return fused_warp_composite_reference(
             prev, first, prev_distrib, first_distrib, kernels, masks, sna,
             mask_block)
-    if _wants_grad(prev, first, prev_distrib, first_distrib, kernels, masks):
+    if mask_block not in _KERNEL_BLOCKS:
+        _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
+               mask_block)
+        masks, mask_block = depth_to_space(masks, mask_block).contiguous(), 0
+    if way == 'graph':
         if prev_distrib.shape[-1]:
             raise RuntimeError(
                 'the CDNA tail backward kernel takes no distribution '
@@ -218,31 +184,21 @@ def _launch(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
     """One launch of the folded entry on the card (no autograd node)."""
     _check(prev, first, prev_distrib, first_distrib, kernels, masks, sna,
            mask_block)
-    fn = _kernel()
     b, h, w, c = prev.shape
-    p = prev_distrib.shape[-1]
-    variant = kernel_variant(c, p, mask_block)
     out_img = torch.empty_like(prev)
     out_distrib = torch.empty_like(prev_distrib)
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
-                 first_distrib.data_ptr(), kernels.data_ptr(),
-                 masks.data_ptr(), out_img.data_ptr(), out_distrib.data_ptr(),
-                 b, h, w, c, p, kernels.shape[1], kernels.shape[3], int(sna),
-                 _DTYPES[prev.dtype], mask_block, VARIANTS.index(variant),
-                 stream)
-    if err != 0:
-        raise RuntimeError('cdna_tail kernel launch failed: cudaError {}'
-                           .format(err))
+    _FORWARD.launch(
+        prev.device, prev.data_ptr(), first.data_ptr(),
+        prev_distrib.data_ptr(), first_distrib.data_ptr(), kernels.data_ptr(),
+        masks.data_ptr(), out_img.data_ptr(), out_distrib.data_ptr(), b, h, w,
+        c, prev_distrib.shape[-1], kernels.shape[1], kernels.shape[3],
+        int(sna), DTYPES[prev.dtype], mask_block)
     fused_warp_composite.launches += 1
-    fused_warp_composite.launches_by_variant[variant] += 1
     fused_warp_composite.blocked_launches += mask_block > 1
     return out_img, out_distrib
 
 
 fused_warp_composite.launches = 0
-fused_warp_composite.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 fused_warp_composite.blocked_launches = 0
 
 
@@ -331,16 +287,6 @@ def backward_partials_shape(b, h, w, ksize, m, mask_block=0):
     return (b, tiles, ksize * ksize * m)
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    """The backward kernel's C entry point, with its ctypes signature."""
-    fn = _build.load(BWD_SOURCE).cdna_tail_backward
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
                                   sna=True, mask_block=0,
                                   needs=(True, True, True, True)):
@@ -354,7 +300,7 @@ def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
     give the same bits) and counts the call in
     ``fused_warp_composite_backward.launches``.
     """
-    if not _uses_kernel(prev):
+    if route(prev) == 'plain':
         grads = fused_warp_composite_backward_reference(
             grad_img, prev, first, kernels, masks, sna, mask_block)
         return tuple(gr if n else None for gr, n in zip(grads, needs))
@@ -371,16 +317,10 @@ def fused_warp_composite_backward(grad_img, prev, first, kernels, masks,
         backward_partials_shape(b, h, w, ksize, m, mask_block),
         dtype=torch.float32, device=prev.device) if needs[2] else None
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    fn = _bwd_kernel()
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(grad_img.data_ptr(), prev.data_ptr(), first.data_ptr(),
-                 kernels.data_ptr(), masks.data_ptr(), *map(ptr, outs),
-                 ptr(partials), b, h, w, c, ksize, m, int(sna),
-                 _DTYPES[prev.dtype], mask_block, stream)
-    if err != 0:
-        raise RuntimeError('cdna_tail backward kernel launch failed: '
-                           'cudaError {}'.format(err))
+    _BACKWARD.launch(prev.device, grad_img.data_ptr(), prev.data_ptr(),
+                     first.data_ptr(), kernels.data_ptr(), masks.data_ptr(),
+                     *map(ptr, outs), ptr(partials), b, h, w, c, ksize, m,
+                     int(sna), DTYPES[prev.dtype], mask_block)
     fused_warp_composite_backward.launches += 1
     return tuple(outs)
 
@@ -408,16 +348,6 @@ def fused_warp_composite_eff_reference(prev, first, prev_distrib,
         out = out + torch.cat([first.float(), first_distrib.float()],
                               dim=-1) * masks32[..., 1:2]
     return out[..., :c].to(prev.dtype), out[..., c:].to(prev_distrib.dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _eff_kernel():
-    """The effective-kernel entry's C entry point, with its signature."""
-    fn = _build.load(SOURCE).cdna_tail_eff_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_eff(prev, first, prev_distrib, first_distrib, eff_kernels,
@@ -451,31 +381,26 @@ def fused_warp_composite_eff(prev, first, prev_distrib, first_distrib,
     in ``fused_warp_composite_eff.launches``.  It has no backward kernel:
     on the card, asked for a gradient, it raises.
     """
-    if not _uses_kernel(prev):
+    way = route(prev, first, prev_distrib, first_distrib, eff_kernels,
+                bg_masks)
+    if way == 'plain':
         return fused_warp_composite_eff_reference(
             prev, first, prev_distrib, first_distrib, eff_kernels, bg_masks,
             sna)
-    if _wants_grad(prev, first, prev_distrib, first_distrib, eff_kernels,
-                   bg_masks):
-        _no_backward('fused_warp_composite_eff')
+    if way == 'graph':
+        no_backward('fused_warp_composite_eff')
     _check_eff(prev, first, prev_distrib, first_distrib, eff_kernels,
                bg_masks, sna)
-    fn = _eff_kernel()
     b, h, w, c = prev.shape
-    p = prev_distrib.shape[-1]
     ksize = int(round(eff_kernels.shape[-1] ** 0.5))
     out_img = torch.empty_like(prev)
     out_distrib = torch.empty_like(prev_distrib)
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
-                 first_distrib.data_ptr(), eff_kernels.data_ptr(),
-                 bg_masks.data_ptr(), out_img.data_ptr(),
-                 out_distrib.data_ptr(), b, h, w, c, p, ksize,
-                 bg_masks.shape[-1], int(sna), _DTYPES[prev.dtype], stream)
-    if err != 0:
-        raise RuntimeError('cdna_tail eff kernel launch failed: cudaError {}'
-                           .format(err))
+    _EFF.launch(prev.device, prev.data_ptr(), first.data_ptr(),
+                prev_distrib.data_ptr(), first_distrib.data_ptr(),
+                eff_kernels.data_ptr(), bg_masks.data_ptr(),
+                out_img.data_ptr(), out_distrib.data_ptr(), b, h, w, c,
+                prev_distrib.shape[-1], ksize, bg_masks.shape[-1], int(sna),
+                DTYPES[prev.dtype])
     fused_warp_composite_eff.launches += 1
     return out_img, out_distrib
 
@@ -504,16 +429,6 @@ def fused_warp_composite_dna_reference(prev, first, prev_distrib,
     return fused_warp_composite_eff_reference(
         prev, first, prev_distrib, first_distrib, eff.to(dt),
         masks[..., :offset].to(dt), sna)
-
-
-@functools.lru_cache(maxsize=None)
-def _dna_kernel():
-    """The DNA mode's C entry point, with its signature."""
-    fn = _build.load(SOURCE).cdna_tail_dna_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_dna(prev, first, prev_distrib, first_distrib, dna_logits, masks,
@@ -555,31 +470,24 @@ def fused_warp_composite_dna(prev, first, prev_distrib, first_distrib,
     ``fused_warp_composite_dna.launches``.  It has no backward kernel: on
     the card, asked for a gradient, it raises.
     """
-    if not _uses_kernel(prev):
+    way = route(prev, first, prev_distrib, first_distrib, dna_logits, masks)
+    if way == 'plain':
         return fused_warp_composite_dna_reference(
             prev, first, prev_distrib, first_distrib, dna_logits, masks, sna)
-    if _wants_grad(prev, first, prev_distrib, first_distrib, dna_logits,
-                   masks):
-        _no_backward('fused_warp_composite_dna')
+    if way == 'graph':
+        no_backward('fused_warp_composite_dna')
     _check_dna(prev, first, prev_distrib, first_distrib, dna_logits, masks,
                sna)
-    fn = _dna_kernel()
     b, h, w, c = prev.shape
-    p = prev_distrib.shape[-1]
     ksize = int(round(dna_logits.shape[-1] ** 0.5))
     out_img = torch.empty_like(prev)
     out_distrib = torch.empty_like(prev_distrib)
-    with torch.cuda.device(prev.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(prev.data_ptr(), first.data_ptr(), prev_distrib.data_ptr(),
-                 first_distrib.data_ptr(), dna_logits.data_ptr(),
-                 masks.data_ptr(), out_img.data_ptr(),
-                 out_distrib.data_ptr(), b, h, w, c, p, ksize,
-                 masks.shape[-1], int(sna), _DTYPES[prev.dtype],
-                 _DTYPES[masks.dtype], stream)
-    if err != 0:
-        raise RuntimeError('cdna_tail DNA kernel launch failed: cudaError {}'
-                           .format(err))
+    _DNA.launch(prev.device, prev.data_ptr(), first.data_ptr(),
+                prev_distrib.data_ptr(), first_distrib.data_ptr(),
+                dna_logits.data_ptr(), masks.data_ptr(), out_img.data_ptr(),
+                out_distrib.data_ptr(), b, h, w, c, prev_distrib.shape[-1],
+                ksize, masks.shape[-1], int(sna), DTYPES[prev.dtype],
+                DTYPES[masks.dtype])
     fused_warp_composite_dna.launches += 1
     return out_img, out_distrib
 

@@ -21,22 +21,22 @@ with the sum rounded to ``x``'s type before the statistics, as the stock
 add rounds it, and ``x`` read as a strided view (``dec3``'s crop is never
 copied).
 
-Dispatch is by the device of the tensors: a CUDA tensor launches the kernel
-or raises; a CPU tensor takes the plain version
+Dispatch is by ``dispatch.route``: on a CUDA device a call launches the
+kernel or raises (also where autograd would record a graph: neither kernel
+has a backward); on the CPU it takes the plain version
 (:func:`conv_lstm_ln_reference`, :func:`bias_layer_norm_reference`), the
 chain of stock ops that ``models/layers.py`` runs off the kernel.
 """
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
 
-from visual_foresight_torch.ops import _build
+from visual_foresight_torch.ops.dispatch import (DTYPES, Entry, no_backward,
+                                                 route)
 
 SOURCE = 'conv_lstm_ln.cu'
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_VECTORS = 128          # 16-byte words a row: a power of two up to this
 _MAX_ROWS = 2 ** 31 - 1     # bias_layer_norm's rows, indexed in 32 bits
 
@@ -83,7 +83,7 @@ def conv_lstm_ln_reference(x, r, c, weight, bias, eps):
 def takes_width(features, dtype):
     """Whether the kernel takes rows of ``features`` values of ``dtype``: a
     power of two of 16-byte words, up to ``_MAX_VECTORS``."""
-    if dtype not in _DTYPES:
+    if dtype not in DTYPES:
         return False
     per_word = 16 // torch.empty((), dtype=dtype).element_size()
     words = features // per_word
@@ -91,27 +91,15 @@ def takes_width(features, dtype):
         words & (words - 1) == 0 and words <= _MAX_VECTORS
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point, with its ctypes signature."""
-    fn = _build.load(SOURCE).conv_lstm_ln_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_float] + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _norm_kernel():
-    """The built LayerNorm's C entry point, with its ctypes signature."""
-    fn = _build.load(SOURCE).bias_layer_norm_forward
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p,
-                                           ctypes.c_longlong] + \
-        [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_CELL = Entry(SOURCE, 'conv_lstm_ln_forward',
+              [ctypes.c_void_p] * 5 + [ctypes.c_float] +
+              [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int])
+_NORM = Entry(SOURCE, 'bias_layer_norm_forward',
+              [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p,
+                                       ctypes.c_longlong] +
+              [ctypes.c_int] * 2 + [ctypes.c_longlong] * 3 +
+              [ctypes.c_int, ctypes.c_int])
 
 
 def _check_tensors(named, ref_name, strided=()):
@@ -120,7 +108,7 @@ def _check_tensors(named, ref_name, strided=()):
     f32), is contiguous unless named in ``strided``, and starts on a 16-byte
     boundary."""
     ref = named[ref_name]
-    if ref.dtype not in _DTYPES:
+    if ref.dtype not in DTYPES:
         raise ValueError('unsupported dtype {}'.format(ref.dtype))
     for name, t in named.items():
         if t is None:
@@ -139,15 +127,6 @@ def _check_tensors(named, ref_name, strided=()):
                 name))
 
 
-def _check_grad(op, tensors):
-    """Raise if autograd would record a graph of ``op`` on ``tensors``."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise RuntimeError(
-            '{} has no backward kernel: call it under torch.no_grad() or '
-            'with inputs that need no gradient'.format(op))
-
-
 def _check(x, r, c, weight, bias):
     """Raise unless the kernel takes these tensors."""
     _check_tensors({'x': x, 'c': c, 'weight': weight, 'bias': bias, 'r': r},
@@ -163,7 +142,6 @@ def _check(x, r, c, weight, bias):
     if not takes_width(feat, c.dtype):
         raise ValueError('no conv_lstm_ln kernel for {} features of {}'
                          .format(feat, c.dtype))
-    _check_grad('conv_lstm_ln', (x, r, c, weight, bias))
 
 
 def conv_lstm_ln(x, r, c, weight, bias, eps):
@@ -177,24 +155,18 @@ def conv_lstm_ln(x, r, c, weight, bias, eps):
     ``csrc/conv_lstm_ln.cu`` and counts the launch in
     ``conv_lstm_ln.launches``.
     """
-    if c.device.type == 'cpu':
+    way = route(c, x, r, weight, bias)
+    if way == 'plain':
         return conv_lstm_ln_reference(x, r, c, weight, bias, eps)
-    if c.device.type != 'cuda':
-        raise ValueError('no conv_lstm_ln kernel for device {}'.format(
-            c.device))
+    if way == 'graph':
+        no_backward('conv_lstm_ln')
     _check(x, r, c, weight, bias)
-    fn = _kernel()
     outs = [torch.empty_like(c) for _ in range(3)]
     rows = c.numel() // c.shape[-1] if c.numel() else 0
-    with torch.cuda.device(c.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), None if r is None else r.data_ptr(),
+    _CELL.launch(c.device, x.data_ptr(), None if r is None else r.data_ptr(),
                  c.data_ptr(), weight.data_ptr(), bias.data_ptr(), eps,
                  *(t.data_ptr() for t in outs), rows, c.shape[-1],
-                 _DTYPES[c.dtype], stream)
-    if err != 0:
-        raise RuntimeError('conv_lstm_ln kernel launch failed: cudaError {}'
-                           .format(err))
+                 DTYPES[c.dtype])
     conv_lstm_ln.launches += 1
     return tuple(outs)
 
@@ -227,7 +199,6 @@ def _check_norm(x, conv_bias, weight, bias):
     if x.numel() // feat > _MAX_ROWS:
         raise ValueError('bias_layer_norm takes at most {} rows'.format(
             _MAX_ROWS))
-    _check_grad('bias_layer_norm', (x, conv_bias, weight, bias))
 
 
 def bias_layer_norm(x, conv_bias, weight, bias, eps):
@@ -243,23 +214,18 @@ def bias_layer_norm(x, conv_bias, weight, bias, eps):
     launches ``csrc/conv_lstm_ln.cu``'s second kernel and counts the launch
     in ``bias_layer_norm.launches``.
     """
-    if x.device.type == 'cpu':
+    way = route(x, conv_bias, weight, bias)
+    if way == 'plain':
         return bias_layer_norm_reference(x, conv_bias, weight, bias, eps)
-    if x.device.type != 'cuda':
-        raise ValueError('no bias_layer_norm kernel for device {}'.format(
-            x.device))
+    if way == 'graph':
+        no_backward('bias_layer_norm')
     _check_norm(x, conv_bias, weight, bias)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _norm_kernel()(
-            x.data_ptr(), None if conv_bias is None else conv_bias.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), eps, out.data_ptr(),
-            *x.shape[:3], *x.stride()[:3], x.shape[-1], _DTYPES[x.dtype],
-            stream)
-    if err != 0:
-        raise RuntimeError('bias_layer_norm kernel launch failed: cudaError '
-                           '{}'.format(err))
+    _NORM.launch(
+        x.device, x.data_ptr(),
+        None if conv_bias is None else conv_bias.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), eps, out.data_ptr(),
+        *x.shape[:3], *x.stride()[:3], x.shape[-1], DTYPES[x.dtype])
     bias_layer_norm.launches += 1
     return out
 

@@ -5,19 +5,20 @@ Counterpart of the Pallas kernel ``add_one`` in
 ``csrc/probe_add_one.cu`` adds one to any f32 tensor.  A broken compiler,
 loader or launch so shows up at the smallest step.
 
-Dispatch is by the device of the tensor: a CUDA tensor launches the kernel or
+Dispatch is by ``dispatch.route``: a CUDA tensor launches the kernel or
 raises; a CPU tensor takes :func:`add_one_reference`.
 """
 
 import ctypes
-import functools
 
 import torch
 
-from visual_foresight_torch.ops import _build
+from visual_foresight_torch.ops.dispatch import Entry, route
 
 SOURCE = 'probe_add_one.cu'
 PROBE_SHAPE = (8, 128)
+_ADD_ONE = Entry(SOURCE, 'probe_add_one',
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong])
 
 
 def add_one_reference(x):
@@ -25,38 +26,20 @@ def add_one_reference(x):
     return x + 1
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    """The built kernel's C entry point, with its ctypes signature."""
-    fn = _build.load(SOURCE).probe_add_one
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def add_one(x):
     """``x + 1`` for a contiguous float32 tensor of any shape.  On a CUDA
     device it launches ``csrc/probe_add_one.cu`` and counts the launch in
     ``add_one.launches``."""
-    if x.device.type == 'cpu':
+    if route(x) == 'plain':
         return add_one_reference(x)
-    if x.device.type != 'cuda':
-        raise ValueError('no add_one kernel for device {}'.format(x.device))
     if x.dtype != torch.float32:
         raise ValueError('add_one takes float32, got {}'.format(x.dtype))
     if not x.is_contiguous():
         raise ValueError('x must be contiguous')
-    fn = _kernel()
     out = torch.empty_like(x)
     if not x.numel():
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
-    if err != 0:
-        raise RuntimeError('add_one kernel launch failed: cudaError {}'.format(
-            err))
+    _ADD_ONE.launch(x.device, x.data_ptr(), out.data_ptr(), x.numel())
     add_one.launches += 1
     return out
 

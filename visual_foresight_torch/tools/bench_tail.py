@@ -11,7 +11,7 @@ turns within one run on one card; each builds its kernels into its own
 limit, then, in bf16 at 48x64, C=3, K=5, M=10, SNA, masks blocked r=4:
 
 - the folded tail at B=768 with P=2 (the registration path's shape) and
-  P=1 (the serving shape): kernel ms and the variant that served it;
+  P=1 (the serving shape): kernel ms;
 - the backward at B=16 and 256, all four gradients: kernel ms.
 
 Each time is one call's share of a CUDA graph of many calls cycling four
@@ -86,7 +86,6 @@ def main():
         sets = [inputs(768, p) for _ in range(4)]
         fwd = lambda *a: cdna_tail.fused_warp_composite(*a, mask_block=R)
         res['tail_p{}_ms'.format(p)] = graph_ms(torch, fwd, sets, 100)
-        res['tail_p{}_variant'.format(p)] = cdna_tail.kernel_variant(C, p, R)
         del sets
     for b in (16, 256):
         sets = []
